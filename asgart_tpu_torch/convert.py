@@ -1,0 +1,40 @@
+"""State carried across from the JAX package: its fused index.
+
+The system has no weights; its state is the device index. These helpers
+take the arrays of a JAX ``FusedIndex`` (asgart_tpu/device_index.py:1580),
+read out with ``np.asarray``, and give the port's counterparts, so the
+port's scan can run on an index the JAX package built.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .fused_index import FusedIndex
+
+
+def rank_from_decimated(rank_dec: np.ndarray, step: int, W: int
+                        ) -> np.ndarray:
+    """Plain-layout rank [W] from the JAX decimated rank (position p sits
+    at (p % step) * C + p // step, C = len(rank_dec) // step)."""
+    C = len(rank_dec) // step
+    p = np.arange(W)
+    return np.asarray(rank_dec)[(p % step) * C + p // step]
+
+
+def fused_index_from_numpy(sa, lane_lo, lane_hi, lane_mask, specs, offs,
+                           k: int, n: int, first_len: int, reverse: bool,
+                           complement: bool, device: torch.device
+                           ) -> FusedIndex:
+    """The port's FusedIndex from a JAX FusedIndex's arrays and fields
+    (its float raw totals become ints)."""
+    def dev(a, dtype):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    return FusedIndex(
+        sa=dev(sa, torch.int32), lane_lo=dev(lane_lo, torch.int32),
+        lane_hi=dev(lane_hi, torch.int32),
+        lane_mask=dev(lane_mask, torch.bool), specs=tuple(specs),
+        offs={c: (int(o), int(t)) for c, (o, t) in offs.items()}, k=k,
+        n=n, first_len=first_len, reverse=reverse, complement=complement)
