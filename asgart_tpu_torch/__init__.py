@@ -2,7 +2,7 @@
 Hopper GPU (H100).
 
 The JAX package ``asgart_tpu`` is the reference: this package reproduces
-its fused whole-genome engine (one device, k <= 20) byte-for-byte, with
+its fused whole-genome engine (one device, k = 2..30) byte-for-byte, with
 hand-written CUDA kernels in ``csrc/`` for the device passes and the
 shared host modules of ``asgart_tpu`` (FASTA parsing, native chaining,
 post-processing, exporters) imported unchanged. It imports ``torch`` and

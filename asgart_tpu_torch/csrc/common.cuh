@@ -31,4 +31,27 @@ __device__ __forceinline__ int chunk_of(const long long* off, int n_chunks,
   return lo;
 }
 
+// First index j <= i of the run that holds row i, in an array whose equal
+// rows are adjacent (sorted); `same(j)` says whether row j equals row i.
+// Gallops backwards (1, 2, 4, ... rows), then bisects: O(log run length)
+// reads per row and no cross-block dependency, in place of the cummax
+// scan the JAX package uses.
+template <class Same>
+__device__ __forceinline__ long long run_start(long long i, Same same) {
+  if (i == 0 || !same(i - 1)) return i;
+  long long good = i - 1;  // known equal
+  long long bad = -1;      // known different (or before the array)
+  for (long long d = 1;; d *= 2) {
+    const long long probe = i - 2 * d;
+    if (probe < 0) break;
+    if (!same(probe)) { bad = probe; break; }
+    good = probe;
+  }
+  while (good - bad > 1) {
+    const long long mid = bad + (good - bad) / 2;
+    if (same(mid)) good = mid; else bad = mid;
+  }
+  return good;
+}
+
 }  // namespace asgart

@@ -1,0 +1,100 @@
+// KE tie_keys and KF tie_refine: one round of prefix doubling on the tied
+// subset of the fused index, around a library sort of the round keys.
+//
+// Replaces (JAX reference): asgart_tpu/device_index.py:696
+// _doubling_rounds (one_round: the rank[p + h] gather, the (prim, sec)
+// sort keys, the scatter into the ascending slots, the cummax of sub-run
+// start slots and the still-tied flags), with :682 _slot_payload's
+// gather, driven by :807 _resolve_ties.
+//
+// Entry i of the tied subset holds slot slots[i] (ascending), position
+// ps[i] and the rank prims[i] of its group (the slot of the group start).
+//   KE  key[i] = (prims[i] << 32) | (rank[ps[i] + h] + 1). A read past the
+//       direct text (ps[i] + h >= W) cannot happen for a strand that ends
+//       in a unique '$'; it sets *bad, which the caller reads with the
+//       round's still-tied count, and reads rank[W - 1] instead (the
+//       caller raises). The JAX package clamps the read silently.
+//   (the caller sorts key stably: skey, order)
+//   KF  per sorted entry r: p = ps[order[r]]; the sub-run start s of r in
+//       skey; sa[slots[r]] = p, rank[p] = slots[s]; outputs p, slots[s]
+//       and still[r] = the sub-run is longer than one.
+//
+// Bound on the H100: KE reads 12 B per entry in order plus one random
+// 4-byte rank gather and writes 8 B; KF reads 8 B of keys and 8 B of
+// order in order, gathers ps, and scatters 4 B into sa (slots ascending,
+// so nearly coalesced) and 4 B into rank (random). Both are memory-bound
+// with a random access per entry. The JAX cummax scan over sub-run starts
+// is a cross-block dependency on a GPU; KF finds each entry's sub-run
+// start by galloping back over the sorted keys (asgart::run_start), so
+// entries deep in long runs (the repeat-dense case) pay O(log run) cached
+// reads and nothing crosses blocks. One thread per entry, grid-stride.
+#include "common.cuh"
+
+namespace {
+
+__global__ void tie_keys_kernel(const int* __restrict__ ps,
+                                const int* __restrict__ prims,
+                                const int* __restrict__ rank, long long n,
+                                long long W, long long h,
+                                long long* __restrict__ key,
+                                int* __restrict__ bad) {
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < n; i += (long long)gridDim.x * blockDim.x) {
+    long long ph = (long long)ps[i] + h;
+    if (ph >= W) {
+      *bad = 1;
+      ph = W - 1;
+    }
+    key[i] = ((long long)prims[i] << 32) | ((long long)__ldg(rank + ph) + 1);
+  }
+}
+
+__global__ void tie_refine_kernel(const long long* __restrict__ skey,
+                                  const long long* __restrict__ order,
+                                  const int* __restrict__ slots,
+                                  const int* __restrict__ ps, long long n,
+                                  int* __restrict__ sa,
+                                  int* __restrict__ rank,
+                                  int* __restrict__ p_sorted,
+                                  int* __restrict__ rs_out,
+                                  uint8_t* __restrict__ still) {
+  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       r < n; r += (long long)gridDim.x * blockDim.x) {
+    const long long v = skey[r];
+    const int p = __ldg(ps + order[r]);
+    const long long s = asgart::run_start(
+        r, [&](long long j) { return __ldg(skey + j) == v; });
+    const int rs = __ldg(slots + s);
+    sa[__ldg(slots + r)] = p;
+    rank[p] = rs;
+    p_sorted[r] = p;
+    rs_out[r] = rs;
+    still[r] = s < r || (r + 1 < n && __ldg(skey + r + 1) == v);
+  }
+}
+
+}  // namespace
+
+ASGART_API int asgart_tie_keys(const void* ps, const void* prims,
+                               const void* rank, long long n, long long W,
+                               long long h, void* key, void* bad,
+                               void* stream) {
+  tie_keys_kernel<<<asgart::grid_for(n), asgart::kThreads, 0,
+                    (cudaStream_t)stream>>>(
+      (const int*)ps, (const int*)prims, (const int*)rank, n, W, h,
+      (long long*)key, (int*)bad);
+  return (int)cudaGetLastError();
+}
+
+ASGART_API int asgart_tie_refine(const void* skey, const void* order,
+                                 const void* slots, const void* ps,
+                                 long long n, void* sa, void* rank,
+                                 void* p_sorted, void* rs, void* still,
+                                 void* stream) {
+  tie_refine_kernel<<<asgart::grid_for(n), asgart::kThreads, 0,
+                      (cudaStream_t)stream>>>(
+      (const long long*)skey, (const long long*)order, (const int*)slots,
+      (const int*)ps, n, (int*)sa, (int*)rank, (int*)p_sorted, (int*)rs,
+      (uint8_t*)still);
+  return (int)cudaGetLastError();
+}

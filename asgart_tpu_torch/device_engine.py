@@ -1,7 +1,7 @@
 """The fused whole-genome engine on one device.
 
 Counterpart of ``FusedEngine`` (asgart_tpu/device_engine.py:2157) for the
-whole-genome, one-device, k <= 20 route. Per chunk: KD ``scan_core`` on the
+whole-genome, one-device route (k = 2..30). Per chunk: KD ``scan_core`` on the
 chunk's lane slice of the fused index, one device-to-host copy of its
 exactly-sized outputs, then the native event chain with the arguments of
 device_engine.py:1519-1525. The JAX engine's capacity buckets, overflow

@@ -1,17 +1,20 @@
 """The fused-probe whole-genome index on one device.
 
 Counterpart of ``FusedIndex`` / ``FusedIndex.build`` and ``fused_fits``
-(asgart_tpu/device_index.py:1571-1787) for the whole-genome, k <= 20 case,
-plus a one-entry device index cache (the counterpart of ``cached_build``,
-device_index.py:1064).
+(asgart_tpu/device_index.py:1571-1787) for the whole-genome case at
+k = 2..30, plus a one-entry device index cache (the counterpart of
+``cached_build``, device_index.py:1064).
 
 The direct text's W = n1 key rows and every chunk's probe-lane rows are
 sorted together; equal-key runs then give each probe lane its window
 [lane_lo, lane_hi) of direct suffixes, and tie resolution turns the
 k-mer order into the suffix order. Build steps and their kernels:
 
-  upload codes (codes.py) -> KA pack_keys -> torch.sort(stable=True)
-  -> KB group_bounds -> KC invert_fused -> ties.resolve_ties
+  upload codes (codes.py) -> KA pack_keys -> sort_keys (torch.sort)
+  -> KB group_bounds -> KC invert_fused -> ties.resolve_ties (KE, KF)
+
+The sort key is one int64 word up to k = 20 and two words (int64, int32)
+for k = 21..30 (kernels/pack_keys.py).
 """
 
 from __future__ import annotations
@@ -25,16 +28,45 @@ import torch
 from .codes import upload_codes
 from .host_helpers import _bucket, _strand_fingerprint
 from .kernels import group_bounds, invert_fused, pack_keys
+from .kernels.pack_keys import MAX_K, key_words
 from .ties import resolve_ties
 
-MAX_K = 20  # two 30-bit symbol planes in one int64 key
+# Device bytes per fused row (W + probe lanes) at the build's peak, by key
+# words: the stable sorts hold the key words, their sorted copies, the
+# int64 row indices and the sort's scratch, next to codes and lane
+# arrays. Measured with torch.cuda.max_memory_allocated in chip_smoke.py's
+# cold runs on an NVIDIA H100 80GB HBM3 (700 W power limit), 128 Mbp -RC:
+# one word 48.34 B/row at 141.7 M rows (k = 20), two words 56.33 B/row at
+# 139.6 M rows (k = 25); rounded up for a margin.
+PEAK_BYTES_PER_ROW = {1: 50, 2: 58}
 
-# Device bytes per fused row (W + probe lanes) at the build's peak: the
-# stable sort holds the int64 key, its sorted copy, the int64 row indices
-# and the sort's scratch, next to codes and lane arrays. Measured
-# 48.34 B/row at 141.7 M rows on an H100 80GB (chip_smoke.py prints it);
-# 50 leaves a margin.
-PEAK_BYTES_PER_ROW = 50
+
+def sort_keys(keys: list):
+    """Stable sort of the fused rows by their key words (most significant
+    first), ties kept in row order as ``jax.lax.sort(is_stable=True)``
+    keeps its iota payload. Empties ``keys`` (each word is freed once it
+    is dead) and returns (sorted words, sa int32: the rows in order).
+
+    Two words sort LSD: a stable sort by the low word, then a stable sort
+    of the high word gathered into that order, the permutations composed
+    (two library radix sorts; no kernel of this repository)."""
+    if len(keys) == 1:
+        skey, order = torch.sort(keys.pop(), stable=True)
+        return [skey], order.to(torch.int32)
+    w1, w0 = keys
+    keys.clear()
+    sw0, order = torch.sort(w0, stable=True)
+    del w0
+    perm = order.to(torch.int32)
+    del order
+    g1 = w1[perm]
+    del w1
+    sw1, order = torch.sort(g1, stable=True)
+    del g1
+    sa = perm[order]
+    del perm
+    sw0 = sw0[order]
+    return [sw1, sw0], sa
 
 
 def fused_layout(n1: int, specs) -> tuple[int, int, list[int]]:
@@ -53,7 +85,8 @@ def fused_layout(n1: int, specs) -> tuple[int, int, list[int]]:
 def fused_fits(n1: int, k: int, device: torch.device,
                reclaimable: int = 0) -> bool:
     """Whether the fused build of an ``n1``-byte strand fits ``device``:
-    int32 row addressing, and on a GPU the projected peak within the free
+    int32 row addressing, and on a GPU the projected peak (rows times
+    ``PEAK_BYTES_PER_ROW`` of k's key words) within the free
     memory ``torch.cuda.mem_get_info`` reports, plus the blocks PyTorch's
     allocator holds unused, plus ``reclaimable`` bytes (a cached index
     that a miss would evict)."""
@@ -65,7 +98,7 @@ def fused_fits(n1: int, k: int, device: torch.device,
     free, _ = torch.cuda.mem_get_info(device)
     free += (torch.cuda.memory_reserved(device)
              - torch.cuda.memory_allocated(device))
-    return M * PEAK_BYTES_PER_ROW <= free + reclaimable
+    return M * PEAK_BYTES_PER_ROW[key_words(k)] <= free + reclaimable
 
 
 @dataclass
@@ -107,15 +140,12 @@ class FusedIndex:
             raise ValueError("genome too large for int32 addressing")
 
         codes = upload_codes(strand_data, device)
-        key, lane_mask = pack_keys(codes, specs, k, reverse, complement, W,
-                                   total)
+        keys, lane_mask = pack_keys(codes, specs, k, reverse, complement,
+                                    W, total)
         del codes
-        skey, order = torch.sort(key, stable=True)
-        del key
-        sa = order.to(torch.int32)
-        del order
-        run_lo, run_hi, tied = group_bounds(skey, sa, W)
-        del skey
+        skeys, sa = sort_keys(keys)
+        run_lo, run_hi, tied = group_bounds(skeys, sa, W)
+        del skeys
         rank, lane_lo, lane_hi, totals = invert_fused(
             sa, run_lo, run_hi, lane_mask, W, lane_off)
         del run_lo, run_hi

@@ -6,8 +6,10 @@ from .group_bounds import group_bounds
 from .invert import invert_fused
 from .pack_keys import pack_keys
 from .scan_core import scan_core
+from .ties import tie_keys, tie_refine
 
-KERNELS = (pack_keys, group_bounds, invert_fused, scan_core)
+KERNELS = (pack_keys, group_bounds, invert_fused, tie_keys, tie_refine,
+           scan_core)
 
 
 def launch_counts() -> dict:

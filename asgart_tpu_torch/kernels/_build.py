@@ -27,7 +27,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "asgart_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
+NVCC_LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -35,11 +36,17 @@ _I32 = ctypes.c_int
 # entry point -> argument types (all return int: a cudaError_t)
 SIGNATURES = {
     # codes, n1, lane_off [n_chunks + 1], x0cl [n_chunks, 2], n_chunks, W,
-    # total, k, reverse, complement, key, lane_mask, stream
+    # total, k, reverse, complement, key, key_lo (None: one word),
+    # lane_mask, stream
     "asgart_pack_keys": [_P, _I64, _P, _P, _I32, _I64, _I64, _I32, _I32,
-                         _I32, _P, _P, _P],
-    # skey, sa, M, W, run_lo, run_hi, tied, stream
-    "asgart_group_bounds": [_P, _P, _I64, _I64, _P, _P, _P, _P],
+                         _I32, _P, _P, _P, _P],
+    # skey, skey_lo (None: one word), sa, M, W, run_lo, run_hi, tied,
+    # stream
+    "asgart_group_bounds": [_P, _P, _P, _I64, _I64, _P, _P, _P, _P],
+    # ps, prims, rank, n, W, h, key, bad, stream
+    "asgart_tie_keys": [_P, _P, _P, _I64, _I64, _I64, _P, _P, _P],
+    # skey, order, slots, ps, n, sa, rank, p_sorted, rs, still, stream
+    "asgart_tie_refine": [_P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P],
     # sa, run_lo, run_hi, lane_mask, M, W, lane_off [n_chunks + 1],
     # n_chunks, rank, lane_lo, lane_hi, totals, stream
     "asgart_invert_fused": [_P, _P, _P, _P, _I64, _I64, _P, _I32, _P, _P,
@@ -80,7 +87,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + NVCC_LINK_FLAGS).encode())
     for src in _sources():
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as fh:
@@ -90,20 +97,39 @@ def library_path() -> str:
 
 
 def build() -> str:
-    """Compile the kernels unless the library for these sources exists;
-    returns its path."""
+    """Compile the kernels unless the library for these sources exists:
+    one ``nvcc -c`` per source, all started together, then one link.
+    Returns the library's path."""
     global build_seconds
     path = library_path()
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
+    objdir = tmp + ".o"
+    os.makedirs(objdir, exist_ok=True)
+    nvcc = _nvcc()
+    srcs = [s for s in _sources() if s.endswith(".cu")]
+    objs = [os.path.join(objdir, os.path.basename(s) + ".o") for s in srcs]
     t0 = time.time()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError("nvcc failed:\n" + res.stderr[-8000:])
+    try:
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for s, o in zip(srcs, objs)]
+        errors = []
+        for s, p in zip(srcs, procs):
+            _, err = p.communicate()
+            if p.returncode != 0:
+                errors.append(f"{os.path.basename(s)}:\n{err[-4000:]}")
+        if errors:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        res = subprocess.run([nvcc, *NVCC_LINK_FLAGS, "-o", tmp, *objs],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + res.stderr[-8000:])
+    finally:
+        shutil.rmtree(objdir, ignore_errors=True)
     os.replace(tmp, path)
     build_seconds = time.time() - t0
     return path

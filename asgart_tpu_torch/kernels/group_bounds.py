@@ -11,49 +11,56 @@ import torch
 from . import _build
 
 
-def group_bounds(skey: torch.Tensor, sa: torch.Tensor, W: int):
+def group_bounds(skeys, sa: torch.Tensor, W: int):
     """(run_lo int32 [M], run_hi int32 [M], tied bool [M]) for the sorted
-    keys ``skey`` (int64) and their rows ``sa`` (int32): run_lo is the
-    true-key (flag-free) run start, run_hi is run_lo for direct rows
-    (sa < W) and the full-key run start for probe rows, tied marks direct
-    rows whose full-key run is longer than one."""
-    M = skey.numel()
-    if skey.dtype != torch.int64 or sa.dtype != torch.int32 \
-            or sa.numel() != M or not (skey.is_contiguous()
-                                       and sa.is_contiguous()):
-        raise ValueError("group_bounds: skey int64 and sa int32, "
-                         "contiguous, of one length")
-    if not _build.on_cuda(skey, sa):
-        return group_bounds_plain(skey, sa, W)
-    dev = skey.device
+    keys ``skeys`` (the words of :func:`~.pack_keys.pack_keys`, sorted:
+    [skey int64] or [sw1 int64, sw0 int32]; the flag is bit 0 of the last
+    word) and their rows ``sa`` (int32): run_lo is the true-key
+    (flag-free) run start, run_hi is run_lo for direct rows (sa < W) and
+    the full-key run start for probe rows, tied marks direct rows whose
+    full-key run is longer than one."""
+    M = sa.numel()
+    dtypes = (torch.int64, torch.int32)[:len(skeys)]
+    if not 1 <= len(skeys) <= 2 or sa.dtype != torch.int32 \
+            or not sa.is_contiguous() \
+            or any(w.dtype != dt or w.numel() != M or not w.is_contiguous()
+                   for w, dt in zip(skeys, dtypes)):
+        raise ValueError("group_bounds: skeys [int64] or [int64, int32] "
+                         "and sa int32, contiguous, of one length")
+    if not _build.on_cuda(*skeys, sa):
+        return group_bounds_plain(skeys, sa, W)
+    dev = sa.device
     run_lo = torch.empty(M, dtype=torch.int32, device=dev)
     run_hi = torch.empty(M, dtype=torch.int32, device=dev)
     tied = torch.empty(M, dtype=torch.bool, device=dev)
     lib = _build.lib()
     group_bounds.launches += 1
     _build.check(lib.asgart_group_bounds(
-        skey.data_ptr(), sa.data_ptr(), M, W, run_lo.data_ptr(),
-        run_hi.data_ptr(), tied.data_ptr(), _build.stream_of(skey)),
-        "group_bounds")
+        skeys[0].data_ptr(),
+        skeys[1].data_ptr() if len(skeys) == 2 else None, sa.data_ptr(), M,
+        W, run_lo.data_ptr(), run_hi.data_ptr(), tied.data_ptr(),
+        _build.stream_of(sa)), "group_bounds")
     return run_lo, run_hi, tied
 
 
 group_bounds.launches = 0
 
 
-def group_bounds_plain(skey, sa, W):
+def group_bounds_plain(skeys, sa, W):
     """Plain PyTorch version of the KB kernel."""
-    M = skey.numel()
-    dev = skey.device
+    M = sa.numel()
+    dev = sa.device
     iota = torch.arange(M, device=dev)
 
-    def starts(v):
-        neq = torch.ones(M, dtype=torch.bool, device=dev)
-        neq[1:] = v[1:] != v[:-1]
+    def starts(*words):
+        neq = torch.zeros(M, dtype=torch.bool, device=dev)
+        neq[0] = True
+        for v in words:
+            neq[1:] |= v[1:] != v[:-1]
         return neq
 
-    neq_true = starts(skey >> 1)
-    neq_full = starts(skey)
+    neq_true = starts(*skeys[:-1], skeys[-1] >> 1)
+    neq_full = starts(*skeys)
     run_lo = torch.cummax(torch.where(neq_true, iota, 0), 0).values
     run_lo_full = torch.cummax(torch.where(neq_full, iota, 0), 0).values
     direct = sa < W

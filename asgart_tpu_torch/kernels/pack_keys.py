@@ -1,8 +1,9 @@
-"""KA ``pack_keys``: the int64 sort key of every fused-index row.
+"""KA ``pack_keys``: the sort key of every fused-index row, as one int64
+word (k <= 20) or two words (k = 21..30: int64 ``w1``, int32 ``w0``).
 
-Kernel: ``csrc/pack_keys.cu`` (see its header for what it replaces in the
-JAX package and how it is bounded). ``pack_keys_plain`` is the same
-function in plain PyTorch.
+Kernel: ``csrc/pack_keys.cu`` (see its header for the layout, what it
+replaces in the JAX package and how it is bounded). ``pack_keys_plain`` is
+the same function in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -14,7 +15,16 @@ from . import _build
 
 LO_SYMS = 10  # symbols in the low 30 bits (device_index.LO_SYMS)
 LO_CLAMP = (1 << 30) - 1
-PAD_KEY = ((2**31 - 1) << 31) | (LO_CLAMP << 1) | 1
+PLANE_MAX = 2**31 - 1  # the JAX pad sentinel of every plane
+PAD_KEY = (PLANE_MAX << 31) | (LO_CLAMP << 1) | 1
+PAD_KEY2 = ((PLANE_MAX << 31) | PLANE_MAX, (LO_CLAMP << 1) | 1)
+MAX_K = 3 * LO_SYMS  # two words hold three 30-bit symbol planes
+
+
+def key_words(k: int) -> int:
+    """Words of the fused sort key at probe size ``k``: one int64 up to
+    two 30-bit symbol planes and the flag (k <= 20), else two."""
+    return 1 if k <= 2 * LO_SYMS else 2
 
 
 def chunk_tables(specs, n1: int, k: int, reverse: bool, complement: bool):
@@ -38,9 +48,12 @@ def pack_keys(codes: torch.Tensor, specs, k: int, reverse: bool,
     (``specs`` = ((chunk_start, chunk_len, n_lanes), ...), lanes
     back-to-back, padded to ``total``) and the probe lane mask.
 
-    Returns (key int64 [W + total], lane_mask bool [total])."""
+    Returns (keys, lane_mask bool [total]): ``keys`` is a list of the
+    :func:`key_words` words, [key int64 [W + total]] or [w1 int64,
+    w0 int32], most significant first (a list, so that the sort can drop
+    each word once it is dead)."""
     n1 = codes.numel()
-    if not 0 < W <= n1 or not 2 <= k <= 2 * LO_SYMS:
+    if not 0 < W <= n1 or not 2 <= k <= MAX_K:
         raise ValueError(f"pack_keys: bad W={W} / k={k} for n1={n1}")
     if codes.dtype != torch.uint8 or not codes.is_contiguous():
         raise ValueError("pack_keys: codes must be contiguous uint8")
@@ -51,7 +64,9 @@ def pack_keys(codes: torch.Tensor, specs, k: int, reverse: bool,
         return pack_keys_plain(codes, lane_off, x0s, cls, k, reverse,
                                complement, W, total)
     dev = codes.device
-    key = torch.empty(W + total, dtype=torch.int64, device=dev)
+    keys = [torch.empty(W + total, dtype=torch.int64, device=dev)]
+    if key_words(k) == 2:
+        keys.append(torch.empty(W + total, dtype=torch.int32, device=dev))
     lane_mask = torch.empty(total, dtype=torch.bool, device=dev)
     off_t = torch.tensor(lane_off, dtype=torch.int64, device=dev)
     x0cl = torch.tensor([v for pair in zip(x0s, cls) for v in pair] or [0],
@@ -61,9 +76,9 @@ def pack_keys(codes: torch.Tensor, specs, k: int, reverse: bool,
     _build.check(lib.asgart_pack_keys(
         codes.data_ptr(), n1, off_t.data_ptr(), x0cl.data_ptr(),
         len(specs), W, total, k, int(reverse), int(complement),
-        key.data_ptr(), lane_mask.data_ptr(), _build.stream_of(codes)),
-        "pack_keys")
-    return key, lane_mask
+        keys[0].data_ptr(), keys[1].data_ptr() if len(keys) == 2 else None,
+        lane_mask.data_ptr(), _build.stream_of(codes)), "pack_keys")
+    return keys, lane_mask
 
 
 pack_keys.launches = 0
@@ -94,8 +109,8 @@ def pack_keys_plain(codes, lane_off, x0s, cls, k, reverse, complement, W,
         return hi, lo, first
 
     padded = torch.cat([c64, torch.zeros(k, dtype=torch.int64, device=dev)])
-    hi, lo, _ = fold(lambda t: padded[t:t + W])
-    direct = (hi << 31) | (lo << 1)
+    hi_d, lo, _ = fold(lambda t: padded[t:t + W])
+    lo_d = lo << 1  # flag 0
 
     n_live = lane_off[-1]
     transformed = reverse or complement
@@ -126,16 +141,25 @@ def pack_keys_plain(codes, lane_off, x0s, cls, k, reverse, complement, W,
         return torch.where(live, src[q.clamp(0, max(n_src - 1, 0))], 0)
 
     if n_live:
-        hi, lo, first = fold(probe_sym)
-        probe = (hi << 31) | (lo.clamp(max=LO_CLAMP) << 1) | 1
+        hi_p, lo, first = fold(probe_sym)
+        lo_p = (lo.clamp(max=LO_CLAMP) << 1) | 1  # flag 1
         mask = (first != 4) & (j * step < cl - k - step)
     else:
-        probe = torch.zeros(0, dtype=torch.int64, device=dev)
+        hi_p = lo_p = torch.zeros(0, dtype=torch.int64, device=dev)
         mask = torch.zeros(0, dtype=torch.bool, device=dev)
     pad = total - n_live
-    key = torch.cat([direct, probe,
-                     torch.full((pad,), PAD_KEY, dtype=torch.int64,
-                                device=dev)])
     lane_mask = torch.cat([mask, torch.zeros(pad, dtype=torch.bool,
                                              device=dev)])
-    return key, lane_mask
+    if key_words(k) == 1:
+        key = (torch.cat([hi_d, hi_p]) << 31) | torch.cat([lo_d, lo_p])
+        return [_pad(key, PAD_KEY, pad)], lane_mask
+    hi = torch.cat([hi_d, hi_p])
+    w1 = ((hi >> 30) << 31) | (hi & LO_CLAMP)
+    w0 = torch.cat([lo_d, lo_p]).to(torch.int32)
+    return [_pad(w1, PAD_KEY2[0], pad), _pad(w0, PAD_KEY2[1], pad)], \
+        lane_mask
+
+
+def _pad(word, value, pad):
+    return torch.cat([word, torch.full((pad,), value, dtype=word.dtype,
+                                       device=word.device)])

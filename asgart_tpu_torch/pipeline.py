@@ -75,9 +75,14 @@ def search_duplications(
         if settings.trim is not None:
             raise _unsupported("--trim", "A8")
         if settings.probe_size > MAX_K:
-            raise _unsupported(f"probe_size > {MAX_K}", "A7 (K10)")
+            raise NotImplementedError(
+                f"probe_size > {MAX_K} has no device route: the asgart_tpu "
+                "package serves those probe sizes on its host engine; use "
+                "engine='host'")
         if settings.probe_size < 2:
-            raise _unsupported("probe_size 1 (no probe stride)", "A7")
+            raise NotImplementedError(
+                "probe_size 1 gives a probe step of 0, which no engine of "
+                "the asgart_tpu package runs either (ROADMAP F6)")
         device = device if device is not None else cuda_device()
     prof = profile if profile is not None else {}
     total = time.time()

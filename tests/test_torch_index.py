@@ -17,6 +17,7 @@ from asgart_tpu_torch.kernels import group_bounds, invert_fused
 from torch_jax_ref import (TRANSFORMS, chunked_genome, fused_key,
                            jax_fused_stages, prepared, specs_for,
                            vocab_genome)
+from torch_jax_ref import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 
@@ -48,7 +49,7 @@ def test_sort_bounds_invert_equal_jax(tmp_path, reverse, complement):
                           | ref["sklo"].astype(np.int64))
 
     # KB
-    run_lo, run_hi, tied = group_bounds(skey, sa, W)
+    run_lo, run_hi, tied = group_bounds([skey], sa, W)
     assert np.array_equal(run_lo.numpy(), ref["run_lo"])
     assert np.array_equal(run_hi.numpy(), ref["run_hi"])
     assert np.array_equal(tied.numpy(), ref["tied"])
@@ -72,10 +73,17 @@ def test_sort_bounds_invert_equal_jax(tmp_path, reverse, complement):
     ("chunked", 20, False, False),
     ("chunked", 8, True, False),
     ("vocab", 20, True, True),
+    ("chunked", 21, True, True),
+    ("chunked", 25, False, False),
+    ("chunked", 30, True, False),
+    ("vocab", 21, False, True),
+    ("vocab", 25, True, True),
+    ("vocab", 30, False, False),
 ])
 def test_whole_build_equals_jax(tmp_path, genome, k, reverse, complement):
     """The final suffix order and lane windows, after tie resolution; the
-    vocabulary genome ties most of its positions."""
+    vocabulary genome ties most of its positions. k = 21..30 sorts two
+    key words (the JAX 3-plane build)."""
     from asgart_tpu.device_index import FusedIndex as JaxFusedIndex
 
     g = chunked_genome() if genome == "chunked" else vocab_genome()

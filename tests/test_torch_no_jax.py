@@ -63,7 +63,7 @@ def test_wrappers_take_kernel_path_for_gpu_tensors(monkeypatch):
 
     from asgart_tpu_torch.kernels import (_build, group_bounds,
                                           invert_fused, pack_keys,
-                                          scan_core)
+                                          scan_core, tie_keys, tie_refine)
 
     def mod(name):  # the module, not the wrapper of the same name
         return importlib.import_module(f"asgart_tpu_torch.kernels.{name}")
@@ -79,16 +79,29 @@ def test_wrappers_take_kernel_path_for_gpu_tensors(monkeypatch):
     for m, name in (("pack_keys", "pack_keys_plain"),
                     ("group_bounds", "group_bounds_plain"),
                     ("invert", "invert_fused_plain"),
-                    ("scan_core", "scan_core_plain")):
+                    ("scan_core", "scan_core_plain"),
+                    ("ties", "tie_keys_plain"),
+                    ("ties", "tie_refine_plain")):
         monkeypatch.setattr(mod(m), name, no_plain)
 
     i32, i64 = torch.int32, torch.int64
     codes = torch.ones(100, dtype=torch.uint8)
+    for k in (20, 25):
+        with pytest.raises(RuntimeError, match="kernel library"):
+            pack_keys(codes, ((0, 99, 7),), k, True, True, 100, 16)
     with pytest.raises(RuntimeError, match="kernel library"):
-        pack_keys(codes, ((0, 99, 7),), 20, True, True, 100, 16)
+        group_bounds([torch.arange(8, dtype=i64)],
+                     torch.arange(8, dtype=i32), 4)
     with pytest.raises(RuntimeError, match="kernel library"):
-        group_bounds(torch.arange(8, dtype=i64), torch.arange(8, dtype=i32),
-                     4)
+        group_bounds([torch.arange(8, dtype=i64), torch.zeros(8, dtype=i32)],
+                     torch.arange(8, dtype=i32), 4)
+    with pytest.raises(RuntimeError, match="kernel library"):
+        tie_keys(torch.arange(4, dtype=i32), torch.zeros(4, dtype=i32),
+                 torch.zeros(8, dtype=i32), 2, torch.zeros(1, dtype=i32))
+    with pytest.raises(RuntimeError, match="kernel library"):
+        tie_refine(torch.arange(4, dtype=i64), torch.arange(4, dtype=i64),
+                   torch.arange(4, dtype=i32), torch.arange(4, dtype=i32),
+                   torch.zeros(8, dtype=i32), torch.zeros(8, dtype=i32))
     with pytest.raises(RuntimeError, match="kernel library"):
         invert_fused(torch.arange(8, dtype=i32), torch.zeros(8, dtype=i32),
                      torch.zeros(8, dtype=i32),

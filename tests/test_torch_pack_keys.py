@@ -15,6 +15,7 @@ from asgart_tpu_torch.kernels.pack_keys import PAD_KEY
 
 from torch_jax_ref import (TRANSFORMS, chunked_genome, fused_key,
                            jax_fused_stages, prepared, specs_for)
+from torch_jax_ref import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.mark.parametrize("k", [20, 8])
@@ -28,8 +29,8 @@ def test_pack_keys_equals_jax(tmp_path, reverse, complement, k):
     assert len(specs) == 2
     ref = jax_fused_stages(strand.data, k, specs, reverse, complement)
     codes = torch.from_numpy(CODE[strand.data])
-    key, lane_mask = pack_keys(codes, specs, k, reverse, complement,
-                               ref["W"], ref["total"])
+    (key,), lane_mask = pack_keys(codes, specs, k, reverse, complement,
+                                  ref["W"], ref["total"])
     want = fused_key(ref["ckhi"], ref["cklo"], ref["W"])
     assert np.array_equal(key.numpy(), want)
     assert np.array_equal(lane_mask.numpy(), ref["lane_mask"])

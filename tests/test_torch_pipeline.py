@@ -18,6 +18,7 @@ from asgart_tpu.structs import RunSettings
 from asgart_tpu_torch.pipeline import search_duplications
 
 from torch_jax_ref import (TRANSFORMS, json_text, specs_for, vocab_genome)
+from torch_jax_ref import one_torch_thread  # noqa: F401  (autouse)
 from util import plant_duplication, random_dna, revcomp, write_fasta
 
 CPU = torch.device("cpu")

@@ -13,6 +13,7 @@ from asgart_tpu.structs import RunSettings
 from asgart_tpu_torch.kernels import scan_core
 
 from torch_jax_ref import chunked_genome, prepared, specs_for
+from torch_jax_ref import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _jax_index(tmp_path, reverse, complement, g):

@@ -8,6 +8,8 @@ from __future__ import annotations
 import io
 
 import numpy as np
+import pytest
+import torch
 
 from asgart_tpu.exporters import JSONExporter
 from asgart_tpu.fasta import prepare_data
@@ -16,6 +18,20 @@ from asgart_tpu.structs import RunSettings
 from util import plant_duplication, random_dna, revcomp, write_fasta
 
 TRANSFORMS = [(False, False), (True, True), (True, False), (False, True)]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run a test module's torch operations on one intra-op thread (import
+    this fixture into the module). With one thread per core, torch's
+    OpenMP workers spin between operations and starve the XLA CPU
+    collectives of the JAX tests that other pytest-xdist workers run at
+    the same time on the virtual 8-device mesh; those abort the process
+    when a collective waits too long."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def json_text(result) -> str:
@@ -65,7 +81,8 @@ def specs_for(chunks, settings: RunSettings) -> tuple:
 
 def jax_fused_stages(strand_data: np.ndarray, k: int, specs: tuple,
                      reverse: bool, complement: bool) -> dict:
-    """Every intermediate of the JAX fused build, as numpy."""
+    """Every intermediate of the JAX fused build, as numpy (with the
+    third key plane, ``cktop``/``sktop``, for k = 21..30)."""
     import jax.numpy as jnp
 
     from asgart_tpu import device_engine as de
@@ -91,19 +108,33 @@ def jax_fused_stages(strand_data: np.ndarray, k: int, specs: tuple,
     dec_src = di.decimate_codes_auto(src, step=step, L=Lp, n=n_src)
     x0s = tuple(int(de._probe_x0(cs, cl, n1, k, reverse, complement))
                 - base for (cs, cl, _) in specs)
-    phi, plo, lane_mask = de._pack_batch_probe_keys(
-        dec_src, jnp.zeros(max(len(specs), 1), jnp.int32), k, reverse,
-        complement, n1, specs, total, x0s=x0s)
+    j0s = jnp.zeros(max(len(specs), 1), jnp.int32)
     text_codes = di._build_text_codes(codes1, k, False, False, W)
-    key_hi, key_lo = di._pack_planes_all(text_codes, k, W)
-    ckhi, cklo = di._fused_cat_planes(key_hi, key_lo, phi, plo)
-    out = {"W": W, "total": total, "ckhi": np.asarray(ckhi),
-           "cklo": np.asarray(cklo), "lane_mask": np.asarray(lane_mask)}
-    skhi, sklo, sa = di._flagged_sort(ckhi, cklo, jnp.int32(W))
-    out.update(skhi=np.asarray(skhi), sklo=np.asarray(sklo),
-               sa=np.asarray(sa))
+    out = {"W": W, "total": total}
+    if k > di.DEVICE_MAX_K:  # the planes3 branch of FusedIndex.build
+        ptop, phi, plo, lane_mask = de._pack_batch_probe_keys3(
+            dec_src, j0s, k, reverse, complement, n1, specs, total,
+            x0s=x0s)
+        cktop, ckhi, cklo = di._fused_cat_planes3(
+            *di._pack_planes3_all(text_codes, k, W), ptop, phi, plo)
+        out.update(cktop=np.asarray(cktop), ckhi=np.asarray(ckhi),
+                   cklo=np.asarray(cklo))  # before the donating sort
+        sktop, skhi, sklo, sa = di._flagged_sort3(cktop, ckhi, cklo,
+                                                  jnp.int32(W))
+        out.update(sktop=np.asarray(sktop))
+    else:
+        phi, plo, lane_mask = de._pack_batch_probe_keys(
+            dec_src, j0s, k, reverse, complement, n1, specs, total,
+            x0s=x0s)
+        ckhi, cklo = di._fused_cat_planes(
+            *di._pack_planes_all(text_codes, k, W), phi, plo)
+        out.update(ckhi=np.asarray(ckhi), cklo=np.asarray(cklo))
+        skhi, sklo, sa = di._flagged_sort(ckhi, cklo, jnp.int32(W))
+        sktop = None
+    out.update(lane_mask=np.asarray(lane_mask), skhi=np.asarray(skhi),
+               sklo=np.asarray(sklo), sa=np.asarray(sa))
     run_lo, run_hi, tied = di._group_bounds_impl(
-        skhi, sklo, sa, jnp.int32(W), flagged=True)
+        skhi, sklo, sa, jnp.int32(W), flagged=True, sktop=sktop)
     out.update(run_lo=np.asarray(run_lo), run_hi=np.asarray(run_hi),
                tied=np.asarray(tied))
     L1 = de.table_len_for(W, k)
@@ -119,3 +150,13 @@ def fused_key(ckhi: np.ndarray, cklo: np.ndarray, W: int) -> np.ndarray:
     flag = (np.arange(len(ckhi)) >= W).astype(np.int64)
     return (ckhi.astype(np.int64) << 31) | (cklo.astype(np.int64) << 1) \
         | flag
+
+
+def key_planes(words):
+    """The port's two key words decoded back into the JAX planes: (top,
+    hi, lo) int32 and the flag bit (which must equal row >= W)."""
+    w1, w0 = (np.asarray(w) for w in words)
+    planes = ((w1 >> 31).astype(np.int32),
+              (w1 & (2**31 - 1)).astype(np.int32),
+              (w0 >> 1).astype(np.int32))
+    return planes, (w0 & 1).astype(bool)
