@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from asgart_tpu.index import CODE
+from .index import CODE
 
 
 def upload_codes(strand_data: np.ndarray, device: torch.device

@@ -25,10 +25,11 @@ def rank_from_decimated(rank_dec: np.ndarray, step: int, W: int
 
 def fused_index_from_numpy(sa, lane_lo, lane_hi, lane_mask, specs, offs,
                            k: int, n: int, first_len: int, reverse: bool,
-                           complement: bool, device: torch.device
-                           ) -> FusedIndex:
+                           complement: bool, device: torch.device,
+                           trim: tuple | None = None) -> FusedIndex:
     """The port's FusedIndex from a JAX FusedIndex's arrays and fields
-    (its float raw totals become ints)."""
+    (its float raw totals become ints; ``trim`` is a window build's
+    (ws, we))."""
     def dev(a, dtype):
         return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
@@ -37,4 +38,5 @@ def fused_index_from_numpy(sa, lane_lo, lane_hi, lane_mask, specs, offs,
         lane_hi=dev(lane_hi, torch.int32),
         lane_mask=dev(lane_mask, torch.bool), specs=tuple(specs),
         offs={c: (int(o), int(t)) for c, (o, t) in offs.items()}, k=k,
-        n=n, first_len=first_len, reverse=reverse, complement=complement)
+        n=n, first_len=first_len, reverse=reverse, complement=complement,
+        trim=None if trim is None else (int(trim[0]), int(trim[1])))

@@ -13,10 +13,15 @@
 //     (direct rows 0, probe rows 1)
 //   device_index.py:1462 _transformed_codes / :246 _build_text_codes (the
 //     appended half is read through index arithmetic, never built)
+//   device_index.py:1288 _window_codes (the trim window's text + '$' + k
+//     zeros, read in place: window mode below)
 //
 // Every row folds its k symbols (3 bits each) into `hi`, the first k-10
 // (0 for k <= 10), and `lo`, the last min(k, 10). Row r < W is a direct
-// text row; symbols past n1 read 0 ('$' rank, the JAX zero padding). Row
+// text row of the window text codes[ws, ws + W - 1) + '$': symbol t is
+// codes[ws + r + t] while r + t < W - 1 and 0 past it ('$' rank, the JAX
+// zero padding). The whole genome is the window ws = 0, W = n1, whose
+// last symbol codes[n1 - 1] is its own '$'. Row
 // W + j is probe lane j: its symbols are read from the transformed half
 // (complement via COMP, reversed index n1-2-q) at x0 + j*step + t, with
 // the flag bit set; lanes past the chunks' total are pad rows with the
@@ -62,8 +67,9 @@ __global__ void pack_keys_kernel(const uint8_t* __restrict__ codes,
                                  long long n1,
                                  const long long* __restrict__ lane_off,
                                  const long long* __restrict__ x0cl,
-                                 int n_chunks, long long W, long long total,
-                                 int k, int reverse, int complement,
+                                 int n_chunks, long long W, long long ws,
+                                 long long total, int k, int reverse,
+                                 int complement,
                                  long long* __restrict__ key,
                                  int* __restrict__ key_lo,
                                  uint8_t* __restrict__ lane_mask) {
@@ -78,7 +84,7 @@ __global__ void pack_keys_kernel(const uint8_t* __restrict__ codes,
     if (r < W) {
       for (int t = 0; t < k; ++t) {
         long long q = r + t;
-        long long s = q < n1 ? __ldg(codes + q) : 0;
+        long long s = q < W - 1 ? __ldg(codes + ws + q) : 0;
         if (t < n_hi) hi = (hi << 3) | s; else lo = (lo << 3) | s;
       }
       store_key<kWords>(r, hi, lo, 0, key, key_lo);
@@ -127,23 +133,23 @@ __global__ void pack_keys_kernel(const uint8_t* __restrict__ codes,
 // otherwise w1 into `key` (int64) and w0 into `key_lo` (int32).
 ASGART_API int asgart_pack_keys(const void* codes, long long n1,
                                 const void* lane_off, const void* x0cl,
-                                int n_chunks, long long W, long long total,
-                                int k, int reverse, int complement,
-                                void* key, void* key_lo, void* lane_mask,
-                                void* stream) {
+                                int n_chunks, long long W, long long ws,
+                                long long total, int k, int reverse,
+                                int complement, void* key, void* key_lo,
+                                void* lane_mask, void* stream) {
   const long long M = W + total;
   const unsigned grid = asgart::grid_for(M);
   cudaStream_t s = (cudaStream_t)stream;
   if (key_lo == nullptr) {
     pack_keys_kernel<1><<<grid, asgart::kThreads, 0, s>>>(
         (const uint8_t*)codes, n1, (const long long*)lane_off,
-        (const long long*)x0cl, n_chunks, W, total, k, reverse, complement,
-        (long long*)key, nullptr, (uint8_t*)lane_mask);
+        (const long long*)x0cl, n_chunks, W, ws, total, k, reverse,
+        complement, (long long*)key, nullptr, (uint8_t*)lane_mask);
   } else {
     pack_keys_kernel<2><<<grid, asgart::kThreads, 0, s>>>(
         (const uint8_t*)codes, n1, (const long long*)lane_off,
-        (const long long*)x0cl, n_chunks, W, total, k, reverse, complement,
-        (long long*)key, (int*)key_lo, (uint8_t*)lane_mask);
+        (const long long*)x0cl, n_chunks, W, ws, total, k, reverse,
+        complement, (long long*)key, (int*)key_lo, (uint8_t*)lane_mask);
   }
   return (int)cudaGetLastError();
 }

@@ -1,17 +1,22 @@
-"""The fused-probe whole-genome index on one device.
+"""The fused-probe index on one device: the whole genome or one trim window.
 
 Counterpart of ``FusedIndex`` / ``FusedIndex.build`` and ``fused_fits``
-(asgart_tpu/device_index.py:1571-1787) for the whole-genome case at
-k = 2..30, plus a one-entry device index cache (the counterpart of
-``cached_build``, device_index.py:1064).
+(asgart_tpu/device_index.py:1571-1787) at k = 2..30, of
+``fused_window_applicable`` (asgart_tpu/device_engine.py:2140; both fit
+checks are :func:`fits` here), plus a
+one-entry device index cache (the counterpart of ``cached_build``,
+device_index.py:1064).
 
-The direct text's W = n1 key rows and every chunk's probe-lane rows are
-sorted together; equal-key runs then give each probe lane its window
-[lane_lo, lane_hi) of direct suffixes, and tie resolution turns the
-k-mer order into the suffix order. Build steps and their kernels:
+The direct text's W key rows (the whole genome, W = n1, or a trim window
+[ws, we) with its own '$', W = we - ws + 1) and every chunk's probe-lane
+rows (always the whole genome's) are sorted together; equal-key runs then
+give each probe lane its window [lane_lo, lane_hi) of direct suffixes,
+and tie resolution turns the k-mer order into the suffix order. Build
+steps and their kernels:
 
   upload codes (codes.py) -> KA pack_keys -> sort_keys (torch.sort)
   -> KB group_bounds -> KC invert_fused -> ties.resolve_ties (KE, KF)
+  -> KG offset_slots (windows with ws > 0: window to genome positions)
 
 The sort key is one int64 word up to k = 20 and two words (int64, int32)
 for k = 21..30 (kernels/pack_keys.py).
@@ -27,7 +32,7 @@ import torch
 
 from .codes import upload_codes
 from .host_helpers import _bucket, _strand_fingerprint
-from .kernels import group_bounds, invert_fused, pack_keys
+from .kernels import group_bounds, invert_fused, offset_slots, pack_keys
 from .kernels.pack_keys import MAX_K, key_words
 from .ties import resolve_ties
 
@@ -69,8 +74,8 @@ def sort_keys(keys: list):
     return [sw1, sw0], sa
 
 
-def fused_layout(n1: int, specs) -> tuple[int, int, list[int]]:
-    """(W, total, lane_off): W = n1 direct rows, then ``total`` probe-lane
+def fused_layout(W: int, specs) -> tuple[int, int, list[int]]:
+    """(W, total, lane_off): W direct rows, then ``total`` probe-lane
     rows — the chunks' lanes back-to-back (chunk c from lane_off[c]) and
     the JAX build's slack (device_index.py:1662), so both builds sort the
     same rows; the pad rows sort last."""
@@ -79,26 +84,56 @@ def fused_layout(n1: int, specs) -> tuple[int, int, list[int]]:
     lane_off = [0]
     for (_, _, nc) in specs:
         lane_off.append(lane_off[-1] + nc)
-    return n1, lane_off[-1] + tail_pad, lane_off
+    return W, lane_off[-1] + tail_pad, lane_off
 
 
-def fused_fits(n1: int, k: int, device: torch.device,
-               reclaimable: int = 0) -> bool:
-    """Whether the fused build of an ``n1``-byte strand fits ``device``:
-    int32 row addressing, and on a GPU the projected peak (rows times
-    ``PEAK_BYTES_PER_ROW`` of k's key words) within the free
-    memory ``torch.cuda.mem_get_info`` reports, plus the blocks PyTorch's
-    allocator holds unused, plus ``reclaimable`` bytes (a cached index
-    that a miss would evict)."""
-    M = n1 + n1 // max(1, k // 2) + (1 << 21)  # device_index.fused_fits
-    if M >= (1 << 31):
-        return False
+def free_bytes(device: torch.device) -> float:
+    """Device bytes a build may use: on a GPU the free memory
+    ``torch.cuda.mem_get_info`` reports, plus the blocks PyTorch's
+    allocator holds unused, plus the cached index a miss would evict;
+    unbounded on the CPU."""
     if device.type != "cuda":
-        return True
+        return float("inf")
     free, _ = torch.cuda.mem_get_info(device)
-    free += (torch.cuda.memory_reserved(device)
-             - torch.cuda.memory_allocated(device))
-    return M * PEAK_BYTES_PER_ROW[key_words(k)] <= free + reclaimable
+    return (free + torch.cuda.memory_reserved(device)
+            - torch.cuda.memory_allocated(device)
+            + INDEX_CACHE.reclaimable_bytes())
+
+
+def probe_span(n1: int, doubled: bool) -> int:
+    """Length of the text the probes address: the doubled text of R/C
+    runs, else the strand."""
+    return 2 * n1 - 1 if doubled else n1
+
+
+def projected_rows(n1: int, W: int, k: int) -> int:
+    """Fused rows the fit predicates project for W direct rows probed by
+    an ``n1``-byte strand (``device_index.fused_fits`` /
+    ``fused_window_applicable``): W, n1 // step probe lanes and 2^21 of
+    bucket slack."""
+    return W + n1 // max(1, k // 2) + (1 << 21)
+
+
+def window_fits_bytes(n1: int, W: int, k: int, free: float,
+                      resident: int = 0) -> bool:
+    """Whether a fused build of W direct rows (probed by the whole
+    ``n1``-byte strand) fits ``free`` bytes: int32 row addressing, and the
+    projected peak, :func:`projected_rows` times ``PEAK_BYTES_PER_ROW`` of
+    k's key words, plus ``resident`` bytes held beside it."""
+    M = projected_rows(n1, W, k)
+    return M < (1 << 31) and \
+        M * PEAK_BYTES_PER_ROW[key_words(k)] + resident <= free
+
+
+def fits(n1: int, W: int, k: int, doubled: bool, device: torch.device,
+         resident: int = 0) -> bool:
+    """Whether a fused build of W direct rows fits ``device``: the probed
+    text within int32 addressing, and :func:`window_fits_bytes` against
+    :func:`free_bytes`. The whole genome (W = n1) frees its codes before
+    the sort's peak (``resident`` 0); trim windows keep the genome's n1
+    code bytes resident across a sharded run's windows."""
+    return probe_span(n1, doubled) < (1 << 31) and window_fits_bytes(
+        n1, W, k, free_bytes(device), resident)
 
 
 @dataclass
@@ -107,8 +142,9 @@ class FusedIndex:
     direct text with the probe rows interleaved, and the per-lane
     windows of a fixed chunk set."""
 
-    sa: torch.Tensor         # int32 [W + total]; direct slots hold text
-    #                          positions, probe slots W + lane (never read)
+    sa: torch.Tensor         # int32 [W + total]; direct slots hold genome
+    #                          positions, probe slots W + lane (+ ws; never
+    #                          read)
     lane_lo: torch.Tensor    # int32 [total] window starts, lane order
     lane_hi: torch.Tensor    # int32 [total] window ends
     lane_mask: torch.Tensor  # bool [total] live-probe mask
@@ -120,6 +156,7 @@ class FusedIndex:
     first_len: int           # genome + '$' length
     reverse: bool
     complement: bool
+    trim: tuple | None = None  # (ws, we) of a trim window's build
 
     def nbytes(self) -> int:
         return sum(t.numel() * t.element_size()
@@ -128,20 +165,33 @@ class FusedIndex:
 
     @classmethod
     def build(cls, strand_data: np.ndarray, k: int, specs: tuple,
-              reverse: bool, complement: bool,
-              device: torch.device) -> "FusedIndex":
+              reverse: bool, complement: bool, device: torch.device,
+              trim: tuple | None = None,
+              codes: torch.Tensor | None = None) -> "FusedIndex":
+        """The index of the whole genome, or of the trim window ``trim``
+        = (ws, we) (its text strand[ws:we] plus its own '$'; the probes
+        still read the whole genome). ``codes``: the strand's codes
+        already on ``device`` (a sharded run uploads them once)."""
         if not 2 <= k <= MAX_K:
             raise ValueError(f"fused index supports probe_size 2..{MAX_K}")
         n1 = int(len(strand_data))
         n = 2 * n1 - 1 if (reverse or complement) else n1
-        W, total, lane_off = fused_layout(n1, specs)
+        if trim is not None:
+            ws, we = int(trim[0]), int(trim[1])
+            if not 0 <= ws < we <= n1 - 1:
+                raise ValueError(f"bad trim window {trim}")
+            W = we - ws + 1  # window text + its own '$'
+        else:
+            ws, W = 0, n1
+        W, total, lane_off = fused_layout(W, specs)
         M = W + total
-        if n >= (1 << 31) or M >= (1 << 31):
+        if n >= (1 << 31) or ws + M >= (1 << 31):
             raise ValueError("genome too large for int32 addressing")
 
-        codes = upload_codes(strand_data, device)
+        if codes is None:
+            codes = upload_codes(strand_data, device)
         keys, lane_mask = pack_keys(codes, specs, k, reverse, complement,
-                                    W, total)
+                                    W, total, ws)
         del codes
         skeys, sa = sort_keys(keys)
         run_lo, run_hi, tied = group_bounds(skeys, sa, W)
@@ -150,12 +200,15 @@ class FusedIndex:
             sa, run_lo, run_hi, lane_mask, W, lane_off)
         del run_lo, run_hi
         sa = resolve_ties(sa, rank, tied, M, k)
+        if ws:
+            offset_slots(sa, ws)
         offs = {(cs, cl): (off, int(t)) for (cs, cl, _), off, t in
                 zip(specs, lane_off, totals.tolist())}
         return cls(sa=sa, lane_lo=lane_lo, lane_hi=lane_hi,
                    lane_mask=lane_mask, specs=tuple(specs), offs=offs, k=k,
                    n=n, first_len=n1, reverse=reverse,
-                   complement=complement)
+                   complement=complement,
+                   trim=(ws, we) if trim is not None else None)
 
 
 def device_index_cache_enabled() -> bool:
@@ -181,17 +234,20 @@ class IndexCache:
         self._key = self._index = None
 
     def get_or_build(self, strand_data, k, specs, reverse, complement,
-                     device) -> FusedIndex:
+                     device, trim=None, codes=None) -> FusedIndex:
+        def build():
+            return FusedIndex.build(strand_data, k, specs, reverse,
+                                    complement, device, trim, codes)
+
         if not device_index_cache_enabled():
             self.clear()
-            return FusedIndex.build(strand_data, k, specs, reverse,
-                                    complement, device)
+            return build()
         key = (_strand_fingerprint(strand_data), k, tuple(specs),
-               bool(reverse), bool(complement), str(device))
+               bool(reverse), bool(complement), str(device),
+               None if trim is None else tuple(int(x) for x in trim))
         if key != self._key:
             self.clear()
-            self._index = FusedIndex.build(strand_data, k, specs, reverse,
-                                           complement, device)
+            self._index = build()
             self._key = key
         return self._index
 

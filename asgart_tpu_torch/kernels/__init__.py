@@ -7,9 +7,10 @@ from .invert import invert_fused
 from .pack_keys import pack_keys
 from .scan_core import scan_core
 from .ties import tie_keys, tie_refine
+from .window import offset_slots
 
 KERNELS = (pack_keys, group_bounds, invert_fused, tie_keys, tie_refine,
-           scan_core)
+           offset_slots, scan_core)
 
 
 def launch_counts() -> dict:

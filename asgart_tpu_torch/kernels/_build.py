@@ -36,10 +36,10 @@ _I32 = ctypes.c_int
 # entry point -> argument types (all return int: a cudaError_t)
 SIGNATURES = {
     # codes, n1, lane_off [n_chunks + 1], x0cl [n_chunks, 2], n_chunks, W,
-    # total, k, reverse, complement, key, key_lo (None: one word),
+    # ws, total, k, reverse, complement, key, key_lo (None: one word),
     # lane_mask, stream
-    "asgart_pack_keys": [_P, _I64, _P, _P, _I32, _I64, _I64, _I32, _I32,
-                         _I32, _P, _P, _P, _P],
+    "asgart_pack_keys": [_P, _I64, _P, _P, _I32, _I64, _I64, _I64, _I32,
+                         _I32, _I32, _P, _P, _P, _P],
     # skey, skey_lo (None: one word), sa, M, W, run_lo, run_hi, tied,
     # stream
     "asgart_group_bounds": [_P, _P, _P, _I64, _I64, _P, _P, _P, _P],
@@ -60,6 +60,8 @@ SIGNATURES = {
     "asgart_scan_emit": [_P, _P, _P, _P, _I64, _I64, _I64, _I32, _I64,
                          _I32, _I32, _I64, _P, _P, _I64, _P, _P, _P, _P,
                          _P],
+    # sa (in place), n, ws, stream
+    "asgart_offset_slots": [_P, _I64, _I32, _P],
 }
 
 _lock = threading.Lock()

@@ -43,18 +43,23 @@ def chunk_tables(specs, n1: int, k: int, reverse: bool, complement: bool):
 
 
 def pack_keys(codes: torch.Tensor, specs, k: int, reverse: bool,
-              complement: bool, W: int, total: int):
+              complement: bool, W: int, total: int, ws: int = 0):
     """Keys of the W direct text rows then ``total`` probe-lane rows
     (``specs`` = ((chunk_start, chunk_len, n_lanes), ...), lanes
     back-to-back, padded to ``total``) and the probe lane mask.
+
+    The direct text is the window ``codes[ws:ws + W - 1]`` plus its '$'
+    (a trim window; the whole genome is ws = 0, W = n1, whose last code
+    is the strand's '$'). Probe rows read the whole genome either way.
 
     Returns (keys, lane_mask bool [total]): ``keys`` is a list of the
     :func:`key_words` words, [key int64 [W + total]] or [w1 int64,
     w0 int32], most significant first (a list, so that the sort can drop
     each word once it is dead)."""
     n1 = codes.numel()
-    if not 0 < W <= n1 or not 2 <= k <= MAX_K:
-        raise ValueError(f"pack_keys: bad W={W} / k={k} for n1={n1}")
+    if not (0 <= ws and 0 < W and ws + W <= n1) or not 2 <= k <= MAX_K:
+        raise ValueError(f"pack_keys: bad ws={ws} / W={W} / k={k} for "
+                         f"n1={n1}")
     if codes.dtype != torch.uint8 or not codes.is_contiguous():
         raise ValueError("pack_keys: codes must be contiguous uint8")
     lane_off, x0s, cls = chunk_tables(specs, n1, k, reverse, complement)
@@ -62,7 +67,7 @@ def pack_keys(codes: torch.Tensor, specs, k: int, reverse: bool,
         raise ValueError("pack_keys: total is below the chunks' lanes")
     if not _build.on_cuda(codes):
         return pack_keys_plain(codes, lane_off, x0s, cls, k, reverse,
-                               complement, W, total)
+                               complement, W, total, ws)
     dev = codes.device
     keys = [torch.empty(W + total, dtype=torch.int64, device=dev)]
     if key_words(k) == 2:
@@ -75,7 +80,7 @@ def pack_keys(codes: torch.Tensor, specs, k: int, reverse: bool,
     pack_keys.launches += 1
     _build.check(lib.asgart_pack_keys(
         codes.data_ptr(), n1, off_t.data_ptr(), x0cl.data_ptr(),
-        len(specs), W, total, k, int(reverse), int(complement),
+        len(specs), W, ws, total, k, int(reverse), int(complement),
         keys[0].data_ptr(), keys[1].data_ptr() if len(keys) == 2 else None,
         lane_mask.data_ptr(), _build.stream_of(codes)), "pack_keys")
     return keys, lane_mask
@@ -85,7 +90,7 @@ pack_keys.launches = 0
 
 
 def pack_keys_plain(codes, lane_off, x0s, cls, k, reverse, complement, W,
-                    total):
+                    total, ws=0):
     """Plain PyTorch version of the KA kernel (same arguments after
     :func:`chunk_tables`)."""
     dev = codes.device
@@ -108,7 +113,8 @@ def pack_keys_plain(codes, lane_off, x0s, cls, k, reverse, complement, W,
                 lo = (lo << 3) | s
         return hi, lo, first
 
-    padded = torch.cat([c64, torch.zeros(k, dtype=torch.int64, device=dev)])
+    padded = torch.cat([c64[ws:ws + W - 1],
+                        torch.zeros(k + 1, dtype=torch.int64, device=dev)])
     hi_d, lo, _ = fold(lambda t: padded[t:t + W])
     lo_d = lo << 1  # flag 0
 

@@ -1,32 +1,41 @@
 """GPU smoke run of the PyTorch / CUDA port (asgart_tpu_torch) on one card.
 
-    python3 chip_smoke.py            # the full run: 128 Mbp, -RC, k = 20, 25
+    python3 chip_smoke.py            # the full run: 128 Mbp, -RC, four paths
     python3 chip_smoke.py --mbp 4    # a quick run at a smaller genome
 
 1. prints the card (nvidia-smi name and power limit) and the versions;
 2. builds the CUDA kernels from asgart_tpu_torch/csrc with nvcc;
-3. for each path, -RC at k = 20 (one-word keys) and k = 25 (two-word
-   keys) on ``bench.synthetic_genome`` (fixed seed) written as FASTA:
-   a. runs each kernel and its plain PyTorch version on the card, on the
-      arrays of that path (the fused build of the genome and its largest
-      chunk's scan; KE/KF on the first, largest tie round), requires
-      equal outputs (tolerance 0: all integers) and times both with CUDA
-      events after a warm-up; times the key sort and the whole tie
-      resolution with KE/KF against the same rounds on their plain
-      versions;
-   b. runs the host engine once (the first run also builds the shared
-      native chain library, which the timed runs then find built);
-   c. drives the path through the user entry point
-      ``asgart_tpu_torch.pipeline.search_duplications(engine="cuda")``,
-      cold and then warm (a device index cache hit), with every launch
-      counter set to 0 just before and read just after; requires the
-      JSON bytes of all three runs to be equal and every kernel to have
-      been launched;
-4. prints a {"kernels": [...]} line (each kernel once per path, with its
-   k), the card again, and last {"ok": true, "device": {...}}.
+3. runs four paths on ``asgart_tpu_torch.synthetic.synthetic_genome``
+   (the repo benchmark's genome, fixed seed) written as
+   FASTA, all -RC: the whole genome at k = 20 (one-word keys) and k = 25
+   (two-word keys); ``--shards 4`` at k = 20; and one trim window in the
+   middle of the genome at k = 25. For each path:
+   a. runs each kernel of the path and its plain PyTorch version on the
+      card, on that path's arrays (the fused build of the genome, or of
+      window 2 of the shards, or of the trim window, and its largest
+      chunk's scan; KE/KF on the first, largest tie round; KG on the
+      window's final suffix order), requires equal outputs (tolerance 0:
+      all integers), times both with CUDA events after a warm-up, and
+      gives each kernel its bound (the larger of its bytes over the HBM
+      rate and its integer operations over the non-tensor-core rate) and
+      the time of one PyTorch call that computes the same function, where
+      one exists; times the key sort and the whole tie resolution with
+      KE/KF against the same rounds on their plain versions;
+   b. the sharded path measures each window's build peak per fused row;
+   c. runs the host engine once (the first run also builds the native
+      chain library, which the timed runs then find built);
+   d. drives the path through the user entry point
+      ``asgart_tpu_torch.pipeline.search_duplications(engine="cuda")``
+      twice (whole genome and trim: cold, then a device index cache hit;
+      shards: two full runs, the windows are not cached), with every
+      launch counter set to 0 just before and read just after; requires
+      the JSON bytes of all three runs to be equal and every kernel of
+      the path to have been launched;
+4. prints a {"kernels": [...]} line (each kernel once per path, with the
+   path's name and k), the card again, and last {"ok": true, ...}.
 
 Any failure raises before the last line; without CUDA it exits non-zero
-and prints no result. Nothing of JAX is imported.
+and prints no result. Nothing of JAX or of the JAX package is imported.
 """
 
 from __future__ import annotations
@@ -42,7 +51,12 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 1234
 REPS = 3
-PROBE_SIZES = (20, 25)  # one-word and two-word sort keys
+SHARDS = 4
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+ALU_OPS_PER_S = 67e12      # H100 SXM non-tensor-core rate (data sheet)
+WHOLE = ("pack_keys", "group_bounds", "invert_fused", "tie_keys",
+         "tie_refine", "scan_core")
+WINDOW = WHOLE + ("offset_slots",)  # KG runs when the window starts > 0
 
 
 def smi_line() -> str:
@@ -88,28 +102,41 @@ def max_abs_err(got, want) -> int:
     return err
 
 
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """(least milliseconds the card could take, what bounds it): the bytes
+    the function must move (each input read once, each output written
+    once) over the HBM rate, or its integer operations over the
+    non-tensor-core rate, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / ALU_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def json_text(result) -> str:
-    from asgart_tpu.exporters import JSONExporter
+    from asgart_tpu_torch.exporters import JSONExporter
 
     buf = io.StringIO()
     JSONExporter().save(result, buf)
     return buf.getvalue()
 
 
-def kernel_checks(fa: str, settings, device) -> tuple[list, int]:
-    """Each kernel against its plain version at the shapes of one path.
+def kernel_checks(fa: str, path: str, settings, device,
+                  trim=None) -> tuple[list, int]:
+    """Each kernel of a path against its plain version at the path's
+    shapes: the whole genome's fused build, or the window ``trim``'s.
     Returns (kernel rows, fused rows M)."""
     import torch
 
-    from asgart_tpu.fasta import prepare_data
     from asgart_tpu_torch import ties as ties_mod
     from asgart_tpu_torch.codes import upload_codes
     from asgart_tpu_torch.device_engine import chunk_specs
+    from asgart_tpu_torch.fasta import prepare_data
     from asgart_tpu_torch.fused_index import fused_layout, sort_keys
     from asgart_tpu_torch.host_helpers import _strand_fingerprint
     from asgart_tpu_torch.kernels import (group_bounds, invert_fused,
-                                          pack_keys, scan_core, tie_keys,
-                                          tie_refine)
+                                          offset_slots, pack_keys,
+                                          scan_core, tie_keys, tie_refine)
     from asgart_tpu_torch.kernels.group_bounds import group_bounds_plain
     from asgart_tpu_torch.kernels.invert import invert_fused_plain
     from asgart_tpu_torch.kernels.pack_keys import (chunk_tables,
@@ -117,26 +144,36 @@ def kernel_checks(fa: str, settings, device) -> tuple[list, int]:
     from asgart_tpu_torch.kernels.scan_core import scan_core_plain
     from asgart_tpu_torch.kernels.ties import (tie_keys_plain,
                                                tie_refine_plain)
+    from asgart_tpu_torch.kernels.window import offset_slots_plain
 
     s = settings
     k = s.probe_size
     _, chunks, strand = prepare_data([fa], s.skip_masked, None)
     specs = chunk_specs(chunks, s)
     n1 = len(strand.data)
-    W, total, lane_off = fused_layout(n1, specs)
+    ws = 0 if trim is None else trim[0]
+    W0 = n1 if trim is None else trim[1] - trim[0] + 1
+    W, total, lane_off = fused_layout(W0, specs)
     M = W + total
     rows = []
+    tag = f"{path} k={k}"
 
-    def record(name, src, replaces, err, ms, plain_ms, shape):
-        print(f"k={k} kernel {name}: max_abs_err={err} kernel {ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms at {shape}", flush=True)
+    def record(name, src, replaces, err, ms, plain_ms, shape, nbytes, ops,
+               library_ms=None):
+        bound_ms, bound_by = bound(nbytes, ops)
+        lib = "none" if library_ms is None else f"{library_ms:.3f} ms"
+        print(f"{tag} kernel {name}: max_abs_err={err} kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
+              f"({bound_by}: {nbytes:.0f} B, {ops:.0f} ops), library "
+              f"{lib} at {shape}", flush=True)
         if err != 0:
             raise AssertionError(f"{name} disagrees with its plain version "
-                                 f"at k = {k} (max_abs_err {err})")
-        rows.append({"name": name, "k": k, "route": "cuda",
+                                 f"on {tag} (max_abs_err {err})")
+        rows.append({"name": name, "path": path, "k": k, "route": "cuda",
                      "source": f"asgart_tpu_torch/csrc/{src}",
                      "replaces": replaces, "max_abs_err": err,
-                     "ms": ms, "plain_ms": plain_ms})
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": library_ms})
 
     t0 = time.time()
     _strand_fingerprint(strand.data)
@@ -144,29 +181,37 @@ def kernel_checks(fa: str, settings, device) -> tuple[list, int]:
     t0 = time.time()
     codes = upload_codes(strand.data, device)
     torch.cuda.synchronize()
-    print(f"k={k} host side of a build: strand fingerprint {t_fp:.3f} s, "
+    print(f"{tag} host side of a build: strand fingerprint {t_fp:.3f} s, "
           f"codes LUT + pinned upload {time.time() - t0:.3f} s (host clock)")
     tabs = chunk_tables(specs, n1, k, s.reverse, s.complement)
     ka = lambda: pack_keys(codes, specs, k, s.reverse, s.complement, W,  # noqa: E731
-                           total)
+                           total, ws)
     kp = lambda: pack_keys_plain(codes, *tabs, k, s.reverse,  # noqa: E731
-                                 s.complement, W, total)
+                                 s.complement, W, total, ws)
     keys, lane_mask = ka()
     want_keys, want_mask = kp()
     err = max_abs_err((*keys, lane_mask), (*want_keys, want_mask))
     del want_keys, want_mask
-    record("pack_keys", "pack_keys.cu",
-           "asgart_tpu/device_engine.py:904" if len(keys) == 1
-           else "asgart_tpu/device_engine.py:761",
-           err, cuda_ms(ka), cuda_ms(kp), f"M={M}, {len(keys)} key words")
+    words = len(keys)
+    kwb = 8 if words == 1 else 12  # key bytes per row
+    if trim is not None:
+        replaces = "asgart_tpu/device_index.py:1288"
+    elif words == 1:
+        replaces = "asgart_tpu/device_engine.py:904"
+    else:
+        replaces = "asgart_tpu/device_engine.py:761"
+    record("pack_keys", "pack_keys.cu", replaces, err, cuda_ms(ka),
+           cuda_ms(kp), f"M={M}, W={W}, ws={ws}, {words} key words",
+           n1 + M * kwb + total, M * (4 * k + 8))
     del codes
 
     ms = cuda_ms(lambda: sort_keys([w.clone() for w in keys]))
-    words = len(keys)
+    sort_bound, sort_by = bound(M * (2 * kwb + 4), 0)
     skeys, sa = sort_keys(keys)
-    print(f"k={k} stable sort of {M} rows by {words} key word(s) "
-          f"(fused_index.sort_keys, torch.sort): {ms:.3f} ms (CUDA events, "
-          "incl. a copy of the keys)", flush=True)
+    print(f"{tag} stable sort of {M} rows by {words} key word(s) "
+          f"(fused_index.sort_keys, torch.sort, {words} launch(es) per "
+          f"build): {ms:.3f} ms (CUDA events, incl. a copy of the keys), "
+          f"bound {sort_bound:.3f} ms ({sort_by})", flush=True)
 
     kb = lambda: group_bounds(skeys, sa, W)  # noqa: E731
     pb = lambda: group_bounds_plain(skeys, sa, W)  # noqa: E731
@@ -174,7 +219,7 @@ def kernel_checks(fa: str, settings, device) -> tuple[list, int]:
     err = max_abs_err((run_lo, run_hi, tied), pb())
     record("group_bounds", "group_bounds.cu",
            "asgart_tpu/device_index.py:352", err, cuda_ms(kb), cuda_ms(pb),
-           f"M={M}, {words} key words")
+           f"M={M}, {words} key words", M * (kwb + 4 + 9), M * 20)
     del skeys
 
     kc = lambda: invert_fused(sa, run_lo, run_hi, lane_mask, W,  # noqa: E731
@@ -184,7 +229,8 @@ def kernel_checks(fa: str, settings, device) -> tuple[list, int]:
     rank, lane_lo, lane_hi, totals = kc()
     err = max_abs_err((rank, lane_lo, lane_hi, totals), pc())
     record("invert_fused", "invert.cu", "asgart_tpu/device_index.py:1519",
-           err, cuda_ms(kc), cuda_ms(pc), f"M={M}")
+           err, cuda_ms(kc), cuda_ms(pc), f"M={M}",
+           12 * M + total + 4 * W + 8 * total, 10 * M)
     del run_lo, run_hi
 
     # KE / KF on the first tie round (the largest tied set); KF writes sa
@@ -193,7 +239,7 @@ def kernel_checks(fa: str, settings, device) -> tuple[list, int]:
     slots = torch.nonzero(tied).flatten()
     n_tied = slots.numel()
     if n_tied == 0:
-        raise AssertionError(f"no tied rows at k = {k}: KE/KF unchecked")
+        raise AssertionError(f"no tied rows on {tag}: KE/KF unchecked")
     ps = sa[slots]
     prims = rank[ps.long()]
     slots = slots.to(torch.int32)
@@ -205,7 +251,8 @@ def kernel_checks(fa: str, settings, device) -> tuple[list, int]:
     key = ke()
     err = max_abs_err((key, bad_k), (pe(), bad_p))
     record("tie_keys", "ties.cu", "asgart_tpu/device_index.py:696", err,
-           cuda_ms(ke), cuda_ms(pe), f"{n_tied} tied entries")
+           cuda_ms(ke), cuda_ms(pe), f"{n_tied} tied entries", 20 * n_tied,
+           8 * n_tied)
     skey, order = torch.sort(key, stable=True)
     del key
     sa_k, rank_k, sa_p, rank_p = sa.clone(), rank.clone(), sa.clone(), \
@@ -216,7 +263,8 @@ def kernel_checks(fa: str, settings, device) -> tuple[list, int]:
     got, want = kf(), pf()
     err = max_abs_err((*got, sa_k, rank_k), (*want, sa_p, rank_p))
     record("tie_refine", "ties.cu", "asgart_tpu/device_index.py:696", err,
-           cuda_ms(kf), cuda_ms(pf), f"{n_tied} tied entries")
+           cuda_ms(kf), cuda_ms(pf), f"{n_tied} tied entries", 41 * n_tied,
+           20 * n_tied)
     del skey, order, sa_k, rank_k, sa_p, rank_p, got, want, ps, prims, slots
 
     # the whole tie resolution, with KE/KF and with their plain versions
@@ -243,13 +291,29 @@ def kernel_checks(fa: str, settings, device) -> tuple[list, int]:
         times[plain].append(t)
     if not torch.equal(finals[True], finals[False]):
         raise AssertionError(f"tie resolution with KE/KF differs from its "
-                             f"plain rounds at k = {k}")
+                             f"plain rounds on {tag}")
     sa = finals[False]
     del finals, rank, tied
-    print(f"k={k} tie resolution of {n_tied} tied rows: KE/KF "
+    print(f"{tag} tie resolution of {n_tied} tied rows: KE/KF "
           f"{' / '.join(f'{t:.4f}' for t in times[False])} s, plain rounds "
           f"{' / '.join(f'{t:.4f}' for t in times[True])} s (host clock + "
           "sync)", flush=True)
+
+    if ws:
+        # KG on the window's final suffix order: kernel, plain version and
+        # the one PyTorch call (the plain version is that call), each on
+        # its own copy, so every timed launch adds ws to the same values
+        copies = [sa.clone() for _ in range(3)]
+        kg = lambda: offset_slots(copies[0], ws)  # noqa: E731
+        pg = lambda: offset_slots_plain(copies[1], ws)  # noqa: E731
+        lg = lambda: copies[2].add_(ws)  # noqa: E731
+        err = max_abs_err((kg(),), (pg(),))
+        ms, plain_ms, lib_ms = cuda_ms(kg), cuda_ms(pg), cuda_ms(lg)
+        record("offset_slots", "window.cu",
+               "asgart_tpu/device_index.py:1505", err, ms, plain_ms,
+               f"{M} slots, ws={ws}", 8 * M, M, library_ms=lib_ms)
+        del copies
+        offset_slots(sa, ws)
 
     # the largest chunk's scan, as the engine calls it
     c = max(range(len(specs)), key=lambda i: specs[i][2])
@@ -265,70 +329,133 @@ def kernel_checks(fa: str, settings, device) -> tuple[list, int]:
                              f"{(got.n_events, got.total_kept)} vs "
                              f"{(want.n_events, want.total_kept)}")
     err = max_abs_err((got.flat,), (want.flat,))
+    reads = int(torch.where(lane_mask[lanes], lane_hi[lanes] - lane_lo[lanes],
+                            0).sum())  # the sa entries this data needs
     record("scan_core", "scan_core.cu", "asgart_tpu/device_engine.py:249",
            err, cuda_ms(kd), cuda_ms(pd),
-           f"{nc} lanes, {got.n_events} events, {got.total_kept} matches")
+           f"{nc} lanes, {got.n_events} events, {got.total_kept} matches",
+           9 * nc + 4 * reads + 4 * got.flat.numel(), 8 * reads + 20 * nc)
     return rows, M
 
 
-def run_path(fa: str, k: int, n: int, device) -> list:
-    """One path (-RC at probe size k): the kernel checks, the host
-    engine, then the cold and warm runs through the user entry point.
-    Returns the path's kernel rows with their main-path launch counts."""
+def window_peaks(fa: str, settings, windows, device) -> float:
+    """Each window's fused build alone, as a sharded run builds it (the
+    codes uploaded once beside it): its peak device bytes above what was
+    allocated before it, per fused row. Returns the largest peak in
+    bytes (codes included)."""
     import torch
 
-    from asgart_tpu.structs import RunSettings
-    from asgart_tpu_torch import kernels
-    from asgart_tpu_torch.fused_index import INDEX_CACHE
-    from asgart_tpu_torch.pipeline import search_duplications
+    from asgart_tpu_torch.codes import upload_codes
+    from asgart_tpu_torch.device_engine import chunk_specs
+    from asgart_tpu_torch.fasta import prepare_data
+    from asgart_tpu_torch.fused_index import (PEAK_BYTES_PER_ROW,
+                                              FusedIndex, projected_rows)
+    from asgart_tpu_torch.kernels.pack_keys import key_words
 
-    settings = RunSettings(reverse=True, complement=True, probe_size=k)
-    rows, fused_rows = kernel_checks(fa, settings, device)
+    s = settings
+    _, chunks, strand = prepare_data([fa], s.skip_masked, None)
+    specs = chunk_specs(chunks, s)
+    n1 = len(strand.data)
+    torch.cuda.empty_cache()
+    codes = upload_codes(strand.data, device)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(device)
+    largest = 0
+    for ws, we in windows:
+        torch.cuda.reset_peak_memory_stats(device)
+        idx = FusedIndex.build(strand.data, s.probe_size, specs, s.reverse,
+                               s.complement, device, trim=(ws, we),
+                               codes=codes)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(device)
+        M = int(idx.sa.numel())
+        rows = projected_rows(n1, we - ws + 1, s.probe_size)
+        projected = rows * PEAK_BYTES_PER_ROW[key_words(s.probe_size)] + n1
+        print(f"shards k={s.probe_size} window ({ws}, {we}): build peak "
+              f"{peak - base} B above the {base} B resident = "
+              f"{(peak - base) / M:.2f} B per fused row ({M} rows); "
+              f"fused_index.fits projects {projected} B ({rows} rows), "
+              f"measured {peak} B in all", flush=True)
+        largest = max(largest, peak)
+        del idx
+    del codes
+    torch.cuda.empty_cache()
+    return largest
+
+
+def run_path(fa: str, n: int, device, path: str, settings, shards: int = 1,
+             kernels=WHOLE, min_sds: int = 1) -> list:
+    """One path: the kernel checks, the host engine, then two runs through
+    the user entry point; the JSON must hold at least ``min_sds``
+    duplications. Returns the path's kernel rows with their main-path
+    launch counts."""
+    import torch
+
+    from asgart_tpu_torch import kernels as kmod
+    from asgart_tpu_torch.fused_index import INDEX_CACHE
+    from asgart_tpu_torch.pipeline import plan_windows, search_duplications
+
+    k = settings.probe_size
+    tag = f"{path} k={k}"
+    if shards > 1:
+        windows = plan_windows(n, shards)
+        rows, fused_rows = kernel_checks(fa, path, settings, device,
+                                         trim=windows[2])
+        largest = window_peaks(fa, settings, windows, device)
+    else:
+        rows, fused_rows = kernel_checks(fa, path, settings, device,
+                                         trim=settings.trim)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
     t0 = time.time()
-    host = json_text(search_duplications([fa], settings, engine="host"))
+    host = json_text(search_duplications([fa], settings, engine="host",
+                                         shards=shards))
     t_host = time.time() - t0
 
     # the main path, through the user entry point, from an empty cache
     INDEX_CACHE.clear()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
-    kernels.reset_launch_counts()
+    kmod.reset_launch_counts()
     runs = {}
-    for tag in ("cold", "warm"):
+    for tag2 in (("cold", "second") if shards > 1 else ("cold", "warm")):
         prof: dict = {}
         t0 = time.time()
         res = search_duplications([fa], settings, engine="cuda",
-                                  device=device, profile=prof)
+                                  device=device, shards=shards, profile=prof)
         torch.cuda.synchronize()
-        runs[tag] = (time.time() - t0, json_text(res), prof)
-        if tag == "cold":
+        runs[tag2] = (time.time() - t0, json_text(res), prof)
+        if tag2 == "cold":
             peak = torch.cuda.max_memory_allocated(device)
-    counts = kernels.launch_counts()
+    counts = kmod.launch_counts()
 
-    for tag, (t, text, prof) in runs.items():
-        print(f"k={k} cuda {tag}: {t:.3f} s wall, {n / 1e6 / t:.2f} Mbp/s, "
+    for tag2, (t, text, prof) in runs.items():
+        print(f"{tag} cuda {tag2}: {t:.3f} s wall, {n / 1e6 / t:.2f} Mbp/s, "
               f"phases {json.dumps(prof)}")
-    print(f"k={k} host engine: {t_host:.3f} s wall")
+    print(f"{tag} host engine: {t_host:.3f} s wall")
     n_sds = sum(len(f) for f in json.loads(host)["families"])
-    print(f"k={k} JSON {len(host)} bytes, {n_sds} SDs; peak device memory "
+    print(f"{tag} JSON {len(host)} bytes, {n_sds} SDs; peak device memory "
           f"of the cold run {peak} B = {peak / fused_rows:.2f} B per fused "
-          f"row ({fused_rows} rows)")
-    print(f"k={k} launches on the main path: {json.dumps(counts)}",
+          f"row ({fused_rows} rows of the checked build)")
+    if shards > 1:
+        print(f"{tag} pipelined run peak {peak} B vs the largest window "
+              f"build alone {largest} B: the host tails hold "
+              f"{max(0, peak - largest)} B of device memory")
+    print(f"{tag} launches on the main path: {json.dumps(counts)}",
           flush=True)
-    for tag, (_, text, _) in runs.items():
+    for tag2, (_, text, _) in runs.items():
         if text != host:
-            raise AssertionError(f"k={k} cuda {tag} JSON differs from the "
+            raise AssertionError(f"{tag} cuda {tag2} JSON differs from the "
                                  f"host engine's ({len(text)} vs "
                                  f"{len(host)} bytes)")
-    if n_sds < 1:
-        raise AssertionError(f"no duplication found at k = {k}")
-    for name, c in counts.items():
-        if c <= 0:
+    if n_sds < min_sds:
+        raise AssertionError(f"{n_sds} duplications found on {tag}, "
+                             f"expected at least {min_sds}")
+    for name in kernels:
+        if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
-                                 f"k = {k} main path")
+                                 f"{tag} main path")
     for row in rows:
         row["launches"] = counts[row["name"]]
     INDEX_CACHE.clear()
@@ -353,7 +480,8 @@ def main(argv=None) -> int:
 
     from asgart_tpu_torch.device import cuda_device
     from asgart_tpu_torch.kernels import _build
-    from bench import synthetic_genome
+    from asgart_tpu_torch.structs import RunSettings
+    from asgart_tpu_torch.synthetic import synthetic_genome
 
     card = smi_line()
     print(card)
@@ -381,10 +509,24 @@ def main(argv=None) -> int:
     print(f"genome: {n} bp synthetic (seed {SEED}) in "
           f"{time.time() - t0:.1f} s", flush=True)
 
+    rc = dict(reverse=True, complement=True)
     rows = []
-    for k in PROBE_SIZES:
-        rows += run_path(fa, k, n, device)
+    for k in (20, 25):  # one-word and two-word sort keys
+        rows += run_path(fa, n, device, "whole", RunSettings(probe_size=k,
+                                                            **rc))
+    rows += run_path(fa, n, device, "shards", RunSettings(probe_size=20,
+                                                         **rc),
+                     shards=SHARDS, kernels=WINDOW)
+    # a quarter of the genome around its middle (its N run), two-word
+    # keys; at the default size it holds planted -RC pairs (a quick run's
+    # smaller genome may have none there)
+    trim = (3 * n // 8, 5 * n // 8)
+    rows += run_path(fa, n, device, "trim", RunSettings(probe_size=25,
+                                                       trim=trim, **rc),
+                     kernels=WINDOW, min_sds=1 if args.mbp >= 100 else 0)
     assert "jax" not in sys.modules
+    assert not [m for m in sys.modules
+                if m == "asgart_tpu" or m.startswith("asgart_tpu.")]
 
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions on the GPU, for
 every transform and k in {8, 20} (one-word keys) and {25, 30} (two-word
-keys), and the port's JSON on the GPU against the host engine. The
+keys), KA's window mode and KG on trim windows, and the port's JSON on
+the GPU against the host engine (whole genome, trim windows and
+``shards``). The
 kernels have no CPU mode, so without a CUDA GPU these tests skip. On a
 machine with a GPU (and without jax, which tests/conftest.py imports),
 run them with::
@@ -13,8 +15,8 @@ Exact comparisons (integers; tolerance 0). No jax is imported here.
 import pytest
 import torch
 
-from asgart_tpu.index import CODE
-from asgart_tpu.structs import RunSettings
+from asgart_tpu_torch.index import CODE
+from asgart_tpu_torch.structs import RunSettings
 
 from torch_jax_ref import (TRANSFORMS, chunked_genome, json_text, prepared,
                            vocab_genome)
@@ -106,7 +108,9 @@ def test_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse, complement, k):
             n_events += got.n_events
     torch.cuda.synchronize()
     after = launch_counts()
-    assert all(after[name] > before[name] for name in after)
+    # KG runs on trim windows only (test_window_kernels_equal_plain_on_gpu)
+    assert all(after[name] > before[name] for name in after
+               if name != "offset_slots")
     if reverse == complement:
         assert n_events > 0
 
@@ -146,3 +150,82 @@ def test_gpu_json_equals_host(tmp_path, gpu, genome):
         port = json_text(search_duplications([fa], s, engine="cuda",
                                              device=gpu))
         assert port == host
+
+
+@pytest.mark.parametrize("k", [20, 8, 25])
+@pytest.mark.parametrize("reverse,complement", TRANSFORMS)
+def test_window_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse,
+                                           complement, k):
+    """KA in window mode and KG on a window with ws > 0, each against its
+    plain version; the window build on the GPU equals the CPU build."""
+    from asgart_tpu_torch.device_engine import chunk_specs
+    from asgart_tpu_torch.fused_index import FusedIndex, fused_layout
+    from asgart_tpu_torch.kernels import launch_counts, offset_slots, pack_keys
+    from asgart_tpu_torch.kernels.pack_keys import (chunk_tables,
+                                                    pack_keys_plain)
+    from asgart_tpu_torch.kernels.window import offset_slots_plain
+
+    _, chunks, strand = prepared(tmp_path, [("chr1", chunked_genome())])
+    s = RunSettings(reverse=reverse, complement=complement, probe_size=k)
+    specs = chunk_specs(chunks, s)
+    n1 = len(strand.data)
+    ws, we = 19000, 46000
+    W, total, _ = fused_layout(we - ws + 1, specs)
+    before = launch_counts()
+    codes = torch.from_numpy(CODE[strand.data]).to(gpu)
+    keys, mask = pack_keys(codes, specs, k, reverse, complement, W, total,
+                           ws)
+    want_keys, want_mask = pack_keys_plain(
+        codes, *chunk_tables(specs, n1, k, reverse, complement), k,
+        reverse, complement, W, total, ws)
+    _equal((*keys, mask), (*want_keys, want_mask))
+    for n in (W + total, 4097, 3, 0):  # vector body, ragged tail, empty
+        sa = torch.randint(0, 2**30, (n,), dtype=torch.int32, device=gpu)
+        want = offset_slots_plain(sa.clone(), ws)
+        _equal((offset_slots(sa, ws),), (want,))
+    sa = torch.arange(9, dtype=torch.int32, device=gpu)[1:]  # unaligned
+    _equal((offset_slots(sa, ws),),
+           (torch.arange(1, 9, dtype=torch.int32, device=gpu) + ws,))
+    got = FusedIndex.build(strand.data, k, specs, reverse, complement, gpu,
+                           trim=(ws, we))
+    ref = FusedIndex.build(strand.data, k, specs, reverse, complement,
+                           torch.device("cpu"), trim=(ws, we))
+    _equal((got.sa, got.lane_lo, got.lane_hi, got.lane_mask),
+           (ref.sa, ref.lane_lo, ref.lane_hi, ref.lane_mask))
+    assert got.offs == ref.offs
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert all(after[name] > before[name] for name in after
+               if name != "scan_core")
+
+
+@pytest.mark.parametrize("k", [20, 25])
+def test_gpu_trim_and_shards_json_equal_host(tmp_path, gpu, k):
+    """Trim windows and shards end to end on the GPU, and the CLI's
+    ``--trim`` and ``--shards``, write the host engine's bytes."""
+    from asgart_tpu_torch.cli.main import main
+    from asgart_tpu_torch.pipeline import search_duplications
+
+    g = bytearray(chunked_genome())
+    g[500:3560] = g[20500:23560]  # a direct duplication
+    fa, _, _ = prepared(tmp_path, [("chr1", bytes(g))])
+    for reverse, complement in TRANSFORMS:
+        for trim in ((0, 30000), (400, 52000), (35000, 60000)):
+            s = RunSettings(reverse=reverse, complement=complement,
+                            probe_size=k, trim=trim)
+            host = json_text(search_duplications([fa], s, engine="host"))
+            assert json_text(search_duplications(
+                [fa], s, engine="cuda", device=gpu)) == host
+        s = RunSettings(reverse=reverse, complement=complement,
+                        probe_size=k)
+        for shards in (2, 3):
+            host = json_text(search_duplications([fa], s, engine="host",
+                                                 shards=shards))
+            assert json_text(search_duplications(
+                [fa], s, engine="cuda", device=gpu, shards=shards)) == host
+    for flags in (["--trim", "400", "52000"], ["--shards", "3"]):
+        outs = [tmp_path / f"{e}.json" for e in ("host", "cuda")]
+        for engine, out in zip(("host", "cuda"), outs):
+            assert main([fa, "-R", "-C", "-k", str(k), *flags, "--engine",
+                         engine, "--out", str(out)]) == 0
+        assert outs[0].read_text() == outs[1].read_text()

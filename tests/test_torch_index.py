@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from asgart_tpu.structs import RunSettings
+from asgart_tpu_torch.structs import RunSettings
 from asgart_tpu_torch.convert import rank_from_decimated
 from asgart_tpu_torch.fused_index import FusedIndex
 from asgart_tpu_torch.kernels import group_bounds, invert_fused
@@ -17,7 +17,8 @@ from asgart_tpu_torch.kernels import group_bounds, invert_fused
 from torch_jax_ref import (TRANSFORMS, chunked_genome, fused_key,
                            jax_fused_stages, prepared, specs_for,
                            vocab_genome)
-from torch_jax_ref import one_torch_thread  # noqa: F401  (autouse)
+from torch_jax_ref import (one_port_test_at_a_time,  # noqa: F401
+                           one_torch_thread)  # (autouse)
 
 CPU = torch.device("cpu")
 

@@ -1,8 +1,11 @@
-"""The port imports torch and never jax, and names its device explicitly:
-without CUDA, the cuda engine raises, and a kernel wrapper handed a GPU
-tensor goes to its kernel (and raises here) instead of quietly running its
-plain version."""
+"""The port imports torch and never jax nor the JAX package
+(``asgart_tpu``, not even its modules that import no jax), and names its
+device explicitly: without CUDA, the cuda engine raises, and a kernel
+wrapper handed a GPU tensor goes to its kernel (and raises here) instead
+of quietly running its plain version."""
 
+import ast
+import glob
 import os
 import subprocess
 import sys
@@ -10,7 +13,62 @@ import sys
 import pytest
 import torch
 
+from torch_jax_ref import one_port_test_at_a_time  # noqa: F401  (autouse)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCES = sorted(
+    os.path.relpath(f, REPO) for f in
+    glob.glob(os.path.join(REPO, "asgart_tpu_torch", "**", "*.py"),
+              recursive=True)) + ["chip_smoke.py"]
+# bench.py is the JAX package's benchmark script
+FORBIDDEN = ("jax", "jaxlib", "asgart_tpu", "bench")
+
+# every port module, then the three ways a user runs it on the CPU; none
+# may bring jax or any asgart_tpu module into the process
+RUN_ALL = '''
+import pkgutil, sys, numpy as np, torch
+import asgart_tpu_torch
+for m in pkgutil.walk_packages(asgart_tpu_torch.__path__,
+                               "asgart_tpu_torch."):
+    __import__(m.name)
+from asgart_tpu_torch.cli.main import main
+from asgart_tpu_torch.pipeline import search_duplications
+from asgart_tpu_torch.structs import RunSettings
+rng = np.random.default_rng(3)
+g = rng.choice(np.frombuffer(b"ACGT", dtype=np.uint8), 30000)
+g[20000:23000] = g[4000:7000]
+fa = sys.argv[1] + "/g.fa"
+with open(fa, "wb") as fh:
+    fh.write(b">chr1\\n" + g.tobytes() + b"\\n")
+s = RunSettings()
+host = search_duplications([fa], s, engine="host")
+port = search_duplications([fa], s, engine="cuda",
+                           device=torch.device("cpu"))
+assert host.families and len(host.families) == len(port.families)
+assert main([fa, "--engine", "host", "--out", sys.argv[1] + "/o.json"]) == 0
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
+             or m == "asgart_tpu" or m.startswith("asgart_tpu."))
+assert not bad, bad
+print("ok")
+'''
+
+
+def _imports(path):
+    tree = ast.parse(open(os.path.join(REPO, path)).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", SOURCES)
+def test_source_imports_no_jax_package(path):
+    """No module of the port, and not chip_smoke.py, imports jax or any
+    module of the JAX package (an AST scan of every import statement,
+    module level or inside a function)."""
+    bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
 
 
 def test_port_imports_no_jax():
@@ -20,13 +78,25 @@ def test_port_imports_no_jax():
         "import asgart_tpu_torch.cli.main, asgart_tpu_torch.convert\n"
         "import asgart_tpu_torch.device_engine, asgart_tpu_torch.kernels\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
-        "assert 'asgart_tpu.device_index' not in sys.modules\n"
-        "assert 'asgart_tpu.device_engine' not in sys.modules\n"
+        "assert not [m for m in sys.modules if m == 'asgart_tpu'\n"
+        "            or m.startswith('asgart_tpu.')], 'asgart_tpu imported'\n"
         "print('ok')\n")
     # `python -c` puts the working directory (the repo root) on sys.path
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_port_runs_without_jax_package(tmp_path):
+    """Every port module imported, a host-engine search, a cuda-engine
+    search on the CPU and the CLI, all in one fresh process: afterwards
+    neither jax nor any asgart_tpu module is loaded."""
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    res = subprocess.run([sys.executable, "-c", RUN_ALL, str(tmp_path)],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=300, env=env)
+    assert res.returncode == 0, res.stderr[-4000:]
     assert res.stdout.strip() == "ok"
 
 
@@ -37,7 +107,7 @@ def _require_no_cuda():
 
 def test_cuda_engine_raises_without_cuda(tmp_path):
     _require_no_cuda()
-    from asgart_tpu.structs import RunSettings
+    from asgart_tpu_torch.structs import RunSettings
     from asgart_tpu_torch.device import cuda_device
     from asgart_tpu_torch.pipeline import search_duplications
 
@@ -62,8 +132,9 @@ def test_wrappers_take_kernel_path_for_gpu_tensors(monkeypatch):
     import importlib
 
     from asgart_tpu_torch.kernels import (_build, group_bounds,
-                                          invert_fused, pack_keys,
-                                          scan_core, tie_keys, tie_refine)
+                                          invert_fused, offset_slots,
+                                          pack_keys, scan_core, tie_keys,
+                                          tie_refine)
 
     def mod(name):  # the module, not the wrapper of the same name
         return importlib.import_module(f"asgart_tpu_torch.kernels.{name}")
@@ -81,7 +152,8 @@ def test_wrappers_take_kernel_path_for_gpu_tensors(monkeypatch):
                     ("invert", "invert_fused_plain"),
                     ("scan_core", "scan_core_plain"),
                     ("ties", "tie_keys_plain"),
-                    ("ties", "tie_refine_plain")):
+                    ("ties", "tie_refine_plain"),
+                    ("window", "offset_slots_plain")):
         monkeypatch.setattr(mod(m), name, no_plain)
 
     i32, i64 = torch.int32, torch.int64
@@ -89,6 +161,10 @@ def test_wrappers_take_kernel_path_for_gpu_tensors(monkeypatch):
     for k in (20, 25):
         with pytest.raises(RuntimeError, match="kernel library"):
             pack_keys(codes, ((0, 99, 7),), k, True, True, 100, 16)
+        with pytest.raises(RuntimeError, match="kernel library"):
+            pack_keys(codes, ((0, 99, 7),), k, True, True, 41, 16, ws=30)
+    with pytest.raises(RuntimeError, match="kernel library"):
+        offset_slots(torch.arange(8, dtype=i32), 5)
     with pytest.raises(RuntimeError, match="kernel library"):
         group_bounds([torch.arange(8, dtype=i64)],
                      torch.arange(8, dtype=i32), 4)

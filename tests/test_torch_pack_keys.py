@@ -8,14 +8,15 @@ import numpy as np
 import pytest
 import torch
 
-from asgart_tpu.index import CODE
-from asgart_tpu.structs import RunSettings
+from asgart_tpu_torch.index import CODE
+from asgart_tpu_torch.structs import RunSettings
 from asgart_tpu_torch.kernels import pack_keys
 from asgart_tpu_torch.kernels.pack_keys import PAD_KEY
 
 from torch_jax_ref import (TRANSFORMS, chunked_genome, fused_key,
                            jax_fused_stages, prepared, specs_for)
-from torch_jax_ref import one_torch_thread  # noqa: F401  (autouse)
+from torch_jax_ref import (one_port_test_at_a_time,  # noqa: F401
+                           one_torch_thread)  # (autouse)
 
 
 @pytest.mark.parametrize("k", [20, 8])

@@ -12,13 +12,16 @@ import numpy as np
 import pytest
 import torch
 
-from asgart_tpu.pipeline import _finalize_result, raw_families_to_protosds
 from asgart_tpu.pipeline import search_duplications as jax_search
-from asgart_tpu.structs import RunSettings
-from asgart_tpu_torch.pipeline import search_duplications
+from asgart_tpu_torch.pipeline import (_finalize_result,
+                                       raw_families_to_protosds,
+                                       search_duplications)
+from asgart_tpu_torch.structs import RunSettings
 
-from torch_jax_ref import (TRANSFORMS, json_text, specs_for, vocab_genome)
-from torch_jax_ref import one_torch_thread  # noqa: F401  (autouse)
+from torch_jax_ref import (TRANSFORMS, jax_settings, json_text, specs_for,
+                           vocab_genome)
+from torch_jax_ref import (one_port_test_at_a_time,  # noqa: F401
+                           one_torch_thread)  # (autouse)
 from util import plant_duplication, random_dna, revcomp, write_fasta
 
 CPU = torch.device("cpu")
@@ -28,9 +31,10 @@ def _three_way(fa, settings, monkeypatch):
     """(port, JAX fused, host) JSON texts."""
     port = json_text(search_duplications([str(fa)], settings, engine="cuda",
                                          device=CPU))
-    host = json_text(jax_search([str(fa)], settings, engine="host"))
+    js = jax_settings(settings)
+    host = json_text(jax_search([str(fa)], js, engine="host"))
     monkeypatch.setenv("ASGART_FUSED", "1")
-    fused = json_text(jax_search([str(fa)], settings, engine="tpu"))
+    fused = json_text(jax_search([str(fa)], js, engine="tpu"))
     monkeypatch.delenv("ASGART_FUSED")
     return port, fused, host
 
@@ -124,9 +128,9 @@ def test_port_scan_on_jax_index(tmp_path, reverse, complement):
     """A JAX-built FusedIndex carried across with convert.py drives the
     port's engine to the host engine's JSON."""
     from asgart_tpu.device_index import FusedIndex as JaxFusedIndex
-    from asgart_tpu.fasta import prepare_data
     from asgart_tpu_torch.convert import fused_index_from_numpy
     from asgart_tpu_torch.device_engine import FusedEngine
+    from asgart_tpu_torch.fasta import prepare_data
 
     rng = np.random.default_rng(36)
     g = plant_duplication(rng, 60000, 2500, 5000, 40000, noise=0.01,
@@ -147,6 +151,6 @@ def test_port_scan_on_jax_index(tmp_path, reverse, complement):
     for (start, length), raw in zip(chunks, eng.run_chunks(chunks)):
         fams.extend(raw_families_to_protosds(raw, s, start, length))
     port = json_text(_finalize_result(fams, strand, s))
-    host = json_text(jax_search([str(fa)], s, engine="host"))
+    host = json_text(jax_search([str(fa)], jax_settings(s), engine="host"))
     assert port == host
     assert sum(len(f) for f in json.loads(port)["families"]) >= 1

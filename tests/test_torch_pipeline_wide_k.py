@@ -13,11 +13,12 @@ import pytest
 import torch
 
 from asgart_tpu.pipeline import search_duplications as jax_search
-from asgart_tpu.structs import RunSettings
+from asgart_tpu_torch.structs import RunSettings
 from asgart_tpu_torch.pipeline import search_duplications
 
-from torch_jax_ref import TRANSFORMS, json_text, vocab_genome
-from torch_jax_ref import one_torch_thread  # noqa: F401  (autouse)
+from torch_jax_ref import TRANSFORMS, jax_settings, json_text, vocab_genome
+from torch_jax_ref import (one_port_test_at_a_time,  # noqa: F401
+                           one_torch_thread)  # (autouse)
 from util import plant_duplication, revcomp, write_fasta
 
 CPU = torch.device("cpu")
@@ -36,7 +37,8 @@ def _port(fa, s):
 def _jax_fused(fa, s, monkeypatch):
     monkeypatch.setenv("ASGART_FUSED", "1")
     try:
-        return json_text(jax_search([str(fa)], s, engine="tpu"))
+        return json_text(jax_search([str(fa)], jax_settings(s),
+                                    engine="tpu"))
     finally:
         monkeypatch.delenv("ASGART_FUSED")
 
@@ -53,7 +55,8 @@ def test_port_byte_equal_wide_k(tmp_path, monkeypatch, reverse, complement,
     s = RunSettings(reverse=reverse, complement=complement, probe_size=k)
     port = _port(fa, s)
     assert port == _jax_fused(fa, s, monkeypatch)
-    assert port == json_text(jax_search([str(fa)], s, engine="host"))
+    assert port == json_text(jax_search([str(fa)], jax_settings(s),
+                                        engine="host"))
     assert sum(len(f) for f in json.loads(port)["families"]) >= 1
 
 

@@ -9,11 +9,12 @@ import numpy as np
 import pytest
 import torch
 
-from asgart_tpu.structs import RunSettings
+from asgart_tpu_torch.structs import RunSettings
 from asgart_tpu_torch.kernels import scan_core
 
 from torch_jax_ref import chunked_genome, prepared, specs_for
-from torch_jax_ref import one_torch_thread  # noqa: F401  (autouse)
+from torch_jax_ref import (one_port_test_at_a_time,  # noqa: F401
+                           one_torch_thread)  # (autouse)
 
 
 def _jax_index(tmp_path, reverse, complement, g):

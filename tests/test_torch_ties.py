@@ -11,14 +11,15 @@ import numpy as np
 import pytest
 import torch
 
-from asgart_tpu.structs import RunSettings
+from asgart_tpu_torch.structs import RunSettings
 from asgart_tpu_torch.convert import rank_from_decimated
 from asgart_tpu_torch.kernels import tie_keys, tie_refine
 from asgart_tpu_torch.ties import resolve_ties
 
 from torch_jax_ref import (jax_fused_stages, prepared, specs_for,
                            vocab_genome)
-from torch_jax_ref import one_torch_thread  # noqa: F401  (autouse)
+from torch_jax_ref import (one_port_test_at_a_time,  # noqa: F401
+                           one_torch_thread)  # (autouse)
 
 I32 = torch.int32
 

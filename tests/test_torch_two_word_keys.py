@@ -11,15 +11,16 @@ import numpy as np
 import pytest
 import torch
 
-from asgart_tpu.index import CODE
-from asgart_tpu.structs import RunSettings
+from asgart_tpu_torch.index import CODE
+from asgart_tpu_torch.structs import RunSettings
 from asgart_tpu_torch.fused_index import sort_keys
 from asgart_tpu_torch.kernels import group_bounds, pack_keys
 from asgart_tpu_torch.kernels.pack_keys import PAD_KEY2, key_words
 
 from torch_jax_ref import (TRANSFORMS, chunked_genome, jax_fused_stages,
                            key_planes, prepared, specs_for, vocab_genome)
-from torch_jax_ref import one_torch_thread  # noqa: F401  (autouse)
+from torch_jax_ref import (one_port_test_at_a_time,  # noqa: F401
+                           one_torch_thread)  # (autouse)
 
 
 def _stages(tmp_path, genome, k, reverse, complement):

@@ -1,19 +1,26 @@
 """JAX-side references for the asgart_tpu_torch tests: the stages of the
 JAX fused build (asgart_tpu/device_index.py:1605-1787), run step by step
 on the CPU exactly as ``FusedIndex.build`` runs them, with every
-intermediate copied out as numpy; plus shared genome fixtures."""
+intermediate copied out as numpy; plus shared genome fixtures.
+
+The port's settings and results are the port's own classes
+(``asgart_tpu_torch.structs``); :func:`jax_settings` gives the JAX
+package's settings with the same fields, and :func:`json_text` serializes
+either package's result with that package's exporter."""
 
 from __future__ import annotations
 
+import dataclasses
+import fcntl
 import io
+import os
 
 import numpy as np
 import pytest
 import torch
 
-from asgart_tpu.exporters import JSONExporter
-from asgart_tpu.fasta import prepare_data
-from asgart_tpu.structs import RunSettings
+from asgart_tpu_torch.fasta import prepare_data
+from asgart_tpu_torch.structs import RunSettings
 
 from util import plant_duplication, random_dna, revcomp, write_fasta
 
@@ -23,21 +30,54 @@ TRANSFORMS = [(False, False), (True, True), (True, False), (False, True)]
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
     """Run a test module's torch operations on one intra-op thread (import
-    this fixture into the module). With one thread per core, torch's
-    OpenMP workers spin between operations and starve the XLA CPU
-    collectives of the JAX tests that other pytest-xdist workers run at
-    the same time on the virtual 8-device mesh; those abort the process
-    when a collective waits too long."""
+    this fixture into the module), so that the pytest-xdist workers, which
+    share the machine's cores, are not oversubscribed by torch's OpenMP
+    workers."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
 
 
+@pytest.fixture(autouse=True)
+def one_port_test_at_a_time(tmp_path_factory):
+    """Under pytest-xdist, run the port's tests one at a time across the
+    workers (import this fixture into the module): each holds an exclusive
+    lock on a file in the run's shared temporary root. The port's tests
+    then add at most one worker's load beside the JAX package's tests. A
+    JAX test on the virtual 8-device mesh can deadlock in XLA's CPU
+    all-reduce when the machine's cores are oversubscribed, which aborts
+    its worker (ROADMAP F7)."""
+    if "PYTEST_XDIST_WORKER" not in os.environ:
+        yield
+        return
+    lock = tmp_path_factory.getbasetemp().parent / "asgart_torch_tests.lock"
+    with open(lock, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def json_text(result) -> str:
+    """The JSON of a result of either package, by its own exporter (each
+    package's serializer recognizes its own float32 type only)."""
+    if type(result).__module__.startswith("asgart_tpu_torch."):
+        from asgart_tpu_torch.exporters import JSONExporter
+    else:
+        from asgart_tpu.exporters import JSONExporter
     buf = io.StringIO()
     JSONExporter().save(result, buf)
     return buf.getvalue()
+
+
+def jax_settings(settings):
+    """The JAX package's RunSettings with the fields of the port's."""
+    from asgart_tpu.structs import RunSettings as JaxRunSettings
+
+    return JaxRunSettings(**{f.name: getattr(settings, f.name)
+                             for f in dataclasses.fields(settings)})
 
 
 def chunked_genome(seed: int = 32, n: int = 60000) -> bytes:
@@ -50,6 +90,24 @@ def chunked_genome(seed: int = 32, n: int = 60000) -> bytes:
     g[30000:30100] = b"N" * 100
     g[45000:46000] = bytes(g[45000:46000]).lower()
     return bytes(g)
+
+
+def masked_multifasta(seed: int = 600) -> list:
+    """The two FASTA records of tests/test_adversarial_pins.py:107-122:
+    a soft-masked duplication source, an inter-fragment duplication,
+    IUPAC bytes inside an arm, and a 5500-N run across the fragment
+    boundary (chr1 is 24000 bp, chr2 16000 bp)."""
+    rng = np.random.default_rng(seed)
+    f1 = bytearray(random_dna(rng, 24000, b"ACGT"))
+    f2 = bytearray(random_dna(rng, 16000, b"ACGT"))
+    f1[14000:16000] = bytes(f1[2000:4000])
+    f1[2800:3200] = bytes(f1[2800:3200]).lower()
+    f2[6000:8000] = bytes(f1[13500:15500])
+    for p in (14100, 14700, 15200):
+        f1[p] = b"RYKMSWBDHV"[int(rng.integers(0, 10))]
+    f1[20000:24000] = b"N" * 4000
+    f2[0:1500] = b"N" * 1500
+    return [("chr1", bytes(f1)), ("chr2", bytes(f2))]
 
 
 def vocab_genome(seed: int = 34, tiles: int = 1500) -> bytes:
@@ -74,15 +132,17 @@ def specs_for(chunks, settings: RunSettings) -> tuple:
     from asgart_tpu.device_engine import FusedEngine
 
     eng = FusedEngine.__new__(FusedEngine)
-    eng.settings = settings
+    eng.settings = jax_settings(settings)
     eng.mesh = None
     return eng._specs_for([tuple(c) for c in chunks])
 
 
 def jax_fused_stages(strand_data: np.ndarray, k: int, specs: tuple,
-                     reverse: bool, complement: bool) -> dict:
+                     reverse: bool, complement: bool,
+                     trim: tuple | None = None) -> dict:
     """Every intermediate of the JAX fused build, as numpy (with the
-    third key plane, ``cktop``/``sktop``, for k = 21..30)."""
+    third key plane, ``cktop``/``sktop``, for k = 21..30), of the whole
+    genome or of the trim window ``trim`` = (ws, we)."""
     import jax.numpy as jnp
 
     from asgart_tpu import device_engine as de
@@ -90,7 +150,7 @@ def jax_fused_stages(strand_data: np.ndarray, k: int, specs: tuple,
     from asgart_tpu.index import CODE
 
     n1 = int(len(strand_data))
-    W = n1
+    W = n1 if trim is None else trim[1] - trim[0] + 1
     step = k // 2
     doubled = reverse or complement
     n = 2 * n1 - 1 if doubled else n1
@@ -109,7 +169,10 @@ def jax_fused_stages(strand_data: np.ndarray, k: int, specs: tuple,
     x0s = tuple(int(de._probe_x0(cs, cl, n1, k, reverse, complement))
                 - base for (cs, cl, _) in specs)
     j0s = jnp.zeros(max(len(specs), 1), jnp.int32)
-    text_codes = di._build_text_codes(codes1, k, False, False, W)
+    if trim is None:
+        text_codes = di._build_text_codes(codes1, k, False, False, W)
+    else:  # FusedIndex.build's window text (device_index.py:1718-1719)
+        text_codes = di._window_codes(codes1, jnp.int32(trim[0]), W - 1, k)
     out = {"W": W, "total": total}
     if k > di.DEVICE_MAX_K:  # the planes3 branch of FusedIndex.build
         ptop, phi, plo, lane_mask = de._pack_batch_probe_keys3(
