@@ -15,6 +15,10 @@
 //     appended half is read through index arithmetic, never built)
 //   device_index.py:1288 _window_codes (the trim window's text + '$' + k
 //     zeros, read in place: window mode below)
+//   for the merge-join window engine, the two sides apart:
+//     device_engine.py:904 _pack_batch_probe_keys alone (W = 0: probe-only
+//     mode) and device_index.py:269 _pack_planes_all over _window_codes
+//     as window_arrays_from_codes uses them (:1306; total = 0)
 //
 // Every row folds its k symbols (3 bits each) into `hi`, the first k-10
 // (0 for k <= 10), and `lo`, the last min(k, 10). Row r < W is a direct

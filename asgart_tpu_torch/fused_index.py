@@ -3,9 +3,10 @@
 Counterpart of ``FusedIndex`` / ``FusedIndex.build`` and ``fused_fits``
 (asgart_tpu/device_index.py:1571-1787) at k = 2..30, of
 ``fused_window_applicable`` (asgart_tpu/device_engine.py:2140; both fit
-checks are :func:`fits` here), plus a
-one-entry device index cache (the counterpart of ``cached_build``,
-device_index.py:1064).
+checks are :func:`fits` here), of the merge-join window fit
+``device_window_fits`` (device_index.py:161; :func:`mj_fits` here), plus a
+one-entry device index cache for either index type (the counterpart of
+``cached_build``, device_index.py:1064).
 
 The direct text's W key rows (the whole genome, W = n1, or a trim window
 [ws, we) with its own '$', W = we - ws + 1) and every chunk's probe-lane
@@ -33,7 +34,7 @@ import torch
 from .codes import upload_codes
 from .host_helpers import _bucket, _strand_fingerprint
 from .kernels import group_bounds, invert_fused, offset_slots, pack_keys
-from .kernels.pack_keys import MAX_K, key_words
+from .kernels.pack_keys import LO_SYMS, MAX_K, key_words
 from .ties import resolve_ties
 
 # Device bytes per fused row (W + probe lanes) at the build's peak, by key
@@ -44,6 +45,23 @@ from .ties import resolve_ties
 # one word 48.34 B/row at 141.7 M rows (k = 20), two words 56.33 B/row at
 # 139.6 M rows (k = 25); rounded up for a margin.
 PEAK_BYTES_PER_ROW = {1: 50, 2: 58}
+
+# The merge-join window engine (window_index.py, k <= 20). Its build peaks
+# at the stable sort of the W window keys; its stage 1 and scans hold the
+# 12 B/row sorted keys and suffix order, plus per probe lane the packed
+# key and mask (MJ_KEY_BYTES_PER_LANE, which a sharded run keeps cached
+# beside every later window's build), the lane window and the largest
+# chunk's scan buffers. Measured with torch.cuda.max_memory_allocated by
+# chip_smoke.py's merge-join paths on an NVIDIA H100 80GB HBM3 (700 W
+# power limit), -RC, k = 20: build 48.25 B per window row at 32 M rows
+# (128 Mbp) and 49.99 B at 1 M rows (4 Mbp); stage 1 and scans 39.02 and
+# 41.70 B per probe lane. The constants are the larger reading plus 10%.
+# KD's outputs, inside the per-lane figure, grow with the matches, so a
+# genome more repetitive than chip_smoke.py's synthetic one needs more.
+MJ_MAX_K = 2 * LO_SYMS  # one-word keys: two 30-bit symbol planes
+MJ_PEAK_BYTES_PER_ROW = 55
+MJ_BYTES_PER_LANE = 46
+MJ_KEY_BYTES_PER_LANE = 9  # int64 key + bool mask
 
 
 def sort_keys(keys: list):
@@ -123,6 +141,33 @@ def window_fits_bytes(n1: int, W: int, k: int, free: float,
     M = projected_rows(n1, W, k)
     return M < (1 << 31) and \
         M * PEAK_BYTES_PER_ROW[key_words(k)] + resident <= free
+
+
+def mj_window_fits_bytes(n1: int, W: int, k: int, free: float,
+                         resident: int = 0, keys_held: bool = False
+                         ) -> bool:
+    """Whether the merge-join engine's window of W rows, probed by the
+    whole ``n1``-byte strand, fits ``free`` bytes: one-word keys (k <=
+    20), W < 2^30, and the larger of its build peak
+    (``MJ_PEAK_BYTES_PER_ROW`` per row, plus the packed probe keys when
+    ``keys_held``, as in a sharded run's later windows) and its stage 1
+    and scans (12 B per row resident plus ``MJ_BYTES_PER_LANE`` per probe
+    lane, the keys included), plus ``resident`` bytes held beside it."""
+    lanes = n1 // max(1, k // 2)
+    build = MJ_PEAK_BYTES_PER_ROW * W
+    if keys_held:
+        build += MJ_KEY_BYTES_PER_LANE * lanes
+    peak = max(build, 12 * W + MJ_BYTES_PER_LANE * lanes)
+    return k <= MJ_MAX_K and W < (1 << 30) and peak + resident <= free
+
+
+def mj_fits(n1: int, W: int, k: int, doubled: bool, device: torch.device,
+            resident: int = 0, keys_held: bool = False) -> bool:
+    """:func:`fits` for the merge-join window engine: the probed text
+    within int32 addressing, and :func:`mj_window_fits_bytes` against
+    :func:`free_bytes`."""
+    return probe_span(n1, doubled) < (1 << 31) and mj_window_fits_bytes(
+        n1, W, k, free_bytes(device), resident, keys_held)
 
 
 def fits(n1: int, W: int, k: int, doubled: bool, device: torch.device,
@@ -218,10 +263,11 @@ def device_index_cache_enabled() -> bool:
 
 
 class IndexCache:
-    """One-entry cache of the last built index, keyed by the strand's
-    content fingerprint and every build argument: a rescan of the same
-    genome and chunks skips the build. A miss evicts the entry before
-    building, so its memory is free for the build's peak."""
+    """One-entry cache of the last built index, fused or merge-join: keyed
+    by the index type, the strand's content fingerprint and every build
+    argument, so a rescan of the same genome and chunks skips the build. A
+    miss evicts the entry before building, so its memory is free for the
+    build's peak."""
 
     def __init__(self):
         self._key = None
@@ -233,18 +279,14 @@ class IndexCache:
     def clear(self) -> None:
         self._key = self._index = None
 
-    def get_or_build(self, strand_data, k, specs, reverse, complement,
-                     device, trim=None, codes=None) -> FusedIndex:
-        def build():
-            return FusedIndex.build(strand_data, k, specs, reverse,
-                                    complement, device, trim, codes)
-
+    def get_or_build(self, kind: str, strand_data, args: tuple, build):
+        """The cached index of type ``kind`` built from ``strand_data``
+        and ``args``, or ``build()`` (``ASGART_DEVICE_INDEX_CACHE=0``:
+        always built, nothing kept)."""
         if not device_index_cache_enabled():
             self.clear()
             return build()
-        key = (_strand_fingerprint(strand_data), k, tuple(specs),
-               bool(reverse), bool(complement), str(device),
-               None if trim is None else tuple(int(x) for x in trim))
+        key = (kind, _strand_fingerprint(strand_data), *args)
         if key != self._key:
             self.clear()
             self._index = build()

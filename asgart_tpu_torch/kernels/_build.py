@@ -62,6 +62,9 @@ SIGNATURES = {
                          _P],
     # sa (in place), n, ws, stream
     "asgart_offset_slots": [_P, _I64, _I32, _P],
+    # skey, W, pkey, lane_mask, total, lane_off [n_chunks + 1], n_chunks,
+    # lane_lo, lane_hi, totals, stream
+    "asgart_mj_ranges": [_P, _I64, _P, _P, _I64, _P, _I32, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -51,13 +51,16 @@ def pack_keys(codes: torch.Tensor, specs, k: int, reverse: bool,
     The direct text is the window ``codes[ws:ws + W - 1]`` plus its '$'
     (a trim window; the whole genome is ws = 0, W = n1, whose last code
     is the strand's '$'). Probe rows read the whole genome either way.
+    The merge-join window engine packs the two sides apart: W = 0 gives
+    the probe rows alone (probe-only mode), total = 0 and no specs the
+    window's direct rows alone.
 
     Returns (keys, lane_mask bool [total]): ``keys`` is a list of the
     :func:`key_words` words, [key int64 [W + total]] or [w1 int64,
     w0 int32], most significant first (a list, so that the sort can drop
     each word once it is dead)."""
     n1 = codes.numel()
-    if not (0 <= ws and 0 < W and ws + W <= n1) or not 2 <= k <= MAX_K:
+    if not (0 <= ws and 0 <= W and ws + W <= n1) or not 2 <= k <= MAX_K:
         raise ValueError(f"pack_keys: bad ws={ws} / W={W} / k={k} for "
                          f"n1={n1}")
     if codes.dtype != torch.uint8 or not codes.is_contiguous():
@@ -113,7 +116,7 @@ def pack_keys_plain(codes, lane_off, x0s, cls, k, reverse, complement, W,
                 lo = (lo << 3) | s
         return hi, lo, first
 
-    padded = torch.cat([c64[ws:ws + W - 1],
+    padded = torch.cat([c64[ws:ws + max(W - 1, 0)],
                         torch.zeros(k + 1, dtype=torch.int64, device=dev)])
     hi_d, lo, _ = fold(lambda t: padded[t:t + W])
     lo_d = lo << 1  # flag 0

@@ -9,9 +9,15 @@ through ``SearchEngine``, and ``_finalize_result``) are copies of the JAX
 package's, without its ``engine="tpu"`` branches;
 tests/test_torch_host_copies.py pins them against their originals.
 
-With ``engine="cuda"`` every input the port does not cover yet raises
-``NotImplementedError`` naming its ROADMAP item; no input switches
-engines on its own, and no failure falls back to another engine.
+Device routes, in the JAX package's order (pipeline.py:567-640, :786-842),
+chosen by free device memory alone: a window takes the fused build if it
+fits, else the merge-join window engine (k <= 20) if it fits; the whole
+genome takes the fused build, else the merge-join engine over one window
+(0, n1 - 1), else the auto-shard planner's windows. A sharded run picks
+one route for all its windows before any window runs. With
+``engine="cuda"`` every input the port does not cover yet raises
+``NotImplementedError`` naming its route; no failure falls back to another
+engine.
 """
 
 from __future__ import annotations
@@ -29,13 +35,16 @@ import torch
 from . import native, postprocess
 from .codes import upload_codes
 from .device import cuda_device
-from .device_engine import FusedEngine, chain_chunk_events
+from .device_engine import (DeviceWindowEngine, FusedEngine,
+                            chain_chunk_events)
 from .fasta import Strand, prepare_data
-from .fused_index import (INDEX_CACHE, MAX_K, fits, free_bytes, probe_span,
+from .fused_index import (INDEX_CACHE, MAX_K, MJ_MAX_K, fits, free_bytes,
+                          mj_fits, mj_window_fits_bytes, probe_span,
                           window_fits_bytes)
 from .index import CODE, MAX_PROBE_SIZE, ByteIndex, GenomeIndex, PositionIndex
 from .structs import ProtoSD, RunResult, RunSettings, SD, StrandResult
 from .utils import complemented
+from .window_index import ProbeKeyCache
 
 log = logging.getLogger("asgart")
 
@@ -281,12 +290,36 @@ def _doubled(settings: RunSettings) -> bool:
 
 
 def _too_large(n1: int, settings: RunSettings, what: str):
-    """The refusal of a build no device route of the port serves yet."""
+    """The refusal of a build no device route of the port holds."""
     if probe_span(n1, _doubled(settings)) >= (1 << 31):
         return _unsupported(f"{what} beyond int32 probe addressing (the "
                             "big-window engine)", "A10")
-    return _unsupported(f"{what} beyond one device's fused build (the "
-                        "merge-join window engine)", "A9")
+    return NotImplementedError(
+        f"{what} fits no device route of the cuda engine on this device "
+        "(neither the fused build nor the merge-join window engine holds "
+        "it); use more --shards or engine='host'")
+
+
+def _window_route(n1: int, W: int, settings: RunSettings, device,
+                  resident: int, keys_held: bool = False):
+    """The engine class of a W-row trim window: :class:`FusedEngine` if
+    its build fits (``resident`` bytes held beside it), else
+    :class:`DeviceWindowEngine` if the merge-join engine fits
+    (``keys_held``: a sharded run's probe keys stay cached beside each
+    later window's build). Raises when neither holds the window."""
+    k = settings.probe_size
+    doubled = _doubled(settings)
+    if fits(n1, W, k, doubled, device, resident):
+        return FusedEngine
+    if k > MJ_MAX_K:
+        raise NotImplementedError(
+            f"a {W}-row trim window at probe_size {k} beyond one device's "
+            "fused build runs on the host engine in the asgart_tpu package "
+            f"(its merge-join window engines hold probe sizes up to "
+            f"{MJ_MAX_K}); use engine='host'")
+    if mj_fits(n1, W, k, doubled, device, resident, keys_held):
+        return DeviceWindowEngine
+    raise _too_large(n1, settings, f"a {W}-row trim window")
 
 
 def plan_windows(total_len: int, shards: int) -> list:
@@ -300,16 +333,20 @@ def plan_windows(total_len: int, shards: int) -> list:
 
 def plan_shards(n1: int, k: int, doubled: bool, free: float
                 ) -> Optional[int]:
-    """The auto-shard planner (pipeline.py:786-842 without the merge-join
-    refinement): the smallest S in 2..256 whose windows' fused builds fit
-    ``free`` device bytes next to the n1 resident code bytes, or None
-    (no S fits, or the genome is beyond int32 probe addressing)."""
+    """The auto-shard planner (pipeline.py:786-842 without its join-single
+    refinement, which only bounds the JAX co-sort): the smallest S in
+    2..256 whose windows fit ``free`` device bytes next to the n1
+    resident code bytes, in a fused build or in the merge-join engine
+    (its probe keys held across the windows), or None (no S fits, or the genome is beyond int32 probe
+    addressing)."""
     if probe_span(n1, doubled) >= (1 << 31):
         return None
     total_len = n1 - 1
     for S in range(2, MAX_SHARDS + 1):
-        if window_fits_bytes(n1, (total_len + S - 1) // S + 1, k, free,
-                             resident=n1):
+        W = (total_len + S - 1) // S + 1
+        if window_fits_bytes(n1, W, k, free, resident=n1) \
+                or mj_window_fits_bytes(n1, W, k, free, resident=n1,
+                                        keys_held=True):
             return S
     return None
 
@@ -352,8 +389,9 @@ def search_duplications(
     kernels); ``engine="host"`` runs the host ``SearchEngine``
     (``index_cache`` applies to it only). ``settings.trim`` indexes one
     window; ``shards`` > 1 indexes that many windows in turn. A genome
-    whose whole fused build does not fit the device is sharded
-    automatically. ``profile``: dict to fill with phase timings."""
+    whose whole fused build does not fit the device runs as one
+    merge-join window, or sharded automatically (module docstring).
+    ``profile``: dict to fill with phase timings."""
     if engine not in ENGINES:
         raise ValueError(f"engine must be one of {ENGINES}")
     if not (1 <= settings.probe_size <= 10000):
@@ -390,10 +428,19 @@ def search_duplications(
         k = settings.probe_size
         doubled = _doubled(settings)
         if trim is not None:
-            W = trim[1] - trim[0] + 1
-            if not fits(n1, W, k, doubled, device, resident=n1):
-                raise _too_large(n1, settings, f"a {W}-row trim window")
-        elif not fits(n1, n1, k, doubled, device):
+            route = _window_route(n1, trim[1] - trim[0] + 1, settings,
+                                  device, resident=n1)
+            eng = route(strand, settings, device, trim=trim)
+        elif fits(n1, n1, k, doubled, device):
+            eng = FusedEngine(strand, settings, device)
+        elif mj_fits(n1, n1, k, doubled, device, resident=n1):
+            # the whole genome as the one window (0, n1 - 1): its text is
+            # the genome and its '$', so the output is the whole genome's
+            # (pipeline.py:591-604); the settings stay untrimmed
+            log.info("whole-genome fused build exceeds the device; using "
+                     "the one-window merge-join device engine")
+            eng = DeviceWindowEngine(strand, settings, device, (0, n1 - 1))
+        else:
             S = plan_shards(n1, k, doubled, free_bytes(device))
             if S is None:
                 raise _too_large(n1, settings, "a genome, in any number of "
@@ -406,7 +453,6 @@ def search_duplications(
                 "engine=host for whole-genome trim-free semantics", S)
             return _search_duplications_sharded(strands_files, settings, S,
                                                 "cuda", device, profile)
-        eng = FusedEngine(strand, settings, device, trim=trim)
         eng.ensure_index(to_process)
         prof["index_s"] = round(time.time() - t0, 3)
         t0 = time.time()
@@ -480,29 +526,35 @@ def _window_tail(events, to_process, strand, settings) -> RunResult:
 def _run_cuda_windows(windows, to_process, strand, settings, device
                       ) -> list:
     """The device windows of a sharded run, results in window order
-    (pipeline.py:288-355). This thread runs each window's device phase
-    (build, scans, downloads) in turn; one tail thread runs each window's
-    host phase (:func:`_window_tail`) while the next window's device phase
-    runs. The tail holds no device memory (the scans' outputs are already
-    on the host), so no headroom check gates the overlap. A window's
-    failure fails the run: nothing reruns a window or moves it to the host
+    (pipeline.py:288-355). One route serves every window: it is chosen
+    for the first, largest window (:func:`_window_route`, the merge-join
+    engine charged for the probe keys it holds across windows) before
+    anything is allocated, so a run no route holds fails before any window
+    runs. This thread runs each window's device phase (build, scans,
+    downloads) in turn; one tail thread runs each window's host phase
+    (:func:`_window_tail`) while the next window's device phase runs. The
+    tail holds no device memory (the scans' outputs are already on the
+    host), so no headroom check gates the overlap. A window's failure
+    fails the run: nothing reruns a window or moves it to the host
     engine."""
-    n1 = int(len(strand.data))
-    W = max(we - ws for ws, we in windows) + 1
-    if not fits(n1, W, settings.probe_size, _doubled(settings), device,
-                resident=n1):
-        raise _too_large(n1, settings, f"{len(windows)} trim windows of "
-                         f"{W} rows")
     # the one-entry index cache cannot hold a window set: free it, and
     # build the windows uncached
     INDEX_CACHE.clear()
+    n1 = int(len(strand.data))
+    ws, we = windows[0]
+    route = _window_route(n1, we - ws + 1, settings, device, resident=n1,
+                          keys_held=True)
     codes = upload_codes(strand.data, device)  # once for every window
+    extra = {}
+    if route is DeviceWindowEngine:  # the probe keys, packed once
+        extra["probe_cache"] = ProbeKeyCache()
     tails = []
     with ThreadPoolExecutor(max_workers=1) as tail_ex:
         for w in windows:
             s = dataclasses.replace(settings, trim=w)
-            events = FusedEngine(strand, s, device, cache=None, trim=w,
-                                 codes=codes).scan_chunks(to_process)
+            # the engine (and its index) is dropped before the next build
+            events = route(strand, s, device, trim=w, cache=None,
+                           codes=codes, **extra).scan_chunks(to_process)
             tails.append(tail_ex.submit(_window_tail, events, to_process,
                                         strand, s))
     return [t.result() for t in tails]

@@ -1,8 +1,10 @@
 """The CUDA kernels against their plain PyTorch versions on the GPU, for
 every transform and k in {8, 20} (one-word keys) and {25, 30} (two-word
-keys), KA's window mode and KG on trim windows, and the port's JSON on
-the GPU against the host engine (whole genome, trim windows and
-``shards``). The
+keys), KA's window mode and KG on trim windows, the merge-join window
+engine's kernels (KA's probe-only mode and window keys, KC with no lanes,
+KH), and the port's JSON on the GPU against the host engine (whole
+genome, trim windows and ``shards``, on the fused build and on the
+merge-join engine, with its route chosen by free memory alone). The
 kernels have no CPU mode, so without a CUDA GPU these tests skip. On a
 machine with a GPU (and without jax, which tests/conftest.py imports),
 run them with::
@@ -108,9 +110,10 @@ def test_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse, complement, k):
             n_events += got.n_events
     torch.cuda.synchronize()
     after = launch_counts()
-    # KG runs on trim windows only (test_window_kernels_equal_plain_on_gpu)
+    # KG runs on trim windows only (test_window_kernels_equal_plain_on_gpu),
+    # KH on the merge-join engine (test_mj_kernels_equal_plain_on_gpu)
     assert all(after[name] > before[name] for name in after
-               if name != "offset_slots")
+               if name not in ("offset_slots", "mj_ranges"))
     if reverse == complement:
         assert n_events > 0
 
@@ -196,7 +199,7 @@ def test_window_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse,
     torch.cuda.synchronize()
     after = launch_counts()
     assert all(after[name] > before[name] for name in after
-               if name != "scan_core")
+               if name not in ("scan_core", "mj_ranges"))
 
 
 @pytest.mark.parametrize("k", [20, 25])
@@ -229,3 +232,157 @@ def test_gpu_trim_and_shards_json_equal_host(tmp_path, gpu, k):
             assert main([fa, "-R", "-C", "-k", str(k), *flags, "--engine",
                          engine, "--out", str(out)]) == 0
         assert outs[0].read_text() == outs[1].read_text()
+
+
+@pytest.mark.parametrize("k", [20, 8])
+@pytest.mark.parametrize("reverse,complement", TRANSFORMS)
+def test_mj_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse, complement,
+                                       k):
+    """The merge-join engine's kernels on a window with ws > 0: KA's window
+    keys and probe-only mode, KC with no lanes and KH, each against its
+    plain version; the window index and stage 1 on the GPU equal the CPU's."""
+    from asgart_tpu_torch.device_engine import DeviceWindowEngine, chunk_specs
+    from asgart_tpu_torch.fused_index import sort_keys
+    from asgart_tpu_torch.kernels import (group_bounds, invert_fused,
+                                          launch_counts, mj_ranges, pack_keys)
+    from asgart_tpu_torch.kernels.group_bounds import group_bounds_plain
+    from asgart_tpu_torch.kernels.invert import invert_fused_plain
+    from asgart_tpu_torch.kernels.merge_join import mj_ranges_plain
+    from asgart_tpu_torch.kernels.pack_keys import (chunk_tables,
+                                                    pack_keys_plain)
+
+    g = bytearray(chunked_genome())
+    g[500:3560] = g[20500:23560]  # a direct duplication
+    _, chunks, strand = prepared(tmp_path, [("chr1", bytes(g))])
+    s = RunSettings(reverse=reverse, complement=complement, probe_size=k)
+    specs = chunk_specs(chunks, s)
+    n1 = len(strand.data)
+    ws, we = 19000, 46000
+    W = we - ws + 1
+    tabs = chunk_tables(specs, n1, k, reverse, complement)
+    total = tabs[0][-1]
+    before = launch_counts()
+    codes = torch.from_numpy(CODE[strand.data]).to(gpu)
+    (key,), empty = pack_keys(codes, (), k, reverse, complement, W, 0, ws)
+    (want,), _ = pack_keys_plain(codes, [0], [], [], k, reverse, complement,
+                                 W, 0, ws)
+    _equal((key,), (want,))
+    (pkey,), mask = pack_keys(codes, specs, k, reverse, complement, 0, total)
+    want = pack_keys_plain(codes, *tabs, k, reverse, complement, 0, total)
+    _equal((pkey, mask), (want[0][0], want[1]))
+    (skey,), sa = sort_keys([key])
+    run_lo, run_hi, tied = group_bounds([skey], sa, W)
+    _equal((run_lo, run_hi, tied), group_bounds_plain([skey], sa, W))
+    inv = invert_fused(sa, run_lo, run_hi, empty, W, [0])
+    _equal(inv, invert_fused_plain(sa, run_lo, run_hi, empty, W, [0]))
+    got = mj_ranges(skey, pkey, mask, tabs[0])
+    _equal(got, mj_ranges_plain(skey, pkey, mask, tabs[0]))
+    if reverse == complement:  # the planted pairs match these probes
+        assert int(got[2].sum()) > 0
+    cpu = torch.device("cpu")
+    engines = [DeviceWindowEngine(strand, s, dev, (ws, we), cache=None)
+               for dev in (gpu, cpu)]
+    r_gpu, r_cpu = (e.stage1(chunks) for e in engines)
+    _equal((engines[0].index.key, engines[0].index.sa, r_gpu.lane_lo,
+            r_gpu.lane_hi, r_gpu.lane_mask),
+           (engines[1].index.key, engines[1].index.sa, r_cpu.lane_lo,
+            r_cpu.lane_hi, r_cpu.lane_mask))
+    assert r_gpu.offs == r_cpu.offs
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert all(after[name] > before[name] for name in after
+               if name != "scan_core")
+
+
+@pytest.mark.parametrize("k", [20, 8])
+def test_gpu_mj_trim_and_shards_json_equal_host(tmp_path, gpu, monkeypatch,
+                                                k):
+    """With no fused build fitting, trim windows, shards and the whole
+    genome (one window) run on the merge-join engine and write the host
+    engine's bytes."""
+    from asgart_tpu_torch import pipeline
+    from asgart_tpu_torch.fused_index import INDEX_CACHE
+    from asgart_tpu_torch.pipeline import search_duplications
+    from asgart_tpu_torch.window_index import DeviceWindowIndex
+
+    g = bytearray(chunked_genome())
+    g[500:3560] = g[20500:23560]  # a direct duplication
+    fa, _, _ = prepared(tmp_path, [("chr1", bytes(g))])
+    monkeypatch.setattr(pipeline, "fits", lambda *a, **kw: False)
+    for reverse, complement in TRANSFORMS:
+        for trim in ((0, 30000), (400, 52000), (35000, 60000)):
+            s = RunSettings(reverse=reverse, complement=complement,
+                            probe_size=k, trim=trim)
+            host = json_text(search_duplications([fa], s, engine="host"))
+            assert json_text(search_duplications(
+                [fa], s, engine="cuda", device=gpu)) == host
+            assert isinstance(INDEX_CACHE._index, DeviceWindowIndex)
+        s = RunSettings(reverse=reverse, complement=complement,
+                        probe_size=k)
+        for shards in (2, 3):
+            host = json_text(search_duplications([fa], s, engine="host",
+                                                 shards=shards))
+            assert json_text(search_duplications(
+                [fa], s, engine="cuda", device=gpu, shards=shards)) == host
+        host = json_text(search_duplications([fa], s, engine="host"))
+        INDEX_CACHE.clear()
+        assert json_text(search_duplications(
+            [fa], s, engine="cuda", device=gpu)) == host
+        assert isinstance(INDEX_CACHE._index, DeviceWindowIndex)
+    INDEX_CACHE.clear()
+
+
+def test_gpu_natural_route_ballast(tmp_path, gpu):
+    """A ballast tensor that leaves free memory between the merge-join
+    projection and the fused build's sends a trim window, the whole
+    genome as one window, and every window of a sharded run (its held
+    probe keys charged) to the merge-join engine; the JSON is the host
+    engine's."""
+    from asgart_tpu_torch import fused_index
+    from asgart_tpu_torch.fused_index import (INDEX_CACHE, MJ_BYTES_PER_LANE,
+                                              MJ_KEY_BYTES_PER_LANE,
+                                              MJ_PEAK_BYTES_PER_ROW,
+                                              PEAK_BYTES_PER_ROW,
+                                              projected_rows)
+    from asgart_tpu_torch.pipeline import plan_windows, search_duplications
+    from asgart_tpu_torch.window_index import DeviceWindowIndex
+
+    g = chunked_genome()
+    fa, _, strand = prepared(tmp_path, [("chr1", g)])
+    n1 = len(strand.data)
+    lanes = n1 // 10
+    built = []
+    orig = DeviceWindowIndex.build.__func__
+
+    def spy(cls, *a, **kw):
+        built.append(a[2])
+        return orig(cls, *a, **kw)
+
+    for trim, shards in (((5000, 50000), 1), (None, 1), (None, 3)):
+        ws, we = plan_windows(n1 - 1, shards)[0] if trim is None else trim
+        W = n1 if shards == 1 and trim is None else we - ws + 1
+        held = MJ_KEY_BYTES_PER_LANE * lanes if shards > 1 else 0
+        fused = projected_rows(n1, W, 20) * PEAK_BYTES_PER_ROW[1] + n1
+        mj = max(MJ_PEAK_BYTES_PER_ROW * W + held,
+                 12 * W + MJ_BYTES_PER_LANE * lanes) + n1
+        s = RunSettings(reverse=True, complement=True, trim=trim)
+        host = json_text(search_duplications([fa], s, engine="host",
+                                             shards=shards))
+        INDEX_CACHE.clear()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        built.clear()
+        ballast = torch.empty(
+            int(fused_index.free_bytes(gpu) - (mj + fused) / 2),
+            dtype=torch.uint8, device=gpu)
+        try:
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(DeviceWindowIndex, "build", classmethod(spy))
+                got = json_text(search_duplications(
+                    [fa], s, engine="cuda", device=gpu, shards=shards))
+        finally:
+            del ballast
+            INDEX_CACHE.clear()
+            torch.cuda.empty_cache()
+        assert len(built) == shards
+        assert got == host

@@ -132,9 +132,9 @@ def test_wrappers_take_kernel_path_for_gpu_tensors(monkeypatch):
     import importlib
 
     from asgart_tpu_torch.kernels import (_build, group_bounds,
-                                          invert_fused, offset_slots,
-                                          pack_keys, scan_core, tie_keys,
-                                          tie_refine)
+                                          invert_fused, mj_ranges,
+                                          offset_slots, pack_keys, scan_core,
+                                          tie_keys, tie_refine)
 
     def mod(name):  # the module, not the wrapper of the same name
         return importlib.import_module(f"asgart_tpu_torch.kernels.{name}")
@@ -153,7 +153,8 @@ def test_wrappers_take_kernel_path_for_gpu_tensors(monkeypatch):
                     ("scan_core", "scan_core_plain"),
                     ("ties", "tie_keys_plain"),
                     ("ties", "tie_refine_plain"),
-                    ("window", "offset_slots_plain")):
+                    ("window", "offset_slots_plain"),
+                    ("merge_join", "mj_ranges_plain")):
         monkeypatch.setattr(mod(m), name, no_plain)
 
     i32, i64 = torch.int32, torch.int64
@@ -163,6 +164,13 @@ def test_wrappers_take_kernel_path_for_gpu_tensors(monkeypatch):
             pack_keys(codes, ((0, 99, 7),), k, True, True, 100, 16)
         with pytest.raises(RuntimeError, match="kernel library"):
             pack_keys(codes, ((0, 99, 7),), k, True, True, 41, 16, ws=30)
+    with pytest.raises(RuntimeError, match="kernel library"):
+        pack_keys(codes, ((0, 99, 7),), 20, True, True, 0, 16)  # probe-only
+    with pytest.raises(RuntimeError, match="kernel library"):
+        pack_keys(codes, (), 20, False, False, 41, 0, ws=30)  # window keys
+    with pytest.raises(RuntimeError, match="kernel library"):
+        mj_ranges(torch.arange(8, dtype=i64), torch.arange(4, dtype=i64),
+                  torch.ones(4, dtype=torch.bool), [0, 4])
     with pytest.raises(RuntimeError, match="kernel library"):
         offset_slots(torch.arange(8, dtype=i32), 5)
     with pytest.raises(RuntimeError, match="kernel library"):

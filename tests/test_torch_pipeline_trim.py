@@ -18,7 +18,10 @@ import torch
 
 from asgart_tpu.pipeline import search_duplications as jax_search
 from asgart_tpu_torch import pipeline
-from asgart_tpu_torch.fused_index import PEAK_BYTES_PER_ROW
+from asgart_tpu_torch.fused_index import (MJ_BYTES_PER_LANE,
+                                          MJ_KEY_BYTES_PER_LANE,
+                                          MJ_PEAK_BYTES_PER_ROW,
+                                          PEAK_BYTES_PER_ROW)
 from asgart_tpu_torch.pipeline import plan_shards, search_duplications
 from asgart_tpu_torch.structs import RunSettings
 
@@ -135,43 +138,57 @@ def test_shards_json_masked_multifasta(tmp_path):
 
 
 def test_plan_shards():
-    """The smallest S whose windows fit, from (n1, k, doubled, free
-    bytes) alone."""
+    """The smallest S whose windows fit, in a fused build or (k <= 20) in
+    the merge-join engine with the run's probe keys held beside each
+    window's build, from (n1, k, doubled, free bytes) alone."""
     n1 = 128_000_001
     step_rows = n1 // 10 + (1 << 21)
+    lanes = n1 // 10
+
+    def window(S):
+        return (n1 - 1 + S - 1) // S + 1
+
+    def mj(S):
+        W = window(S)
+        return max(MJ_PEAK_BYTES_PER_ROW * W + MJ_KEY_BYTES_PER_LANE * lanes,
+                   12 * W + MJ_BYTES_PER_LANE * lanes) + n1
+
     for S in (2, 3, 5, 17):
-        W = (n1 - 1 + S - 1) // S + 1
-        need = (W + step_rows) * PEAK_BYTES_PER_ROW[1] + n1
-        assert plan_shards(n1, 20, True, need) == S
-        assert plan_shards(n1, 20, True, need - 1) == S + 1
+        fused = (window(S) + step_rows) * PEAK_BYTES_PER_ROW[1] + n1
+        # at k = 20 the merge-join engine holds a window in fewer bytes
+        assert mj(S) < fused
+        assert plan_shards(n1, 20, True, mj(S)) == S
+        assert plan_shards(n1, 20, True, mj(S) - 1) == S + 1
     assert plan_shards(n1, 20, True, float("inf")) == 2
-    # two-word keys need more per row, probe step 12 fewer lanes
-    W4 = (n1 - 1 + 3) // 4 + 1
+    # two-word keys: the fused build alone (more bytes per row, probe
+    # step 12 fewer lanes)
+    W4 = window(4)
     need = (W4 + n1 // 12 + (1 << 21)) * PEAK_BYTES_PER_ROW[2] + n1
     assert plan_shards(n1, 25, False, need) == 4
+    assert plan_shards(n1, 25, False, need - 1) == 5
     # nothing fits: the probe side alone outgrows the budget
-    assert plan_shards(n1, 20, True,
-                       step_rows * PEAK_BYTES_PER_ROW[1] + n1) is None
+    assert plan_shards(n1, 20, True, mj(256) - 1) is None
     # beyond int32 probe addressing: the doubled text of -R/-C runs
     assert plan_shards(2**30 + 1, 20, True, float("inf")) is None
     assert plan_shards(2**30 + 1, 20, False, float("inf")) == 2
 
 
 def test_auto_shard(tmp_path, monkeypatch, caplog):
-    """A genome whose whole fused build does not fit runs sharded into the
-    planner's S windows, byte-equal to the JAX host engine's S windows;
-    when no S fits, the run raises naming A9."""
+    """A genome whose whole fused build and one-window merge join do not
+    fit runs sharded into the planner's S windows, byte-equal to the JAX
+    host engine's S windows; when no S fits, the run raises."""
     fa = _genome(tmp_path)
     s = RunSettings(reverse=True, complement=True)
     # the whole genome (W = n1) does not fit; its windows do
     monkeypatch.setattr(pipeline, "fits", lambda n1, W, *a, **kw: W != n1)
+    monkeypatch.setattr(pipeline, "mj_fits", lambda *a, **kw: False)
     monkeypatch.setattr(pipeline, "plan_shards", lambda *a: 3)
     with caplog.at_level(logging.WARNING, logger="asgart"):
         got = _port(fa, s)
     assert "auto-sharding into 3 trim windows" in caplog.text
     assert got == _jax_host(fa, s, shards=3)
     monkeypatch.setattr(pipeline, "plan_shards", lambda *a: None)
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError, match="fits no device route"):
         _port(fa, s)
 
 
@@ -190,11 +207,13 @@ def test_refusals(tmp_path, monkeypatch, caplog):
     assert "--checkpoint is not supported with --shards" in caplog.text
     assert "--index-cache applies to whole-genome" in caplog.text
     assert got == _jax_host(fa, plain, shards=2)
-    # a window whose build does not fit the device
+    # a window that neither the fused build nor the merge-join engine
+    # holds on the device
     monkeypatch.setattr(pipeline, "fits", lambda *a, **kw: False)
-    with pytest.raises(NotImplementedError, match="A9"):
+    monkeypatch.setattr(pipeline, "mj_fits", lambda *a, **kw: False)
+    with pytest.raises(NotImplementedError, match="fits no device route"):
         _port(fa, s)
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError, match="fits no device route"):
         _port(fa, plain, shards=2)
     # beyond int32 probe addressing
     monkeypatch.setattr(pipeline, "probe_span", lambda *a: 2**31)
