@@ -1,10 +1,11 @@
 """State carried across from the JAX package: its device indexes.
 
 The system has no weights; its state is the device index. These helpers
-take the arrays of a JAX ``FusedIndex`` (asgart_tpu/device_index.py:1580)
-or ``DeviceWindowIndex`` (:1342), read out with ``np.asarray``, and give
-the port's counterparts, so the port's engines can run on an index the
-JAX package built.
+take the arrays of a JAX ``FusedIndex`` (asgart_tpu/device_index.py:1580),
+``DeviceWindowIndex`` (:1342) or ``BigWindowEngine`` (its window-relative
+``key_hi``, ``key_lo`` and ``sa``; asgart_tpu/device_engine.py:2453),
+read out with ``np.asarray``, and give the port's counterparts, so the
+port's engines can run on an index the JAX package built.
 """
 
 from __future__ import annotations
@@ -47,15 +48,22 @@ def fused_index_from_numpy(sa, lane_lo, lane_hi, lane_mask, specs, offs,
 def window_index_from_numpy(key_hi, key_lo, sa, k: int, n: int,
                             first_len: int, W: int, win_start: int,
                             win_end: int, reverse: bool, complement: bool,
-                            device: torch.device) -> DeviceWindowIndex:
+                            device: torch.device, relative: bool = False
+                            ) -> DeviceWindowIndex:
     """The port's DeviceWindowIndex from a JAX DeviceWindowIndex's sorted
-    key planes and suffix order: the planes packed into the port's one
-    int64 key, (hi << 31) | (lo << 1); ``sa`` copied (its decimated probe
-    codes are not carried: the port's engine reads the strand's codes)."""
+    key planes and suffix order, whose ``sa`` holds genome positions, or
+    (``relative``) from a JAX BigWindowEngine's, whose ``sa`` holds window
+    positions: the planes packed into the port's one int64 key, (hi << 31)
+    | (lo << 1); ``sa`` in window positions, as the port's index keeps it
+    (genome positions minus ``win_start``). The decimated probe codes are
+    not carried: the port's engine reads the strand's codes."""
     key = (np.asarray(key_hi).astype(np.int64) << 31) \
         | (np.asarray(key_lo).astype(np.int64) << 1)
+    sa = np.asarray(sa)
+    if not relative:
+        sa = sa - np.int32(win_start)
     return DeviceWindowIndex(
         key=torch.tensor(key, dtype=torch.int64, device=device),
-        sa=torch.tensor(np.asarray(sa), dtype=torch.int32, device=device),
+        sa=torch.tensor(sa, dtype=torch.int32, device=device),
         k=k, n=n, first_len=first_len, W=W, win_start=int(win_start),
         win_end=int(win_end), reverse=reverse, complement=complement)

@@ -3,14 +3,19 @@
 //
 // Replaces (JAX reference): asgart_tpu/device_engine.py:249
 // _core_from_ranges, as dispatched by _scan_core (:352) and
-// _scan_core_group (:402) for the fused engine (self_base = 0,
-// dir_base = chunk_start, rev_t0 = chunk_start + chunk_len), with the
-// slicing helpers _range_granule_totals (:589), _slice_lanes_dyn (:601)
-// and _slice_lanes (:964) made unnecessary.
+// _scan_core_group (:402) for the fused engine (self_base = 0, dir_base =
+// chunk_start, rev_t0 = chunk_start + chunk_len), and by _scan_core_based
+// (:665) and _scan_core_based_group (:636) for the merge-join engine,
+// whose suffix order is window-relative (the three constants rebased by
+// the window start and clamped on the host, as BigWindowEngine._rebased,
+// :2632, computes them); with the slicing
+// helpers _range_granule_totals (:589), _slice_lanes_dyn (:601) and
+// _slice_lanes (:964) made unnecessary.
 //
 // For lane l (probe i = (j0 + l + 1) * step) and each match m = sa[x],
-// x in [lane_lo, lane_hi): keep m when m != i, m < max_match_pos and
-// (reverse ? m >= rev_t0 - i : m > i + dir_base). A lane is an event when
+// x in [lane_lo, lane_hi): keep m when m != i + self_base,
+// m < max_match_pos and (reverse ? m >= rev_t0 - i : m > i + dir_base),
+// all in 64-bit arithmetic. A lane is an event when
 // masked in and 0 < kept <= max_cardinality, quiet-valid when masked in
 // with kept == 0. Outputs, sized exactly (no capacity, no overflow, no
 // retry): ev_pack [3, n_events] = (probe i, quiet lanes since the previous
@@ -43,7 +48,7 @@ struct ScanArgs {
   const int* lane_hi;
   const uint8_t* lane_mask;
   const int* sa;
-  long long n_lanes, chunk_start, chunk_len;
+  long long n_lanes, self_base, dir_base, rev_t0;
   int max_card;
   long long j0;
   int step, reverse;
@@ -52,9 +57,8 @@ struct ScanArgs {
 
 __device__ __forceinline__ bool keep_match(const ScanArgs& a, long long m,
                                            long long i) {
-  if (m == i || m >= a.max_match_pos) return false;
-  return a.reverse ? m >= a.chunk_start + a.chunk_len - i
-                   : m > i + a.chunk_start;
+  if (m == i + a.self_base || m >= a.max_match_pos) return false;
+  return a.reverse ? m >= a.rev_t0 - i : m > i + a.dir_base;
 }
 
 __global__ void scan_count_kernel(ScanArgs a, int* __restrict__ flags) {
@@ -119,8 +123,8 @@ __global__ void scan_finish_kernel(const int* __restrict__ a_evt,
 
 ScanArgs make_args(const void* lane_lo, const void* lane_hi,
                    const void* lane_mask, const void* sa, long long n_lanes,
-                   long long chunk_start, long long chunk_len, int max_card,
-                   long long j0, int k, int reverse,
+                   long long self_base, long long dir_base, long long rev_t0,
+                   int max_card, long long j0, int k, int reverse,
                    long long max_match_pos) {
   ScanArgs a;
   a.lane_lo = (const int*)lane_lo;
@@ -128,8 +132,9 @@ ScanArgs make_args(const void* lane_lo, const void* lane_hi,
   a.lane_mask = (const uint8_t*)lane_mask;
   a.sa = (const int*)sa;
   a.n_lanes = n_lanes;
-  a.chunk_start = chunk_start;
-  a.chunk_len = chunk_len;
+  a.self_base = self_base;
+  a.dir_base = dir_base;
+  a.rev_t0 = rev_t0;
   a.max_card = max_card;
   a.j0 = j0;
   a.step = k / 2;
@@ -142,14 +147,14 @@ ScanArgs make_args(const void* lane_lo, const void* lane_hi,
 
 ASGART_API int asgart_scan_count(const void* lane_lo, const void* lane_hi,
                                  const void* lane_mask, const void* sa,
-                                 long long n_lanes, long long chunk_start,
-                                 long long chunk_len, int max_card,
-                                 long long j0, int k, int reverse,
-                                 long long max_match_pos, void* flags,
-                                 void* stream) {
+                                 long long n_lanes, long long self_base,
+                                 long long dir_base, long long rev_t0,
+                                 int max_card, long long j0, int k,
+                                 int reverse, long long max_match_pos,
+                                 void* flags, void* stream) {
   ScanArgs a = make_args(lane_lo, lane_hi, lane_mask, sa, n_lanes,
-                         chunk_start, chunk_len, max_card, j0, k, reverse,
-                         max_match_pos);
+                         self_base, dir_base, rev_t0, max_card, j0, k,
+                         reverse, max_match_pos);
   scan_count_kernel<<<asgart::grid_for(n_lanes), asgart::kThreads, 0,
                       (cudaStream_t)stream>>>(a, (int*)flags);
   return (int)cudaGetLastError();
@@ -157,17 +162,18 @@ ASGART_API int asgart_scan_count(const void* lane_lo, const void* lane_hi,
 
 ASGART_API int asgart_scan_emit(const void* lane_lo, const void* lane_hi,
                                 const void* lane_mask, const void* sa,
-                                long long n_lanes, long long chunk_start,
-                                long long chunk_len, int max_card,
-                                long long j0, int k, int reverse,
-                                long long max_match_pos, const void* flags,
-                                const void* cums, long long n_events,
-                                void* ev_pack, void* m_flat, void* z_trail,
-                                void* a_evt, void* stream) {
+                                long long n_lanes, long long self_base,
+                                long long dir_base, long long rev_t0,
+                                int max_card, long long j0, int k,
+                                int reverse, long long max_match_pos,
+                                const void* flags, const void* cums,
+                                long long n_events, void* ev_pack,
+                                void* m_flat, void* z_trail, void* a_evt,
+                                void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   ScanArgs a = make_args(lane_lo, lane_hi, lane_mask, sa, n_lanes,
-                         chunk_start, chunk_len, max_card, j0, k, reverse,
-                         max_match_pos);
+                         self_base, dir_base, rev_t0, max_card, j0, k,
+                         reverse, max_match_pos);
   scan_emit_kernel<<<asgart::grid_for(n_lanes), asgart::kThreads, 0, s>>>(
       a, (const int*)flags, (const long long*)cums, n_events, (int*)ev_pack,
       (int*)m_flat, (int*)a_evt);

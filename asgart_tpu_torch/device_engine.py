@@ -2,13 +2,17 @@
 one trim window) and the merge-join window engine.
 
 Counterpart of ``FusedEngine`` (asgart_tpu/device_engine.py:2157) for the
-one-device route (k = 2..30), with its ``trim`` window build, and of
-``DeviceWindowEngine`` (:1749) for trim windows at k = 2..20. Per chunk: KD
-``scan_core`` on the chunk's lane slice, one device-to-host copy of its
-exactly-sized outputs, then the native event chain with the arguments of
-device_engine.py:1519-1525. The JAX engines' capacity buckets, overflow
-retries, sliced and grouped dispatch and packed downloads are not needed:
-KD sizes its outputs exactly.
+one-device route (k = 2..30), with its ``trim`` window build, and of both
+merge-join window engines at k = 2..20: ``DeviceWindowEngine`` (:1749) and
+``BigWindowEngine`` (:2380), which the JAX package keeps apart because its
+window index holds genome positions in int32. The port's window index
+always keeps window positions, so one engine serves every genome size.
+Per chunk: KD ``scan_core`` on the chunk's lane slice, one device-to-host
+copy of its exactly-sized outputs, then the native event chain with the
+arguments of device_engine.py:1519-1525 (the merge-join engine's matches
+first rebased to genome positions in int64, :1488-1490). The JAX engines'
+capacity buckets, overflow retries, sliced and grouped dispatch and packed
+downloads are not needed: KD sizes its outputs exactly.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from .codes import upload_codes
 from .fused_index import INDEX_CACHE, FusedIndex, IndexCache
 from .host_helpers import _merge_shard_events
 from .kernels import mj_ranges, pack_keys, scan_core
+from .kernels.scan_core import fused_bases
 from .window_index import DeviceWindowIndex, ProbeKeyCache, WindowRanges
 
 
@@ -47,6 +52,8 @@ class FusedEngine:
     caching) for the whole chunk set at the first :meth:`run_chunks`;
     ``codes`` are the strand's codes already on ``device``; ``index``
     supplies a prebuilt index (e.g. from :mod:`asgart_tpu_torch.convert`)."""
+
+    m_offset = 0  # added to the matches on the host (genome positions)
 
     def __init__(self, strand, settings, device: torch.device,
                  cache: IndexCache | None = INDEX_CACHE,
@@ -79,29 +86,34 @@ class FusedEngine:
     def run_chunks(self, chunks) -> list:
         """Raw families (native-engine format, chunk-relative left
         coordinates) for each chunk, in order."""
-        return chain_chunk_events(self.scan_chunks(chunks), self.settings)
+        return chain_chunk_events(self.scan_chunks(chunks), self.settings,
+                                  self.m_offset)
 
     def scan_chunks(self, chunks) -> list:
         """The device phase: each chunk's merged events on the host, (ev
         int32 [3, n], m int32, z_trail) or None (no event), in order."""
         idx = self.ensure_index(chunks)
-        return scan_lanes(self.settings, idx, idx.sa, chunks)
+        return scan_lanes(self.settings, idx, idx.sa, chunks, fused_bases)
 
 
 class DeviceWindowEngine:
     """Merge-join engine over a :class:`DeviceWindowIndex` of the trim
     window ``trim`` = (ws, we) on ``device``, probed by the whole genome
-    (k = 2..20; the JAX package's ``DeviceWindowEngine``).
+    (k = 2..20; the JAX package's ``DeviceWindowEngine`` and
+    ``BigWindowEngine``).
 
     Stage 1 runs one batched pass for all chunks: KA's probe-only mode
     packs every chunk's probe keys (or ``probe_cache`` serves them: they
-    do not depend on the window), then KH ``mj_ranges`` joins them to the
-    sorted window keys. The result is kept with the index, so a rescan of
-    the same chunks from ``cache`` skips the build, the pack and the join.
-    Then KD per chunk, as in :class:`FusedEngine`. ``codes``: the strand's
-    codes already on ``device`` (uploaded on first need otherwise);
-    ``index`` supplies a prebuilt index (e.g. from
-    :mod:`asgart_tpu_torch.convert`)."""
+    do not depend on the window), reading the transformed probes from the
+    strand's codes with 64-bit offsets, then KH ``mj_ranges`` joins them
+    to the sorted window keys. The result is kept with the index, so a
+    rescan of the same chunks from ``cache`` skips the build, the pack and
+    the join. Then KD per chunk over the window-relative suffix order,
+    with the rebased filter constants of :func:`rebased_bases`; the window
+    start ``m_offset`` is added to the matches on the host, in int64
+    (:func:`chain_chunk_events`). ``codes``: the strand's codes already on
+    ``device`` (uploaded on first need otherwise); ``index`` supplies a
+    prebuilt index (e.g. from :mod:`asgart_tpu_torch.convert`)."""
 
     def __init__(self, strand, settings, device: torch.device, trim,
                  cache: IndexCache | None = INDEX_CACHE,
@@ -112,6 +124,7 @@ class DeviceWindowEngine:
         self.settings = settings
         self.device = device
         self.trim = (int(trim[0]), int(trim[1]))
+        self.m_offset = self.trim[0]  # added to the matches on the host
         self.cache = cache
         self.index = index
         self.codes = codes
@@ -132,14 +145,16 @@ class DeviceWindowEngine:
                                                self.device, self._codes())
 
             self.index = build() if self.cache is None else \
-                self.cache.get_or_build("window", self.strand.data,
-                                        (*args, str(self.device)), build)
+                self.cache.get_or_build(
+                    "window", self.strand.data,
+                    (*args, str(self.device)), build)
         return self.index
 
     def stage1(self, chunks) -> WindowRanges:
         """Every chunk's probe lanes with their windows in the sorted
-        window (the JAX ``_batch_stage1``, device_engine.py:1872, in one
-        pass whatever the chunk count)."""
+        window (the JAX ``_batch_stage1``, device_engine.py:1872, and
+        ``BigWindowEngine``'s, :2533, in one pass whatever the chunk
+        count)."""
         idx = self.ensure_index()
         s = self.settings
         specs = chunk_specs(chunks, s)
@@ -169,18 +184,37 @@ class DeviceWindowEngine:
     def run_chunks(self, chunks) -> list:
         """Raw families (native-engine format, chunk-relative left
         coordinates) for each chunk, in order."""
-        return chain_chunk_events(self.scan_chunks(chunks), self.settings)
+        return chain_chunk_events(self.scan_chunks(chunks), self.settings,
+                                  self.m_offset)
 
     def scan_chunks(self, chunks) -> list:
         """The device phase, as :meth:`FusedEngine.scan_chunks`."""
         ranges = self.stage1(chunks)
-        return scan_lanes(self.settings, ranges, self.index.sa, chunks)
+        ws, W = self.trim[0], self.index.W
+        return scan_lanes(self.settings, ranges, self.index.sa, chunks,
+                          lambda cs, cl: rebased_bases(cs, cl, ws, W))
 
 
-def scan_lanes(settings, lanes, sa: torch.Tensor, chunks) -> list:
+def rebased_bases(chunk_start: int, chunk_len: int, ws: int, W: int
+                  ) -> tuple[int, int, int]:
+    """KD's filter constants (self_base, dir_base, rev_t0) for a chunk over
+    a window-relative suffix order (window start ``ws``, W rows): the
+    fused ones minus ``ws``, clamped as ``BigWindowEngine._rebased``
+    (asgart_tpu/device_engine.py:2632-2641) clamps them. Every window
+    position m lies in [0, W) and every probe position i in (0,
+    chunk_len), so clamping into [-(chunk_len + 2), W + 2] (rev_t0: [-2, W
+    + chunk_len + 2]) keeps every comparison's outcome."""
+    lo, hi = -(chunk_len + 2), W + 2
+    return (min(max(-ws, lo), hi),
+            min(max(chunk_start - ws, lo), hi),
+            min(max(chunk_start + chunk_len - ws, -2), W + chunk_len + 2))
+
+
+def scan_lanes(settings, lanes, sa: torch.Tensor, chunks, bases) -> list:
     """KD over each chunk's lane slice of ``lanes`` (a :class:`FusedIndex`
     or a :class:`WindowRanges`: lane_lo, lane_hi, lane_mask, specs, offs)
-    against the suffix order ``sa``, then one device-to-host copy per
+    against the suffix order ``sa``, with the filter constants
+    ``bases(chunk_start, chunk_len)``, then one device-to-host copy per
     chunk: (ev int32 [3, n], m int32, z_trail) or None (too short to
     probe, or no event), in chunk order."""
     s = settings
@@ -194,17 +228,19 @@ def scan_lanes(settings, lanes, sa: torch.Tensor, chunks) -> list:
         off = lanes.offs[chunk][0]
         sl = slice(off, off + n_lanes[chunk])
         res = scan_core(lanes.lane_lo[sl], lanes.lane_hi[sl],
-                        lanes.lane_mask[sl], sa, chunk[0], chunk[1],
+                        lanes.lane_mask[sl], sa, *bases(*chunk),
                         s.max_cardinality, 0, s.probe_size, s.reverse)
         ev, m, z_trail = _merge_shard_events([res.to_host()])
         out.append(None if ev is None else (ev, m, z_trail))
     return out
 
 
-def chain_chunk_events(events, settings) -> list:
+def chain_chunk_events(events, settings, m_offset: int = 0) -> list:
     """The host phase: raw families of each chunk's events (the output of
-    :meth:`FusedEngine.scan_chunks`); touches no device memory, so a
-    sharded run's tail thread runs it without holding the index."""
+    :meth:`FusedEngine.scan_chunks`), the matches shifted by ``m_offset``
+    in int64 (a merge-join engine's window start); touches no device
+    memory, so a sharded run's tail thread runs it without holding the
+    index."""
     k = settings.probe_size
     out = []
     for e in events:
@@ -212,6 +248,8 @@ def chain_chunk_events(events, settings) -> list:
             out.append([])
             continue
         ev, m, z_trail = e
+        if m_offset:
+            m = m.astype(np.int64) + m_offset
         m_offsets = np.zeros(ev.shape[1] + 1, dtype=np.int64)
         np.cumsum(ev[2], out=m_offsets[1:])
         out.append(native.chain_events(

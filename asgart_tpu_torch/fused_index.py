@@ -3,10 +3,11 @@
 Counterpart of ``FusedIndex`` / ``FusedIndex.build`` and ``fused_fits``
 (asgart_tpu/device_index.py:1571-1787) at k = 2..30, of
 ``fused_window_applicable`` (asgart_tpu/device_engine.py:2140; both fit
-checks are :func:`fits` here), of the merge-join window fit
-``device_window_fits`` (device_index.py:161; :func:`mj_fits` here), plus a
-one-entry device index cache for either index type (the counterpart of
-``cached_build``, device_index.py:1064).
+checks are :func:`fits` here), of the merge-join window fits
+``device_window_fits`` and ``big_window_fits`` (device_index.py:161, :189;
+both are :func:`mj_fits` here, as the port has one merge-join engine),
+plus a one-entry device index cache for either index type (the
+counterpart of ``cached_build``, device_index.py:1064).
 
 The direct text's W key rows (the whole genome, W = n1, or a trim window
 [ws, we) with its own '$', W = we - ws + 1) and every chunk's probe-lane
@@ -161,13 +162,14 @@ def mj_window_fits_bytes(n1: int, W: int, k: int, free: float,
     return k <= MJ_MAX_K and W < (1 << 30) and peak + resident <= free
 
 
-def mj_fits(n1: int, W: int, k: int, doubled: bool, device: torch.device,
+def mj_fits(n1: int, W: int, k: int, device: torch.device,
             resident: int = 0, keys_held: bool = False) -> bool:
-    """:func:`fits` for the merge-join window engine: the probed text
-    within int32 addressing, and :func:`mj_window_fits_bytes` against
-    :func:`free_bytes`."""
-    return probe_span(n1, doubled) < (1 << 31) and mj_window_fits_bytes(
-        n1, W, k, free_bytes(device), resident, keys_held)
+    """:func:`fits` for the merge-join window engine:
+    :func:`mj_window_fits_bytes` against :func:`free_bytes`. Its index
+    keeps window positions, so the probed text has no int32 bound; W <
+    2^30 is the bytes check's own (asgart_tpu/device_engine.py:2432)."""
+    return mj_window_fits_bytes(n1, W, k, free_bytes(device), resident,
+                                keys_held)
 
 
 def fits(n1: int, W: int, k: int, doubled: bool, device: torch.device,

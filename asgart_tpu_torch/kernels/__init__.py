@@ -2,6 +2,7 @@
 a plain-integer launch counter (``<wrapper>.launches``) and runs its plain
 PyTorch version only for tensors on the CPU."""
 
+from .codes import unpack_codes
 from .group_bounds import group_bounds
 from .invert import invert_fused
 from .merge_join import mj_ranges
@@ -10,8 +11,8 @@ from .scan_core import scan_core
 from .ties import tie_keys, tie_refine
 from .window import offset_slots
 
-KERNELS = (pack_keys, group_bounds, invert_fused, tie_keys, tie_refine,
-           offset_slots, mj_ranges, scan_core)
+KERNELS = (unpack_codes, pack_keys, group_bounds, invert_fused, tie_keys,
+           tie_refine, offset_slots, mj_ranges, scan_core)
 
 
 def launch_counts() -> dict:

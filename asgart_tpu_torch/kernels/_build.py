@@ -51,20 +51,22 @@ SIGNATURES = {
     # n_chunks, rank, lane_lo, lane_hi, totals, stream
     "asgart_invert_fused": [_P, _P, _P, _P, _I64, _I64, _P, _I32, _P, _P,
                             _P, _P, _P],
-    # lane_lo, lane_hi, lane_mask, sa, n_lanes, chunk_start, chunk_len,
-    # max_cardinality, j0, k, reverse, max_match_pos, flags, stream
-    "asgart_scan_count": [_P, _P, _P, _P, _I64, _I64, _I64, _I32, _I64,
-                          _I32, _I32, _I64, _P, _P],
+    # lane_lo, lane_hi, lane_mask, sa, n_lanes, self_base, dir_base,
+    # rev_t0, max_cardinality, j0, k, reverse, max_match_pos, flags, stream
+    "asgart_scan_count": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32,
+                          _I64, _I32, _I32, _I64, _P, _P],
     # ... the same inputs, flags, cums [3, n_lanes], n_events, ev_pack,
     # m_flat, z_trail, a_evt, stream
-    "asgart_scan_emit": [_P, _P, _P, _P, _I64, _I64, _I64, _I32, _I64,
-                         _I32, _I32, _I64, _P, _P, _I64, _P, _P, _P, _P,
-                         _P],
+    "asgart_scan_emit": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32,
+                         _I64, _I32, _I32, _I64, _P, _P, _I64, _P, _P, _P,
+                         _P, _P],
     # sa (in place), n, ws, stream
     "asgart_offset_slots": [_P, _I64, _I32, _P],
     # skey, W, pkey, lane_mask, total, lane_off [n_chunks + 1], n_chunks,
     # lane_lo, lane_hi, totals, stream
     "asgart_mj_ranges": [_P, _I64, _P, _P, _I64, _P, _I32, _P, _P, _P, _P],
+    # packed, n4, n1, exc_pos, exc_code, n_exc, codes, stream
+    "asgart_unpack_codes": [_P, _I64, _I64, _P, _P, _I64, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -95,12 +95,13 @@ pack_keys.launches = 0
 def pack_keys_plain(codes, lane_off, x0s, cls, k, reverse, complement, W,
                     total, ws=0):
     """Plain PyTorch version of the KA kernel (same arguments after
-    :func:`chunk_tables`)."""
+    :func:`chunk_tables`). It widens only the codes it reads (the window,
+    and each probe symbol through the transform's index map), so it runs
+    beside a genome of any size."""
     dev = codes.device
     n1 = codes.numel()
     step = k // 2
     n_hi = max(k - LO_SYMS, 0)
-    c64 = codes.to(torch.int64)
 
     def fold(sym):  # sym(t) -> int64 symbols; (hi, lo, first symbol)
         hi = lo = first = None
@@ -116,22 +117,16 @@ def pack_keys_plain(codes, lane_off, x0s, cls, k, reverse, complement, W,
                 lo = (lo << 3) | s
         return hi, lo, first
 
-    padded = torch.cat([c64[ws:ws + max(W - 1, 0)],
+    padded = torch.cat([codes[ws:ws + max(W - 1, 0)].to(torch.int64),
                         torch.zeros(k + 1, dtype=torch.int64, device=dev)])
     hi_d, lo, _ = fold(lambda t: padded[t:t + W])
     lo_d = lo << 1  # flag 0
 
     n_live = lane_off[-1]
-    transformed = reverse or complement
-    if transformed:
-        src = c64[: n1 - 1]
-        if complement:
-            src = torch.as_tensor(COMP_CODE, device=dev).to(torch.int64)[src]
-        if reverse:
-            src = src.flip(0)
-    else:
-        src = c64
-    n_src = src.numel()
+    # the probe source: the transformed text codes[:n1 - 1], complemented
+    # then reversed, for R/C runs; the direct text otherwise
+    n_src = n1 - 1 if (reverse or complement) else n1
+    comp = torch.as_tensor(COMP_CODE, device=dev).to(torch.int64)
     counts = torch.tensor([lane_off[i + 1] - lane_off[i]
                            for i in range(len(x0s))], dtype=torch.int64,
                           device=dev)
@@ -147,7 +142,9 @@ def pack_keys_plain(codes, lane_off, x0s, cls, k, reverse, complement, W,
     def probe_sym(t):
         q = pos + t
         live = q < n_src
-        return torch.where(live, src[q.clamp(0, max(n_src - 1, 0))], 0)
+        q = q.clamp(0, max(n_src - 1, 0))
+        sym = codes[n_src - 1 - q if reverse else q].to(torch.int64)
+        return torch.where(live, comp[sym] if complement else sym, 0)
 
     if n_live:
         hi_p, lo, first = fold(probe_sym)

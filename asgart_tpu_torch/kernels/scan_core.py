@@ -1,7 +1,11 @@
 """KD ``scan_core``: match filters and event compaction for one chunk.
 
 Kernel: ``csrc/scan_core.cu`` (three launches around one ``torch.cumsum``).
-``scan_core_plain`` is the same function in plain PyTorch.
+``scan_core_plain`` is the same function in plain PyTorch. The match
+filters take three constants: :func:`fused_bases` for a suffix order of
+genome positions (the fused engine), or the merge-join engine's
+window-relative constants
+(:func:`asgart_tpu_torch.device_engine.rebased_bases`).
 """
 
 from __future__ import annotations
@@ -12,7 +16,8 @@ import torch
 
 from . import _build
 
-# the fused engine's match-position cutoff (device_engine.py:1846): neutral
+# the fused engine's match-position cutoff (device_engine.py:1846):
+# neutral, as the JAX big-window engine's W + 1 (:2696) is for its m < W
 MAX_MATCH_POS = 2**31 - 1
 
 
@@ -34,14 +39,24 @@ class ScanResult:
                 flat[e: e + self.total_kept], int(flat[-1]))
 
 
+def fused_bases(chunk_start: int, chunk_len: int) -> tuple[int, int, int]:
+    """The filter constants (self_base, dir_base, rev_t0) of a chunk over a
+    suffix order of genome positions, as ``_scan_core`` passes them
+    (asgart_tpu/device_engine.py:366-368)."""
+    return 0, chunk_start, chunk_start + chunk_len
+
+
 def scan_core(lane_lo: torch.Tensor, lane_hi: torch.Tensor,
-              lane_mask: torch.Tensor, sa: torch.Tensor, chunk_start: int,
-              chunk_len: int, max_cardinality: int, j0: int, k: int,
-              reverse: bool) -> ScanResult:
+              lane_mask: torch.Tensor, sa: torch.Tensor, self_base: int,
+              dir_base: int, rev_t0: int, max_cardinality: int, j0: int,
+              k: int, reverse: bool) -> ScanResult:
     """Events and kept matches of the lanes ``lane_lo/hi/mask`` (one
     chunk's lane slice; lane l probes i = (j0 + l + 1) * (k // 2)) over
-    the suffix order ``sa`` — the live prefixes of the JAX
-    ``_scan_core`` outputs (asgart_tpu/device_engine.py:352)."""
+    the suffix order ``sa``: a match m is kept when m != i + self_base,
+    and m > i + dir_base (direct) or m >= rev_t0 - i (reversed). The live
+    prefixes of the JAX ``_scan_core`` outputs
+    (asgart_tpu/device_engine.py:352) with :func:`fused_bases`, and of
+    ``_scan_core_based`` (:665) with the merge-join engine's constants."""
     n = lane_lo.numel()
     for t, dt in ((lane_lo, torch.int32), (lane_hi, torch.int32),
                   (lane_mask, torch.bool), (sa, torch.int32)):
@@ -49,7 +64,8 @@ def scan_core(lane_lo: torch.Tensor, lane_hi: torch.Tensor,
             raise ValueError("scan_core: bad dtype or layout")
     if lane_hi.numel() != n or lane_mask.numel() != n:
         raise ValueError("scan_core: lane arrays differ in length")
-    args = (chunk_start, chunk_len, max_cardinality, j0, k, int(reverse))
+    args = (self_base, dir_base, rev_t0, max_cardinality, j0, k,
+            int(reverse))
     if not _build.on_cuda(lane_lo, lane_hi, lane_mask, sa):
         return scan_core_plain(lane_lo, lane_hi, lane_mask, sa, *args)
     args += (MAX_MATCH_POS,)
@@ -81,9 +97,8 @@ def scan_core(lane_lo: torch.Tensor, lane_hi: torch.Tensor,
 scan_core.launches = 0
 
 
-def scan_core_plain(lane_lo, lane_hi, lane_mask, sa, chunk_start,
-                    chunk_len, max_cardinality, j0, k, reverse
-                    ) -> ScanResult:
+def scan_core_plain(lane_lo, lane_hi, lane_mask, sa, self_base, dir_base,
+                    rev_t0, max_cardinality, j0, k, reverse) -> ScanResult:
     """Plain PyTorch version of the KD kernel: a flat CSR expansion of
     every masked window, then the same filters and compaction."""
     dev = sa.device
@@ -98,10 +113,10 @@ def scan_core_plain(lane_lo, lane_hi, lane_mask, sa, chunk_start,
     m = sa[x].to(i64)
     i = (j0 + lane + 1) * step
     if reverse:
-        dir_ok = m >= chunk_start + chunk_len - i
+        dir_ok = m >= rev_t0 - i
     else:
-        dir_ok = m > i + chunk_start
-    keep = (m != i) & (m < MAX_MATCH_POS) & dir_ok
+        dir_ok = m > i + dir_base
+    keep = (m != i + self_base) & (m < MAX_MATCH_POS) & dir_ok
     kept = torch.zeros(n, dtype=i64, device=dev).index_add_(
         0, lane, keep.to(i64))
     valid = lane_mask & (kept <= max_cardinality)

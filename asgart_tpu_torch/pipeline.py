@@ -13,8 +13,14 @@ Device routes, in the JAX package's order (pipeline.py:567-640, :786-842),
 chosen by free device memory alone: a window takes the fused build if it
 fits, else the merge-join window engine (k <= 20) if it fits; the whole
 genome takes the fused build, else the merge-join engine over one window
-(0, n1 - 1), else the auto-shard planner's windows. A sharded run picks
-one route for all its windows before any window runs. With
+(0, n1 - 1), else the auto-shard planner's windows. Past int32 probe
+addressing (a probed text of ``BIG_WINDOW_SPAN`` = 2^31 bases or more:
+-R/-C runs of genomes over ~1.07 Gbp) the fused build and the one-window
+route drop out: every window takes the merge-join engine, whose index
+keeps window positions (the JAX ``BigWindowEngine``'s route, k <= 20, W <
+2^30, chunks under 2^30 bases; pipeline.py:630-636), and the whole genome
+the planner's windows, sized by the same fit (:796-810). A sharded run
+picks one route for all its windows before any window runs. With
 ``engine="cuda"`` every input the port does not cover yet raises
 ``NotImplementedError`` naming its route; no failure falls back to another
 engine.
@@ -50,6 +56,10 @@ log = logging.getLogger("asgart")
 
 ENGINES = ("host", "cuda")
 MAX_SHARDS = 256  # the auto-shard planner's bound (pipeline.py:813)
+# probed-text length from which the fused build drops out and every window
+# takes the merge-join engine: int32 probe addressing ends there
+# (pipeline.py:630)
+BIG_WINDOW_SPAN = 1 << 31
 
 
 def probe_positions(needle: np.ndarray, probe_size: int) -> np.ndarray:
@@ -289,11 +299,21 @@ def _doubled(settings: RunSettings) -> bool:
     return settings.reverse or settings.complement
 
 
+def _big(n1: int, settings: RunSettings) -> bool:
+    """Whether the probed text passes int32 addressing (no fused build
+    holds it)."""
+    return probe_span(n1, _doubled(settings)) >= BIG_WINDOW_SPAN
+
+
 def _too_large(n1: int, settings: RunSettings, what: str):
     """The refusal of a build no device route of the port holds."""
-    if probe_span(n1, _doubled(settings)) >= (1 << 31):
-        return _unsupported(f"{what} beyond int32 probe addressing (the "
-                            "big-window engine)", "A10")
+    k = settings.probe_size
+    if _big(n1, settings) and k > MJ_MAX_K:
+        return NotImplementedError(
+            f"{what} beyond int32 probe addressing at probe_size {k} runs "
+            "on the host engine in the asgart_tpu package (its big-window "
+            f"engine holds probe sizes up to {MJ_MAX_K}); use "
+            "engine='host'")
     return NotImplementedError(
         f"{what} fits no device route of the cuda engine on this device "
         "(neither the fused build nor the merge-join window engine holds "
@@ -301,23 +321,35 @@ def _too_large(n1: int, settings: RunSettings, what: str):
 
 
 def _window_route(n1: int, W: int, settings: RunSettings, device,
-                  resident: int, keys_held: bool = False):
+                  resident: int, keys_held: bool = False,
+                  chunk_len: int = 0):
     """The engine class of a W-row trim window: :class:`FusedEngine` if
-    its build fits (``resident`` bytes held beside it), else
-    :class:`DeviceWindowEngine` if the merge-join engine fits
-    (``keys_held``: a sharded run's probe keys stay cached beside each
-    later window's build). Raises when neither holds the window."""
+    its build fits (``resident`` bytes held beside it) and the probed text
+    is within int32 addressing, else :class:`DeviceWindowEngine` if the
+    merge-join engine fits (``keys_held``: a sharded run's probe keys stay
+    cached beside each later window's build). Past int32 addressing the
+    merge-join engine takes only chunks under 2^30 bases (``chunk_len``:
+    the longest), as the JAX ``BigWindowEngine`` does. Raises when no
+    route holds the window."""
     k = settings.probe_size
-    doubled = _doubled(settings)
-    if fits(n1, W, k, doubled, device, resident):
+    big = _big(n1, settings)
+    if not big and fits(n1, W, k, _doubled(settings), device, resident):
         return FusedEngine
     if k > MJ_MAX_K:
+        if big:
+            raise _too_large(n1, settings, f"a {W}-row trim window")
         raise NotImplementedError(
             f"a {W}-row trim window at probe_size {k} beyond one device's "
             "fused build runs on the host engine in the asgart_tpu package "
             f"(its merge-join window engines hold probe sizes up to "
             f"{MJ_MAX_K}); use engine='host'")
-    if mj_fits(n1, W, k, doubled, device, resident, keys_held):
+    if big and chunk_len >= (1 << 30):
+        raise NotImplementedError(
+            f"a chunk of {chunk_len} bases (an N-free run of 2^30 or more) "
+            "beyond int32 probe addressing has no device route: the "
+            "asgart_tpu package's big-window engine needs chunks under "
+            "2^30 bases; use engine='host'")
+    if mj_fits(n1, W, k, device, resident, keys_held):
         return DeviceWindowEngine
     raise _too_large(n1, settings, f"a {W}-row trim window")
 
@@ -337,18 +369,21 @@ def plan_shards(n1: int, k: int, doubled: bool, free: float
     refinement, which only bounds the JAX co-sort): the smallest S in
     2..256 whose windows fit ``free`` device bytes next to the n1
     resident code bytes, in a fused build or in the merge-join engine
-    (its probe keys held across the windows), or None (no S fits, or the genome is beyond int32 probe
-    addressing)."""
-    if probe_span(n1, doubled) >= (1 << 31):
-        return None
+    (its probe keys held across the windows; past int32 probe addressing
+    only the merge-join engine, :796-810), or None (no S fits)."""
+    big = probe_span(n1, doubled) >= BIG_WINDOW_SPAN
     total_len = n1 - 1
     for S in range(2, MAX_SHARDS + 1):
         W = (total_len + S - 1) // S + 1
-        if window_fits_bytes(n1, W, k, free, resident=n1) \
+        if (not big and window_fits_bytes(n1, W, k, free, resident=n1)) \
                 or mj_window_fits_bytes(n1, W, k, free, resident=n1,
                                         keys_held=True):
             return S
     return None
+
+
+def _longest(chunks) -> int:
+    return max((int(length) for _, length in chunks), default=0)
 
 
 def _protosds(raws, chunks, settings) -> list:
@@ -427,13 +462,15 @@ def search_duplications(
         n1 = int(len(strand.data))
         k = settings.probe_size
         doubled = _doubled(settings)
+        big = _big(n1, settings)
         if trim is not None:
             route = _window_route(n1, trim[1] - trim[0] + 1, settings,
-                                  device, resident=n1)
+                                  device, resident=n1,
+                                  chunk_len=_longest(to_process))
             eng = route(strand, settings, device, trim=trim)
-        elif fits(n1, n1, k, doubled, device):
+        elif not big and fits(n1, n1, k, doubled, device):
             eng = FusedEngine(strand, settings, device)
-        elif mj_fits(n1, n1, k, doubled, device, resident=n1):
+        elif not big and mj_fits(n1, n1, k, device, resident=n1):
             # the whole genome as the one window (0, n1 - 1): its text is
             # the genome and its '$', so the output is the whole genome's
             # (pipeline.py:591-604); the settings stay untrimmed
@@ -515,11 +552,13 @@ def _search_duplications_sharded(strands_files, settings, shards, engine,
     return merged
 
 
-def _window_tail(events, to_process, strand, settings) -> RunResult:
-    """Host phase of one device window: chain its chunks' events, then
-    the post-processing Step chain."""
-    families = _protosds(chain_chunk_events(events, settings), to_process,
-                         settings)
+def _window_tail(events, to_process, strand, settings, m_offset: int = 0
+                 ) -> RunResult:
+    """Host phase of one device window: chain its chunks' events (their
+    matches shifted by ``m_offset``, a merge-join window's start), then the
+    post-processing Step chain."""
+    families = _protosds(chain_chunk_events(events, settings, m_offset),
+                         to_process, settings)
     return _finalize_result(families, strand, settings)
 
 
@@ -543,7 +582,7 @@ def _run_cuda_windows(windows, to_process, strand, settings, device
     n1 = int(len(strand.data))
     ws, we = windows[0]
     route = _window_route(n1, we - ws + 1, settings, device, resident=n1,
-                          keys_held=True)
+                          keys_held=True, chunk_len=_longest(to_process))
     codes = upload_codes(strand.data, device)  # once for every window
     extra = {}
     if route is DeviceWindowEngine:  # the probe keys, packed once
@@ -552,9 +591,10 @@ def _run_cuda_windows(windows, to_process, strand, settings, device
     with ThreadPoolExecutor(max_workers=1) as tail_ex:
         for w in windows:
             s = dataclasses.replace(settings, trim=w)
-            # the engine (and its index) is dropped before the next build
-            events = route(strand, s, device, trim=w, cache=None,
-                           codes=codes, **extra).scan_chunks(to_process)
+            eng = route(strand, s, device, trim=w, cache=None, codes=codes,
+                        **extra)
+            events = eng.scan_chunks(to_process)
             tails.append(tail_ex.submit(_window_tail, events, to_process,
-                                        strand, s))
+                                        strand, s, eng.m_offset))
+            del eng  # and its index, before the next window's build
     return [t.result() for t in tails]

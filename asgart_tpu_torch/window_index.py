@@ -8,7 +8,15 @@ and of the probe-key cache ``_PROBE_KEYS_CACHE``
 
   KA pack_keys (window mode, no probe rows) -> sort_keys (torch.sort)
   -> KB group_bounds (every row direct) -> KC invert_fused (no lanes)
-  -> ties.resolve_ties (KE, KF) -> KG offset_slots (ws > 0)
+  -> ties.resolve_ties (KE, KF)
+
+The suffix order keeps window positions 0..W-1, as the JAX
+``BigWindowEngine`` keeps them (asgart_tpu/device_engine.py:2453-2458):
+KG, which turns a fused window build's order into genome positions, is not
+run, and the engine adds the window start to its matches on the host, in
+int64. So the index has no int32 bound on the probed text and serves any
+genome size; a JAX ``DeviceWindowIndex`` (genome positions) is carried in
+by subtracting its window start (convert.py).
 
 Unlike the fused build, the probes are not sorted into the index: the
 engine packs them apart (KA's probe-only mode) and joins them to the
@@ -27,7 +35,7 @@ import torch
 
 from .codes import upload_codes
 from .fused_index import MJ_MAX_K, sort_keys
-from .kernels import group_bounds, invert_fused, offset_slots, pack_keys
+from .kernels import group_bounds, invert_fused, pack_keys
 from .ties import resolve_ties
 
 
@@ -45,19 +53,6 @@ def window_arrays_from_codes(codes: torch.Tensor, k: int, W: int,
                                         device=sa.device), W, [0])
     del run_lo, run_hi
     return skey, resolve_ties(sa, rank, tied, W, k)
-
-
-def build_window_arrays(codes: torch.Tensor, k: int, ws: int, we: int):
-    """(skey, sa, W) of the trim window ``strand[ws:we] + '$'`` (W = we -
-    ws + 1 rows): the window-relative order of
-    :func:`window_arrays_from_codes`, then KG turns it into genome
-    positions (a separate step, so an engine that keeps window-relative
-    positions can skip it)."""
-    W = we - ws + 1
-    skey, sa = window_arrays_from_codes(codes, k, W, ws)
-    if ws:
-        offset_slots(sa, ws)
-    return skey, sa, W
 
 
 @dataclass
@@ -84,7 +79,7 @@ class DeviceWindowIndex:
     resolution permutes only inside equal-key runs)."""
 
     key: torch.Tensor        # int64 [W] sorted keys, (hi << 31) | (lo << 1)
-    sa: torch.Tensor         # int32 [W] suffix order, genome positions
+    sa: torch.Tensor         # int32 [W] suffix order: window positions
     k: int
     n: int                   # doubled text length (probe addressing)
     first_len: int           # genome + '$' length
@@ -115,11 +110,10 @@ class DeviceWindowIndex:
         if not 0 <= ws < we <= n1 - 1:
             raise ValueError(f"bad trim window {trim}")
         n = 2 * n1 - 1 if (reverse or complement) else n1
-        if n >= (1 << 31):
-            raise ValueError("genome too large for int32 probe addressing")
         if codes is None:
             codes = upload_codes(strand_data, device)
-        skey, sa, W = build_window_arrays(codes, k, ws, we)
+        W = we - ws + 1
+        skey, sa = window_arrays_from_codes(codes, k, W, ws)
         return cls(key=skey, sa=sa, k=k, n=n, first_len=n1, W=W,
                    win_start=ws, win_end=we, reverse=reverse,
                    complement=complement)

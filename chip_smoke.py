@@ -1,45 +1,78 @@
 """GPU smoke run of the PyTorch / CUDA port (asgart_tpu_torch) on one card.
 
-    python3 chip_smoke.py            # the full run: 128 Mbp, -RC, six paths
-    python3 chip_smoke.py --mbp 4    # a quick run at a smaller genome
+    python3 chip_smoke.py              # the full run: 128 Mbp paths, then
+                                       # the 3100 Mbp big-window genome
+    python3 chip_smoke.py --mbp 4      # smaller 128 Mbp-stage genome
+    python3 chip_smoke.py --big-mbp 0  # without the full-scale phase
 
 1. prints the card (nvidia-smi name and power limit) and the versions;
 2. builds the CUDA kernels from asgart_tpu_torch/csrc with nvcc;
-3. runs six paths on ``asgart_tpu_torch.synthetic.synthetic_genome``
+3. runs eight paths on ``asgart_tpu_torch.synthetic.synthetic_genome``
    (the repo benchmark's genome, fixed seed) written as
    FASTA, all -RC: the whole genome at k = 20 (one-word keys) and k = 25
    (two-word keys); ``--shards 4`` at k = 20; one trim window in the
-   middle of the genome at k = 25; and, with a ballast tensor on the card
+   middle of the genome at k = 25; with a ballast tensor on the card
    that leaves too little memory for the fused build, the merge-join
    window engine on the same middle window at k = 20 (``mj_trim``) and on
    the ``--shards 4`` windows (``mj_shards``, held to the shards path's
-   host JSON; its checks on window 2). For each path:
+   host JSON; its checks on window 2); and, with
+   ``pipeline.BIG_WINDOW_SPAN`` lowered to 0 (at 128 Mbp the probed text
+   stays under int32 addressing, where the fused build drops out), the
+   route past int32 addressing to the merge-join engine on the middle
+   window (``big_trim``, held to mj_trim's host JSON) and on the
+   ``--shards 4`` windows (``big_shards``, held to the shards path's). For
+   each path:
    a. runs each kernel of the path and its plain PyTorch version on the
-      card, on that path's arrays (the fused build of the genome, or of
-      window 2 of the shards, or of the trim window, and its largest
-      chunk's scan; KE/KF on the first, largest tie round; KG on the
-      window's final suffix order), requires equal outputs (tolerance 0:
-      all integers), times both with CUDA events after a warm-up, and
-      gives each kernel its bound (the larger of its bytes over the HBM
-      rate and its integer operations over the non-tensor-core rate) and
-      the time of one PyTorch call that computes the same function, where
-      one exists; times the key sort and the whole tie resolution with
-      KE/KF against the same rounds on their plain versions;
+      card, on that path's arrays (KI on the strand's upload; the fused
+      build of the genome, or of window 2 of the shards, or of the trim
+      window, and its largest chunk's scan; KE/KF on the first, largest
+      tie round; KG on a fused window's final suffix order; KD with the
+      merge-join engine's rebased constants on its window-relative
+      order), requires equal outputs (tolerance 0: all integers), times
+      both with CUDA events after a warm-up, and gives each kernel its
+      bound (the larger of its bytes over the HBM rate and its integer
+      operations over the non-tensor-core rate) and the time of one
+      PyTorch call (for KI, the same ops with a gather for the LUT) that
+      computes the same function, where one exists; times the key sort
+      and the whole tie resolution with KE/KF against the same rounds on
+      their plain versions, and the host side of the codes upload (the
+      2-bit pack against the ``CODE`` LUT and pinned copy it replaces);
    b. the sharded path measures each window's build peak per fused row;
-      the merge-join paths each window's build peak per window row and
-      its stage 1 and scans' peak per probe lane (the readings behind
-      ``MJ_PEAK_BYTES_PER_ROW`` and ``MJ_BYTES_PER_LANE``);
-   c. runs the host engine once (the first run also builds the native
-      chain library, which the timed runs then find built);
+      the merge-join paths each window's build peak per window row and its
+      stage 1 and scans' peak per probe lane, against
+      ``MJ_PEAK_BYTES_PER_ROW`` and ``MJ_BYTES_PER_LANE``;
+   c. runs the host engine once, unless the path is held to another
+      path's host JSON (the first run also builds the native chain
+      library, which the timed runs then find built);
    d. drives the path through the user entry point
       ``asgart_tpu_torch.pipeline.search_duplications(engine="cuda")``
       twice (whole genome and trim: cold, then a device index cache hit;
       shards: two full runs, the windows are not cached), with every
       launch counter set to 0 just before and read just after; requires
       the JSON bytes of all three runs to be equal and every kernel of
-      the path to have been launched (mj_trim: the cache hit launches
-      neither KA nor KH; mj_shards: KA packs the probe keys once a run);
-4. prints a {"kernels": [...]} line (each kernel once per path, with the
+      the path to have been launched (the merge-join trim paths' cache
+      hits launch neither KA nor KH; their shards paths pack the probe
+      keys once a run; the merge-join paths never launch KG);
+4. ``big_whole``: a ``--big-mbp`` genome (default 3100 Mbp, the size of a
+   whole human genome, GRCh38's ~3.1 Gbp; at 1100 Mbp and more the
+   doubled text passes 2^31, at 2148 Mbp and more the strand too) of
+   100 Mbp records made record by record from the seed, with one planted -RC
+   pair whose copy lies past 2^31, -RC at k = 20, default settings,
+   through ``search_duplications(engine="cuda")`` with no shards given:
+   the planner must choose the merge-join engine's windows by itself.
+   Each kernel against its plain version at offsets past 2^31 (KI on the
+   whole strand; KA on the probe lanes of the chunks past 2^31 and the
+   last window's keys past it; KB, KH on 32 M-row slices of the last
+   window, KC and KE/KF on the whole of it, KD on two chunks against the
+   last window's rebased constants); each window's build and stage-1
+   peaks against the merge-join fit; two runs with equal JSON, the
+   planted pair found past 2^31 and every coordinate below n1;
+   ``gapped``: the codes upload of a copy of the 128 Mbp genome and of the
+   big-window genome with GRCh38's share of N in long runs
+   (:func:`gapped_copy`): the strand is dense, so ``upload_codes`` counts
+   exceptions part of the way and takes the ``CODE`` LUT; its host time
+   against the LUT and pinned copy alone, and its codes against theirs;
+5. prints a {"kernels": [...]} line (each kernel once per path, with the
    path's name and k), the card again, and last {"ok": true, ...}.
 
 Any failure raises before the last line; without CUDA it exits non-zero
@@ -62,10 +95,25 @@ REPS = 3
 SHARDS = 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 ALU_OPS_PER_S = 67e12      # H100 SXM non-tensor-core rate (data sheet)
-WHOLE = ("pack_keys", "group_bounds", "invert_fused", "tie_keys",
-         "tie_refine", "scan_core")
+WHOLE = ("unpack_codes", "pack_keys", "group_bounds", "invert_fused",
+         "tie_keys", "tie_refine", "scan_core")
 WINDOW = WHOLE + ("offset_slots",)  # KG runs when the window starts > 0
-MJ = WINDOW + ("mj_ranges",)  # the merge-join window engine
+MJ = WHOLE + ("mj_ranges",)  # the merge-join window engine: no KG
+RECORD_BP = 100_000_000  # record length of the big-window genome
+PLANT_BP = 20_000  # its planted -RC pair
+N_RUN_BP = 30_000  # and its N runs (a chunk break: more than 5000)
+SLICE_ROWS = 1 << 25  # rows of a full-scale check's slices (32 M)
+# A gapped assembly's N, in Mbp of GRCh38's 24 chromosomes (3088 Mbp laid
+# end to end): roughly where its large gaps lie (the 1q12, 9q12, 16q11.2
+# and Yq12 heterochromatin, the short arms of 13, 14, 15, 21 and 22, and
+# smaller ones on 2, Yp and X), ~149.5 Mbp; with GAP_SMALL runs of
+# GAP_SMALL_BP placed from the seed, ~151 Mbp, GRCh38's gap share (its
+# 3.10 Gbp total against 2.95 Gbp ungapped). Scaled to the genome's size.
+GRCH38_MBP = 3088.3
+GAPS_MBP = ((125.0, 18.5), (341.0, 1.6), (1579.5, 16.6), (2077.05, 16.4),
+            (2191.41, 18.0), (2298.45, 17.0), (2436.4, 8.5), (2777.47, 6.6),
+            (2824.18, 11.6), (2933.0, 1.1), (3041.0, 3.0), (3057.6, 30.6))
+GAP_SMALL, GAP_SMALL_BP = 150, 10_000
 
 
 def smi_line() -> str:
@@ -96,7 +144,8 @@ def cuda_ms(fn, reps: int = REPS) -> float:
 
 
 def max_abs_err(got, want) -> int:
-    """Largest |got - want| over matching integer outputs; raises when the
+    """Largest |got - want| over matching integer outputs, in slices of
+    2^26 entries (no int64 copy of a genome-sized output); raises when the
     shapes differ (outputs of different sizes are not equal)."""
     import torch
 
@@ -105,8 +154,10 @@ def max_abs_err(got, want) -> int:
         if a.shape != b.shape:
             raise AssertionError(f"shape {tuple(a.shape)} != "
                                  f"{tuple(b.shape)}")
-        if a.numel():
-            d = (a.to(torch.int64) - b.to(torch.int64)).abs().max()
+        a, b = a.reshape(-1), b.reshape(-1)
+        for i in range(0, a.numel(), 1 << 26):
+            d = (a[i:i + (1 << 26)].to(torch.int64)
+                 - b[i:i + (1 << 26)].to(torch.int64)).abs().max()
             err = max(err, int(d))
     return err
 
@@ -223,6 +274,137 @@ def tie_checks(record, tag: str, sa, rank, tied, M: int, k: int, device):
     return finals[False]
 
 
+def ki_check(record, tag: str, strand_data, device):
+    """The host side of the codes upload: the 2-bit pack with its pinned
+    copy against the ``CODE`` LUT with its pinned copy (host clock around
+    work that ends in a synchronize); then KI against its plain version
+    and the library ops (shift, mask, a LUT gather, ``index_put_``) on the
+    uploaded packing, and its output against the LUT's codes. Returns the
+    codes on the card."""
+    import torch
+
+    from asgart_tpu_torch.codes import pack_codes
+    from asgart_tpu_torch.index import CODE
+    from asgart_tpu_torch.kernels import unpack_codes
+    from asgart_tpu_torch.kernels.codes import unpack_codes_plain
+
+    n1 = len(strand_data)
+    t0 = time.time()
+    packed = pack_codes(strand_data)
+    t_pack = time.time() - t0
+    if packed is None:
+        raise AssertionError(f"{tag}: the strand's exceptions are dense, so "
+                             "nothing is packed and KI is unchecked")
+    t0 = time.time()
+    p, e_pos, e_code = (torch.from_numpy(a).pin_memory().to(
+        device, non_blocking=True) for a in packed)
+    torch.cuda.synchronize()
+    t_copy = time.time() - t0
+    del packed
+    t0 = time.time()
+    lut = CODE[strand_data]
+    t_lut = time.time() - t0
+    t0 = time.time()
+    want = torch.from_numpy(lut).pin_memory().to(device, non_blocking=True)
+    torch.cuda.synchronize()
+    t_lut_copy = time.time() - t0
+    del lut
+    n_exc = e_pos.numel()
+    print(f"{tag} host side of the codes upload (host clock, n1={n1}, "
+          f"{n_exc} exceptions): 2-bit pack {t_pack:.3f} s + pinned copy "
+          f"{t_copy:.3f} s = {t_pack + t_copy:.3f} s; CODE LUT {t_lut:.3f} "
+          f"s + pinned copy {t_lut_copy:.3f} s = {t_lut + t_lut_copy:.3f} s",
+          flush=True)
+    shifts = torch.tensor([0, 2, 4, 6], dtype=torch.uint8, device=device)
+    lut4 = torch.tensor([1, 2, 3, 5], dtype=torch.uint8, device=device)
+
+    def li():
+        two = ((p[None, :] >> shifts[:, None]) & 3).reshape(-1)[:n1]
+        return lut4[two.long()].index_put_((e_pos,), e_code)
+
+    ki = lambda: unpack_codes(p, e_pos, e_code, n1)  # noqa: E731
+    pi = lambda: unpack_codes_plain(p, e_pos, e_code, n1)  # noqa: E731
+    codes = ki()
+    err = max_abs_err((codes,), (pi(),))
+    if not torch.equal(codes, want):
+        raise AssertionError(f"KI's codes differ from CODE[strand] on {tag}")
+    del want
+    record("unpack_codes", "codes.cu", "asgart_tpu/device_index.py:98", err,
+           cuda_ms(ki), cuda_ms(pi), f"n1={n1}, {n_exc} exceptions",
+           n1 // 4 + n1 + 10 * n_exc, 4 * n1, library_ms=cuda_ms(li))
+    torch.cuda.empty_cache()
+    return codes
+
+
+def gapped_copy(data):
+    """A copy of the strand ``data`` with N where a gapped assembly has it
+    (``GAPS_MBP`` scaled to its size, and ``GAP_SMALL`` runs of
+    ``GAP_SMALL_BP`` scaled, placed from the seed). Returns (copy, the
+    number of N written)."""
+    import numpy as np
+
+    n = len(data)
+    g = data.copy()
+    scale = n / (GRCH38_MBP * 1e6)
+    small = max(1, int(GAP_SMALL_BP * scale))
+    rng = np.random.default_rng([SEED, 38])
+    runs = [(int(a * 1e6 * scale), int(ln * 1e6 * scale))
+            for a, ln in GAPS_MBP]
+    runs += [(int(a), small) for a in rng.integers(0, n - small, GAP_SMALL)]
+    for a, ln in runs:
+        g[a:a + ln] = ord("N")
+    return g, int(np.count_nonzero(g == ord("N")))
+
+
+def gapped_upload_check(tag: str, data, device) -> None:
+    """The codes upload of a gapped copy of ``data`` (:func:`gapped_copy`):
+    ``upload_codes`` must decline the pack (KI not launched) and give the
+    ``CODE`` LUT's codes. Host clock around work that ends in a
+    synchronize, in turns (LUT + pinned copy, upload_codes, upload_codes,
+    LUT + pinned copy), and the declining exception count alone."""
+    import torch
+
+    from asgart_tpu_torch import kernels as kmod
+    from asgart_tpu_torch.codes import exception_positions, upload_codes
+    from asgart_tpu_torch.index import CODE
+
+    g, n_n = gapped_copy(data)
+    n1 = len(g)
+
+    def lut():
+        return torch.from_numpy(CODE[g]).pin_memory().to(device,
+                                                         non_blocking=True)
+
+    times = {"lut": [], "upload": []}
+    out = {}
+    before = kmod.launch_counts()["unpack_codes"]
+    for name in ("lut", "upload", "upload", "lut"):
+        out.pop(name, None)
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        out[name] = lut() if name == "lut" else upload_codes(g, device)
+        torch.cuda.synchronize()
+        times[name].append(time.time() - t0)
+    if kmod.launch_counts()["unpack_codes"] != before:
+        raise AssertionError(f"{tag} gapped: KI launched on a dense strand")
+    if not torch.equal(out["lut"], out["upload"]):
+        raise AssertionError(f"{tag} gapped: upload_codes differs from the "
+                             "CODE LUT")
+    del out
+    t0 = time.time()
+    if exception_positions(g) is not None:
+        raise AssertionError(f"{tag} gapped: the strand was not declined")
+    t_count = time.time() - t0
+    print(f"{tag} gapped upload (host clock, n1={n1}, {n_n} N = "
+          f"{100 * n_n / n1:.2f}%): upload_codes (declined pack, then the "
+          f"LUT) {' / '.join(f'{t:.3f}' for t in times['upload'])} s, "
+          f"CODE LUT + pinned copy alone "
+          f"{' / '.join(f'{t:.3f}' for t in times['lut'])} s; the "
+          f"declining exception count alone {t_count:.3f} s", flush=True)
+    del g
+    torch.cuda.empty_cache()
+
+
 def kg_check(record, sa, ws: int) -> None:
     """KG on a window's final suffix order: kernel, plain version and the
     one PyTorch call (the plain version is that call), each on its own
@@ -246,18 +428,24 @@ def kg_check(record, sa, ws: int) -> None:
 
 
 def kd_check(record, settings, specs, lane_off, lane_lo, lane_hi, lane_mask,
-             sa) -> None:
-    """KD on the largest chunk's lanes, as the engines call it."""
+             sa, bases=None, chunk=None) -> None:
+    """KD on one chunk's lanes (``chunk``, an index of ``specs``; the
+    largest by default), as the engines call it: with the filter
+    constants ``bases(chunk_start, chunk_len)``, the fused ones by
+    default."""
     import torch
 
     from asgart_tpu_torch.kernels import scan_core
-    from asgart_tpu_torch.kernels.scan_core import scan_core_plain
+    from asgart_tpu_torch.kernels.scan_core import (fused_bases,
+                                                    scan_core_plain)
 
     s = settings
-    c = max(range(len(specs)), key=lambda i: specs[i][2])
+    c = max(range(len(specs)), key=lambda i: specs[i][2]) \
+        if chunk is None else chunk
     cs, cl, nc = specs[c]
     lanes = slice(lane_off[c], lane_off[c] + nc)
-    args = (lane_lo[lanes], lane_hi[lanes], lane_mask[lanes], sa, cs, cl,
+    consts = (bases or fused_bases)(cs, cl)
+    args = (lane_lo[lanes], lane_hi[lanes], lane_mask[lanes], sa, *consts,
             s.max_cardinality, 0, s.probe_size, s.reverse)
     kd = lambda: scan_core(*args)  # noqa: E731
     pd = lambda: scan_core_plain(*args)  # noqa: E731
@@ -269,9 +457,11 @@ def kd_check(record, settings, specs, lane_off, lane_lo, lane_hi, lane_mask,
     err = max_abs_err((got.flat,), (want.flat,))
     reads = int(torch.where(lane_mask[lanes], lane_hi[lanes] - lane_lo[lanes],
                             0).sum())  # the sa entries this data needs
-    record("scan_core", "scan_core.cu", "asgart_tpu/device_engine.py:249",
-           err, cuda_ms(kd), cuda_ms(pd),
-           f"{nc} lanes, {got.n_events} events, {got.total_kept} matches",
+    record("scan_core", "scan_core.cu",
+           "asgart_tpu/device_engine.py:249" if bases is None else
+           "asgart_tpu/device_engine.py:665 (via :249)", err, cuda_ms(kd),
+           cuda_ms(pd), f"chunk ({cs}, {cl}): {nc} lanes, constants "
+           f"{consts}, {got.n_events} events, {got.total_kept} matches",
            9 * nc + 4 * reads + 4 * got.flat.numel(), 8 * reads + 20 * nc)
 
 
@@ -288,9 +478,6 @@ def kernel_checks(fa: str, path: str, settings, device,
     """Each kernel of a path against its plain version at the path's
     shapes: the whole genome's fused build, or the window ``trim``'s.
     Returns (kernel rows, fused rows M)."""
-    import torch
-
-    from asgart_tpu_torch.codes import upload_codes
     from asgart_tpu_torch.device_engine import chunk_specs
     from asgart_tpu_torch.fasta import prepare_data
     from asgart_tpu_torch.fused_index import fused_layout, sort_keys
@@ -316,12 +503,9 @@ def kernel_checks(fa: str, path: str, settings, device,
 
     t0 = time.time()
     _strand_fingerprint(strand.data)
-    t_fp = time.time() - t0
-    t0 = time.time()
-    codes = upload_codes(strand.data, device)
-    torch.cuda.synchronize()
-    print(f"{tag} host side of a build: strand fingerprint {t_fp:.3f} s, "
-          f"codes LUT + pinned upload {time.time() - t0:.3f} s (host clock)")
+    print(f"{tag} host side of a build: strand fingerprint "
+          f"{time.time() - t0:.3f} s (host clock)")
+    codes = ki_check(record, tag, strand.data, device)
     tabs = chunk_tables(specs, n1, k, s.reverse, s.complement)
     ka = lambda: pack_keys(codes, specs, k, s.reverse, s.complement, W,  # noqa: E731
                            total, ws)
@@ -384,13 +568,13 @@ def mj_kernel_checks(fa: str, path: str, settings, device, trim
                      ) -> tuple[list, int, int]:
     """Each kernel of the merge-join window engine against its plain
     version at the shapes of the window ``trim`` probed by the whole
-    genome: KA's window keys and probe-only mode (one row), the sort, KB,
-    KC with no lanes, KE/KF, KG, KH and KD on the largest chunk. Returns
-    (kernel rows, W, probe lanes)."""
+    genome: KI, KA's window keys and probe-only mode (one row), the sort,
+    KB, KC with no lanes, KE/KF, KH and KD on the largest chunk with the
+    rebased constants on the window-relative order. Returns (kernel rows,
+    W, probe lanes)."""
     import torch
 
-    from asgart_tpu_torch.codes import upload_codes
-    from asgart_tpu_torch.device_engine import chunk_specs
+    from asgart_tpu_torch.device_engine import chunk_specs, rebased_bases
     from asgart_tpu_torch.fasta import prepare_data
     from asgart_tpu_torch.fused_index import sort_keys
     from asgart_tpu_torch.kernels import (group_bounds, invert_fused,
@@ -416,7 +600,7 @@ def mj_kernel_checks(fa: str, path: str, settings, device, trim
     tag = f"{path} k={k}"
     record = recorder(rows, path, k)
 
-    codes = upload_codes(strand.data, device)
+    codes = ki_check(record, tag, strand.data, device)
     # KA, both sides of the join: the window's keys (no probe rows) and
     # the probe keys (no window rows); one row for the kernel
     kaw = lambda: pack_keys(codes, (), k, *rc, W, 0, ws)  # noqa: E731
@@ -476,7 +660,6 @@ def mj_kernel_checks(fa: str, path: str, settings, device, trim
 
     sa = tie_checks(record, tag, sa, rank, tied, W, k, device)
     del rank, tied
-    kg_check(record, sa, ws)
 
     kh = lambda: mj_ranges(skey, pkey, pmask, lane_off)  # noqa: E731
     ph = lambda: mj_ranges_plain(skey, pkey, pmask, lane_off)  # noqa: E731
@@ -505,7 +688,8 @@ def mj_kernel_checks(fa: str, path: str, settings, device, trim
            library_ms=lib_ms)
     del sk, pk, skey, pkey
 
-    kd_check(record, s, specs, lane_off, lane_lo, lane_hi, pmask, sa)
+    kd_check(record, s, specs, lane_off, lane_lo, lane_hi, pmask, sa,
+             lambda cs, cl: rebased_bases(cs, cl, ws, W))
     return rows, W, total
 
 
@@ -513,8 +697,9 @@ def mj_peaks(fa: str, settings, windows, device) -> float:
     """Each window's merge-join build alone, with the codes uploaded once
     beside it: its peak device bytes above what was allocated before it,
     per window row; then its stage 1 and scans (the engine over the built
-    index): their peak above the index and codes, per probe lane. Returns
-    the largest build peak in bytes (codes included)."""
+    index): their peak above the index and codes, per probe lane; each
+    against the fit's constants. Returns the largest build peak in bytes
+    (codes included)."""
     import torch
 
     from asgart_tpu_torch.codes import upload_codes
@@ -547,14 +732,18 @@ def mj_peaks(fa: str, settings, windows, device) -> float:
         torch.cuda.synchronize()
         peak1 = torch.cuda.max_memory_allocated(device)
         lanes = sum(nc for (_, _, nc) in idx.stage1.specs)
-        print(f"mj k={k} window ({ws}, {we}): build "
-              f"peak {peak - base} B above the {base} B resident = "
-              f"{(peak - base) / idx.W:.2f} B per window row ({idx.W} rows; "
+        per_row, per_lane = (peak - base) / idx.W, (peak1 - held) / lanes
+        print(f"mj k={k} window ({ws}, {we}): "
+              f"build peak {peak - base} B above the {base} B resident = "
+              f"{per_row:.2f} B per window row ({idx.W} rows; "
               f"MJ_PEAK_BYTES_PER_ROW = {MJ_PEAK_BYTES_PER_ROW}); stage 1 "
               f"and scans peak {peak1 - held} B above the {held} B of index "
-              f"and codes = {(peak1 - held) / lanes:.2f} B per probe lane "
+              f"and codes = {per_lane:.2f} B per probe lane "
               f"({lanes} lanes; MJ_BYTES_PER_LANE = {MJ_BYTES_PER_LANE})",
               flush=True)
+        if per_row > MJ_PEAK_BYTES_PER_ROW or per_lane > MJ_BYTES_PER_LANE:
+            raise AssertionError(f"window ({ws}, {we}) peaks above the "
+                                 "merge-join fit's constants")
         del eng, idx
     del codes
     torch.cuda.empty_cache()
@@ -721,20 +910,24 @@ def mj_ballast(n1: int, W: int, k: int, keys_held: bool, device):
 
 def run_mj_path(fa: str, n: int, device, path: str, settings,
                 shards: int = 1, host: str | None = None,
-                min_sds: int = 1) -> list:
+                min_sds: int = 1, big: bool = False) -> tuple[list, str]:
     """A merge-join path, which the router takes because a ballast tensor
     (:func:`mj_ballast`, held for the path's two runs) leaves too little
-    memory for the fused build: the kernel checks (the trim window, or
-    window 2 of the shards), each window's build and stage-1 peaks, the
-    host engine unless its JSON ``host`` is given, then two runs through
-    the user entry point (trim: cold, then a cache hit that launches
-    neither KA nor KH; shards: two full runs, each packing the probe keys
-    once), with every launch counter set to 0 just before and read after
-    each run. Returns the path's kernel rows with their main-path launch
-    counts."""
+    memory for the fused build; or with ``big`` because
+    ``pipeline.BIG_WINDOW_SPAN`` is 0 for the path's two runs (the route
+    past int32 addressing, where the fused build drops out). The kernel
+    checks (the trim window, or window 2 of the shards),
+    each window's build and stage-1 peaks, the host engine unless its
+    JSON ``host`` is given, then two runs through the user entry point
+    (trim: cold, then a cache hit that launches neither KA nor KH; shards:
+    two full runs, each packing the probe keys once), with every launch
+    counter set to 0 just before and read after each run. Returns the
+    path's kernel rows with their main-path launch counts, and the host
+    JSON."""
     import torch
 
     from asgart_tpu_torch import kernels as kmod
+    from asgart_tpu_torch import pipeline
     from asgart_tpu_torch.fused_index import INDEX_CACHE
     from asgart_tpu_torch.pipeline import plan_windows, search_duplications
 
@@ -752,9 +945,19 @@ def run_mj_path(fa: str, n: int, device, path: str, settings,
                                              engine="host"))
         print(f"{tag} host engine: {time.time() - t0:.3f} s wall")
 
-    # the first window is the largest; the genome is one record (n + '$')
-    ws, we = windows[0]
-    ballast, nb = mj_ballast(n + 1, we - ws + 1, k, shards > 1, device)
+    span = pipeline.BIG_WINDOW_SPAN
+    if big:
+        # at this size the probed text stays within int32 addressing,
+        # where the fused build drops out: every window takes the
+        # merge-join engine
+        pipeline.BIG_WINDOW_SPAN, nb = 0, 0
+        INDEX_CACHE.clear()
+        torch.cuda.empty_cache()
+    else:
+        # the first window is the largest; the genome is one record (n +
+        # '$')
+        ws, we = windows[0]
+        ballast, nb = mj_ballast(n + 1, we - ws + 1, k, shards > 1, device)
     try:
         torch.cuda.reset_peak_memory_stats(device)
         kmod.reset_launch_counts()
@@ -775,16 +978,18 @@ def run_mj_path(fa: str, n: int, device, path: str, settings,
                 peak = torch.cuda.max_memory_allocated(device) - nb
         counts = kmod.launch_counts()
     finally:
-        del ballast
+        pipeline.BIG_WINDOW_SPAN = span
+        if not big:
+            del ballast
 
     for tag2, (t, text, prof, c) in runs.items():
         print(f"{tag} cuda {tag2}: {t:.3f} s wall, {n / 1e6 / t:.2f} Mbp/s, "
               f"phases {json.dumps(prof)}, launches {json.dumps(c)}")
     n_sds = sum(len(f) for f in json.loads(host)["families"])
     print(f"{tag} JSON {len(host)} bytes, {n_sds} SDs; peak device memory "
-          f"of the cold run {peak} B (ballast excluded) against the largest "
-          f"window build alone {largest} B ({W} window rows, {lanes} probe "
-          "lanes)")
+          f"of the cold run {peak} B{'' if big else ' (ballast excluded)'} "
+          f"against the largest window build alone {largest} B ({W} window "
+          f"rows, {lanes} probe lanes)")
     print(f"{tag} launches on the main path: {json.dumps(counts)}",
           flush=True)
     for tag2, (_, text, _, _) in runs.items():
@@ -799,6 +1004,8 @@ def run_mj_path(fa: str, n: int, device, path: str, settings,
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"{tag} main path")
+    if counts["offset_slots"]:
+        raise AssertionError(f"{tag}: KG launched on a merge-join path")
     if shards > 1:
         for tag2, (_, _, _, c) in runs.items():
             # one window-key pack per window, one probe pack per run
@@ -815,6 +1022,324 @@ def run_mj_path(fa: str, n: int, device, path: str, settings,
         row["launches"] = counts[row["name"]]
     INDEX_CACHE.clear()
     torch.cuda.empty_cache()
+    return rows, host
+
+
+def big_genome(fa: str, mbp: float) -> dict:
+    """Write the big-window genome: records of ``RECORD_BP`` bases (the
+    last one shorter), each made from the seed and its index with numpy's
+    uint8 integers (no int64 index of the genome is ever held), an
+    ``N_RUN_BP`` N run in the middle of the middle and of the last record,
+    and one -RC
+    pair: ``PLANT_BP`` bases a twentieth of a record into the third
+    record (5 Mbp), copied reverse-complemented a fifth of a record before
+    the genome's end (20 Mbp; past 2^31 from 2168 Mbp). Returns n and the
+    pair's (src, dst)."""
+    import numpy as np
+
+    n = int(mbp * 1e6)
+    sizes = [RECORD_BP] * (n // RECORD_BP) + ([n % RECORD_BP]
+                                              if n % RECORD_BP else [])
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    comp = np.zeros(256, dtype=np.uint8)
+    for a, b in zip(b"ACGTN", b"TGCAN"):
+        comp[a] = b
+    src, dst = 2 * RECORD_BP + RECORD_BP // 20, n - RECORD_BP // 5
+    seg = None
+    with open(fa, "wb") as fh:
+        pos = 0
+        for r, size in enumerate(sizes):
+            rng = np.random.default_rng([SEED, r])
+            seq = acgt[rng.integers(0, 4, size, dtype=np.uint8)]
+            if r in (len(sizes) // 2, len(sizes) - 1):
+                seq[size // 2: size // 2 + N_RUN_BP] = ord("N")
+            if pos <= src < pos + size:
+                seg = seq[src - pos: src - pos + PLANT_BP].copy()
+            if pos <= dst < pos + size:
+                seq[dst - pos: dst - pos + PLANT_BP] = comp[seg][::-1]
+            fh.write(b">chr%d\n" % (r + 1))
+            fh.write(seq.tobytes())
+            fh.write(b"\n")
+            pos += size
+    return {"n": n, "src": src, "dst": dst, "records": len(sizes)}
+
+
+def big_whole_checks(tag: str, strand, chunks, settings, window, src: int,
+                     device) -> list:
+    """Each kernel of the big_whole path against its plain version at
+    full scale, on the last window ``window`` (the main path's calls,
+    with slices of ``SLICE_ROWS`` rows where a whole-array plain version
+    would not fit beside the index): KI over the whole strand; KA's probe
+    keys of every chunk, the trailing chunks' (past 2^31) against the
+    plain version; KA's window keys, the window's last rows (past 2^31)
+    against it; the sort; KB on a slice; KC and KE/KF whole; KH on a slice
+    of the sorted keys with the trailing chunks' probes; KD with the
+    rebased constants on the last chunk and, unrecorded, on the chunk of
+    the planted pair's first copy ``src`` (its constants clamp; its
+    probes find the copy in the last window). Returns the kernel
+    rows."""
+    import torch
+
+    from asgart_tpu_torch.device_engine import chunk_specs, rebased_bases
+    from asgart_tpu_torch.fused_index import sort_keys
+    from asgart_tpu_torch.kernels import (group_bounds, invert_fused,
+                                          mj_ranges, pack_keys)
+    from asgart_tpu_torch.kernels.group_bounds import group_bounds_plain
+    from asgart_tpu_torch.kernels.invert import invert_fused_plain
+    from asgart_tpu_torch.kernels.merge_join import mj_ranges_plain
+    from asgart_tpu_torch.kernels.pack_keys import (chunk_tables,
+                                                    pack_keys_plain)
+
+    s = settings
+    k = s.probe_size
+    rc = (s.reverse, s.complement)
+    path = "big_whole"
+    rows = []
+    record = recorder(rows, path, k)
+    n1 = len(strand.data)
+    specs = chunk_specs(chunks, s)
+    lane_off, x0s, cls = chunk_tables(specs, n1, k, *rc)
+    total = lane_off[-1]
+    ws, we = window
+    W = we - ws + 1
+    codes = ki_check(record, tag, strand.data, device)
+
+    # KA probe-only: every chunk (the main path's call); the trailing
+    # chunks, whose probes read codes past 2^31, against the plain version
+    c0 = len(specs) - 1
+    while c0 > 0 and total - lane_off[c0] < SLICE_ROWS:
+        c0 -= 1
+    sub = specs[c0:]
+    (pkey,), pmask = pack_keys(codes, specs, k, *rc, 0, total)
+    sub_off = [o - lane_off[c0] for o in lane_off[c0:]]
+    nsub = sub_off[-1]
+    kap = lambda: pack_keys(codes, sub, k, *rc, 0, nsub)  # noqa: E731
+    pap = lambda: pack_keys_plain(codes, sub_off, x0s[c0:],  # noqa: E731
+                                  cls[c0:], k, *rc, 0, nsub)
+    (want_key,), want_mask = pap()
+    err_p = max_abs_err((pkey[lane_off[c0]:], pmask[lane_off[c0]:]),
+                        (want_key, want_mask))
+    del want_key, want_mask
+    # KA window keys: the whole last window, its last rows against the
+    # plain version of the same rows
+    R = min(SLICE_ROWS, W)
+    (key,), _ = pack_keys(codes, (), k, *rc, W, 0, ws)
+    kaw = lambda: pack_keys(codes, (), k, *rc, R, 0, we + 1 - R)  # noqa: E731
+    paw = lambda: pack_keys_plain(codes, [0], [], [], k, *rc,  # noqa: E731
+                                  R, 0, we + 1 - R)
+    err_w = max_abs_err((key[W - R:],), paw()[0])
+    times = [cuda_ms(f) for f in (kaw, paw, kap, pap)]
+    print(f"{tag} KA window keys (W={W}, ws={ws}; rows from {we + 1 - R} "
+          f"checked): max_abs_err={err_w} kernel {times[0]:.3f} ms, plain "
+          f"{times[1]:.3f} ms on {R} rows; probe-only ({total} lanes, "
+          f"{nsub} from chunk start {sub[0][0]} checked): "
+          f"max_abs_err={err_p} kernel {times[2]:.3f} ms, plain "
+          f"{times[3]:.3f} ms on {nsub} lanes", flush=True)
+    record("pack_keys", "pack_keys.cu",
+           "asgart_tpu/device_engine.py:904 + asgart_tpu/device_index.py:269",
+           max(err_w, err_p), times[0] + times[2], times[1] + times[3],
+           f"{R} window rows from {we + 1 - R} + {nsub} probe lanes from "
+           f"{sub[0][0]} (of W={W}, {total} lanes)",
+           R + 8 * R + sum(cl for _, cl, _ in sub) + 9 * nsub,
+           (R + nsub) * (4 * k + 8))
+
+    (skey,), sa = sort_keys([key])
+    del key
+    lo_, hi_ = W - R, W
+    kb = lambda: group_bounds([skey[lo_:hi_]], sa[lo_:hi_], W)  # noqa: E731
+    pb = lambda: group_bounds_plain([skey[lo_:hi_]],  # noqa: E731
+                                    sa[lo_:hi_], W)
+    err = max_abs_err(kb(), pb())
+    record("group_bounds", "group_bounds.cu",
+           "asgart_tpu/device_index.py:433", err, cuda_ms(kb), cuda_ms(pb),
+           f"{R} sorted rows of W={W}, every row direct", R * (8 + 4 + 9),
+           R * 20)
+    run_lo, run_hi, tied = group_bounds([skey], sa, W)
+    none = torch.zeros(0, dtype=torch.bool, device=device)
+    kc = lambda: invert_fused(sa, run_lo, run_hi, none, W, [0])  # noqa: E731
+    pc = lambda: invert_fused_plain(sa, run_lo, run_hi, none, W,  # noqa: E731
+                                    [0])
+    got = kc()
+    rank = got[0]
+    err = max_abs_err(got, pc())
+    del got
+    sa64 = sa.long()
+    lib = torch.empty(W, dtype=torch.int32, device=device)
+    lc = lambda: lib.index_put_((sa64,), run_lo)  # noqa: E731
+    record("invert_fused", "invert.cu", "asgart_tpu/device_index.py:631",
+           err, cuda_ms(kc), cuda_ms(pc), f"W={W}, no lanes", 12 * W, W,
+           library_ms=cuda_ms(lc))
+    del run_lo, run_hi, sa64, lib
+    torch.cuda.empty_cache()
+    sa = tie_checks(record, tag, sa, rank, tied, W, k, device)
+    del rank, tied
+    torch.cuda.empty_cache()
+
+    lane_lo, lane_hi, _ = mj_ranges(skey, pkey, pmask, lane_off)
+    a = (W - R) // 2  # a slice of the sorted keys, the trailing probes
+    sk, pk, pm = skey[a:a + R], pkey[lane_off[c0]:], pmask[lane_off[c0]:]
+    kh = lambda: mj_ranges(sk, pk, pm, sub_off)  # noqa: E731
+    ph = lambda: mj_ranges_plain(sk, pk, pm, sub_off)  # noqa: E731
+    got = kh()
+    err = max_abs_err(got, ph())
+    skf, pkf = sk >> 1, pk >> 1
+    ends = torch.tensor(sub_off[1:], device=device) - 1
+
+    def lh():  # the two searchsorted calls and the masked sums
+        lo = torch.searchsorted(skf, pkf, side="left")
+        hi = torch.searchsorted(skf, pkf, side="right")
+        return torch.where(pm, hi - lo, 0).cumsum(0)[ends]
+
+    csum = lh()
+    if not torch.equal(csum - torch.cat([csum.new_zeros(1), csum[:-1]]),
+                       got[2]):
+        raise AssertionError(f"torch.searchsorted totals differ from KH on "
+                             f"{tag}")
+    n_masked = int(pm.sum())
+    record("mj_ranges", "merge_join.cu", "asgart_tpu/device_engine.py:788",
+           err, cuda_ms(kh), cuda_ms(ph),
+           f"{nsub} lanes ({n_masked} masked in) against {R} sorted rows "
+           f"of W={W} (from slot {a})", 17 * nsub + 8 * R,
+           n_masked * 4 * max(1, R.bit_length()), library_ms=cuda_ms(lh))
+    del got, skf, pkf, skey, pkey
+    torch.cuda.empty_cache()
+
+    def bases(cs, cl):
+        return rebased_bases(cs, cl, ws, W)
+
+    kd_check(record, s, specs, lane_off, lane_lo, lane_hi, pmask, sa, bases,
+             chunk=len(specs) - 1)
+    kd_check(recorder([], path, k), s, specs, lane_off, lane_lo, lane_hi,
+             pmask, sa, bases, chunk=next(
+                 i for i, (cs, cl, _) in enumerate(specs)
+                 if cs <= src < cs + cl))
+    del codes, lane_lo, lane_hi, pmask, sa
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_big_whole(work: str, mbp: float, device) -> list:
+    """The ``big_whole`` path (module docstring, step 4). Returns its
+    kernel rows with their main-path launch counts."""
+    import logging
+
+    import torch
+
+    from asgart_tpu_torch import kernels as kmod
+    from asgart_tpu_torch.fasta import prepare_data
+    from asgart_tpu_torch.fused_index import INDEX_CACHE, free_bytes
+    from asgart_tpu_torch.pipeline import (plan_shards, plan_windows,
+                                           search_duplications)
+    from asgart_tpu_torch.structs import RunSettings
+
+    path, k = "big_whole", 20
+    tag = f"{path} k={k}"
+    fa = os.path.join(work, "big.fa")
+    t0 = time.time()
+    meta = big_genome(fa, mbp)
+    print(f"{tag} genome: {meta['n']} bp in {meta['records']} records "
+          f"(seed {SEED}), -RC pair {meta['src']} -> {meta['dst']} "
+          f"({PLANT_BP} bp), written in {time.time() - t0:.1f} s",
+          flush=True)
+    s = RunSettings(probe_size=k, reverse=True, complement=True)
+    t0 = time.time()
+    _, chunks, strand = prepare_data([fa], False, None)
+    n1 = len(strand.data)
+    torch.cuda.empty_cache()
+    S = plan_shards(n1, k, True, free_bytes(device))
+    windows = plan_windows(n1 - 1, S)
+    print(f"{tag} parsed in {time.time() - t0:.1f} s: n1={n1} (n1 > 2^31: "
+          f"{n1 > 2**31}; doubled {2 * n1 - 1} > 2^31: "
+          f"{2 * n1 - 1 > 2**31}), {len(chunks)} chunks, the planner's "
+          f"S={S}: {windows}", flush=True)
+    gapped_upload_check(tag, strand.data, device)
+    rows = big_whole_checks(tag, strand, chunks, s, windows[-1],
+                            meta["src"], device)
+    largest = mj_peaks(fa, s, windows, device)
+    del strand
+
+    class Said(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.WARNING)
+            self.lines = []
+
+        def emit(self, rec):
+            self.lines.append(rec.getMessage())
+
+    said = Said()
+    logging.getLogger("asgart").addHandler(said)
+    INDEX_CACHE.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    kmod.reset_launch_counts()
+    runs = {}
+    try:
+        for tag2 in ("cold", "second"):
+            before = kmod.launch_counts()
+            prof: dict = {}
+            t0 = time.time()
+            res = search_duplications([fa], s, engine="cuda", device=device,
+                                      profile=prof)
+            torch.cuda.synchronize()
+            t = time.time() - t0
+            after = kmod.launch_counts()
+            runs[tag2] = (t, json_text(res), prof,
+                          {m: after[m] - before[m] for m in after})
+            if tag2 == "cold":
+                peak = torch.cuda.max_memory_allocated(device)
+        counts = kmod.launch_counts()
+    finally:
+        logging.getLogger("asgart").removeHandler(said)
+    for tag2, (t, text, prof, c) in runs.items():
+        print(f"{tag} cuda {tag2}: {t:.3f} s wall, {meta['n'] / 1e6 / t:.2f} "
+              f"Mbp/s, phases {json.dumps(prof)}, launches {json.dumps(c)}")
+    text = runs["cold"][1]
+    sds = [sd for fam in json.loads(text)["families"] for sd in fam]
+    print(f"{tag} JSON {len(text)} bytes, {len(sds)} SDs; peak device memory "
+          f"of the cold run {peak} B against the largest window build alone "
+          f"{largest} B; launches on the main path: {json.dumps(counts)}",
+          flush=True)
+    if runs["second"][1] != text:
+        raise AssertionError(f"{tag}: the second run's JSON differs from "
+                             "the cold run's")
+    if f"auto-sharding into {S} trim windows" not in " ".join(said.lines):
+        raise AssertionError(f"{tag}: the planner did not shard into {S} "
+                             f"windows: {said.lines}")
+    for tag2, (_, _, _, c) in runs.items():
+        want = {"unpack_codes": 1, "pack_keys": S + 1, "mj_ranges": S,
+                "offset_slots": 0}
+        if any(c[m] != v for m, v in want.items()):
+            raise AssertionError(f"{tag} {tag2}: launches {c}, expected "
+                                 f"{want} for {S} merge-join windows")
+    for name in MJ:
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"{tag} main path")
+    for sd in sds:
+        for p0, ln in ((sd["global_left_position"], sd["left_length"]),
+                       (sd["global_right_position"], sd["right_length"])):
+            if not 0 <= p0 < p0 + ln <= n1 - 1:
+                raise AssertionError(f"{tag}: SD outside the genome: {sd}")
+    src, dst = meta["src"], meta["dst"]
+    pair = [sd for sd in sds
+            if abs(min(sd["global_left_position"],
+                        sd["global_right_position"]) - src) < 1000
+            and abs(max(sd["global_left_position"],
+                        sd["global_right_position"]) - dst) < 1000
+            and sd["reversed"] and sd["complemented"]]
+    if not pair:
+        raise AssertionError(f"{tag}: the planted -RC pair {src} -> {dst} "
+                             "was not found")
+    far = max(pair[0]["global_left_position"],
+              pair[0]["global_right_position"])
+    print(f"{tag} planted pair found: {json.dumps(pair[0])}; its copy at "
+          f"{far} {'>' if far >= 2**31 else '<'} 2^31 = {2**31}", flush=True)
+    if dst >= 2**31 and far < 2**31:
+        raise AssertionError(f"{tag}: the copy past 2^31 came back at {far}")
+    for row in rows:
+        row["launches"] = counts[row["name"]]
+    INDEX_CACHE.clear()
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -822,7 +1347,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mbp", type=float, default=128.0,
                     help="synthetic genome size in Mbp (default 128)")
+    ap.add_argument("--big-mbp", type=float, default=3100.0,
+                    help="big_whole genome size in Mbp: at least 1100 (the "
+                    "doubled text past 2^31), or 0 to skip the phase "
+                    "(default 3100, a whole human genome)")
     args = ap.parse_args(argv)
+    if args.big_mbp and args.big_mbp < 1100:
+        ap.error("--big-mbp must be 0 or at least 1100")
 
     import torch
 
@@ -860,9 +1391,10 @@ def main(argv=None) -> int:
     fa = os.path.join(work, "genome.fa")
     with open(fa, "wb") as fh:
         fh.write(b">chr1\n" + g.tobytes() + b"\n")
-    del g
     print(f"genome: {n} bp synthetic (seed {SEED}) in "
           f"{time.time() - t0:.1f} s", flush=True)
+    gapped_upload_check("genome", g, device)
+    del g
 
     rc = dict(reverse=True, complement=True)
     rows = []
@@ -884,12 +1416,23 @@ def main(argv=None) -> int:
     # the merge-join window engine, routed there by a ballast tensor: the
     # same middle window at k = 20, and the shards path's windows, whose
     # JSON is the host JSON the fused shards path computed
-    rows += run_mj_path(fa, n, device, "mj_trim",
-                        RunSettings(probe_size=20, trim=trim, **rc),
-                        min_sds=min_sds)
+    mj_rows, mj_host = run_mj_path(fa, n, device, "mj_trim",
+                                   RunSettings(probe_size=20, trim=trim,
+                                               **rc), min_sds=min_sds)
+    rows += mj_rows
     rows += run_mj_path(fa, n, device, "mj_shards",
                         RunSettings(probe_size=20, **rc), shards=SHARDS,
-                        host=shard_host)
+                        host=shard_host)[0]
+    # the route past int32 addressing (no fused build) on the same windows,
+    # held to the host JSON of the mj_trim and shards paths
+    rows += run_mj_path(fa, n, device, "big_trim",
+                        RunSettings(probe_size=20, trim=trim, **rc),
+                        host=mj_host, min_sds=min_sds, big=True)[0]
+    rows += run_mj_path(fa, n, device, "big_shards",
+                        RunSettings(probe_size=20, **rc), shards=SHARDS,
+                        host=shard_host, big=True)[0]
+    if args.big_mbp:
+        rows += run_big_whole(work, args.big_mbp, device)
     assert "jax" not in sys.modules
     assert not [m for m in sys.modules
                 if m == "asgart_tpu" or m.startswith("asgart_tpu.")]

@@ -2,9 +2,10 @@
 every transform and k in {8, 20} (one-word keys) and {25, 30} (two-word
 keys), KA's window mode and KG on trim windows, the merge-join window
 engine's kernels (KA's probe-only mode and window keys, KC with no lanes,
-KH), and the port's JSON on the GPU against the host engine (whole
-genome, trim windows and ``shards``, on the fused build and on the
-merge-join engine, with its route chosen by free memory alone). The
+KH, KD with rebased constants on its window-relative index), KI, and the
+port's JSON on the GPU against the host engine (whole genome, trim windows
+and ``shards``, on the fused build, on the merge-join engine with its
+route chosen by free memory alone, and past int32 addressing). The
 kernels have no CPU mode, so without a CUDA GPU these tests skip. On a
 machine with a GPU (and without jax, which tests/conftest.py imports),
 run them with::
@@ -51,7 +52,8 @@ def test_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse, complement, k):
     from asgart_tpu_torch.kernels.invert import invert_fused_plain
     from asgart_tpu_torch.kernels.pack_keys import (chunk_tables,
                                                     pack_keys_plain)
-    from asgart_tpu_torch.kernels.scan_core import scan_core_plain
+    from asgart_tpu_torch.kernels.scan_core import (fused_bases,
+                                                    scan_core_plain)
     from asgart_tpu_torch.kernels.ties import (tie_keys_plain,
                                                tie_refine_plain)
     from asgart_tpu_torch.ties import resolve_ties
@@ -101,8 +103,8 @@ def test_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse, complement, k):
     for c, (cs, cl, nc) in enumerate(specs):
         lanes = slice(lane_off[c], lane_off[c] + nc)
         for max_card in (500, 1):
-            args = (lane_lo[lanes], lane_hi[lanes], mask[lanes], sa, cs, cl,
-                    max_card, 0, k, reverse)
+            args = (lane_lo[lanes], lane_hi[lanes], mask[lanes], sa,
+                    *fused_bases(cs, cl), max_card, 0, k, reverse)
             got, want = scan_core(*args), scan_core_plain(*args)
             assert (got.n_events, got.total_kept) == \
                 (want.n_events, want.total_kept)
@@ -111,9 +113,10 @@ def test_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse, complement, k):
     torch.cuda.synchronize()
     after = launch_counts()
     # KG runs on trim windows only (test_window_kernels_equal_plain_on_gpu),
-    # KH on the merge-join engine (test_mj_kernels_equal_plain_on_gpu)
+    # KH on the merge-join engine (test_mj_kernels_equal_plain_on_gpu), KI
+    # in upload_codes (test_unpack_codes_equal_plain_on_gpu)
     assert all(after[name] > before[name] for name in after
-               if name not in ("offset_slots", "mj_ranges"))
+               if name not in ("offset_slots", "mj_ranges", "unpack_codes"))
     if reverse == complement:
         assert n_events > 0
 
@@ -199,7 +202,7 @@ def test_window_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse,
     torch.cuda.synchronize()
     after = launch_counts()
     assert all(after[name] > before[name] for name in after
-               if name not in ("scan_core", "mj_ranges"))
+               if name not in ("scan_core", "mj_ranges", "unpack_codes"))
 
 
 @pytest.mark.parametrize("k", [20, 25])
@@ -290,8 +293,10 @@ def test_mj_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse, complement,
     assert r_gpu.offs == r_cpu.offs
     torch.cuda.synchronize()
     after = launch_counts()
+    # the window index keeps window positions: no KG
+    assert after["offset_slots"] == before["offset_slots"]
     assert all(after[name] > before[name] for name in after
-               if name != "scan_core")
+               if name not in ("scan_core", "unpack_codes", "offset_slots"))
 
 
 @pytest.mark.parametrize("k", [20, 8])
@@ -386,3 +391,128 @@ def test_gpu_natural_route_ballast(tmp_path, gpu):
             torch.cuda.empty_cache()
         assert len(built) == shards
         assert got == host
+
+
+def test_unpack_codes_equal_plain_on_gpu(gpu):
+    """KI against its plain version and ``CODE[strand]``: $, N and IUPAC
+    exceptions, no exception, n1 % 4 from 0 to 3 (the vectorised and the
+    byte-wise unpack), through ``upload_codes`` too."""
+    import numpy as np
+
+    from asgart_tpu_torch.codes import pack_codes, upload_codes
+    from asgart_tpu_torch.kernels import launch_counts, unpack_codes
+    from asgart_tpu_torch.kernels.codes import unpack_codes_plain
+
+    before = launch_counts()["unpack_codes"]
+    rng = np.random.default_rng(5)
+    for n, exc in ((1 << 20, b"N"), ((1 << 20) + 1, b"NRYKM"),
+                   ((1 << 20) + 2, b""), ((1 << 20) + 3, b"N"), (7, b"N")):
+        g = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, n)].copy()
+        if exc:
+            hit = rng.random(n) < 0.003
+            g[hit] = np.frombuffer(exc, np.uint8)[
+                rng.integers(0, len(exc), hit.sum())]
+            g[-1] = ord("$")
+        packed = [torch.from_numpy(a).to(gpu) for a in pack_codes(g)]
+        got = unpack_codes(*packed, n)
+        _equal((got,), (unpack_codes_plain(*packed, n),))
+        _equal((got,), (torch.from_numpy(CODE[g]),))
+        _equal((upload_codes(g, gpu),), (torch.from_numpy(CODE[g]),))
+    torch.cuda.synchronize()
+    assert launch_counts()["unpack_codes"] >= before + 10
+
+
+@pytest.mark.parametrize("k", [20, 8])
+@pytest.mark.parametrize("reverse,complement", TRANSFORMS)
+def test_big_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse, complement,
+                                        k):
+    """KD with the merge-join engine's rebased constants on its
+    window-relative index (windows at 0 and past it, max_cardinality 500
+    and 1) against its plain version; the relative index and stage 1 on
+    the GPU equal the CPU's, and no KG runs."""
+    from asgart_tpu_torch.device_engine import (DeviceWindowEngine,
+                                                rebased_bases)
+    from asgart_tpu_torch.kernels import launch_counts, scan_core
+    from asgart_tpu_torch.kernels.scan_core import scan_core_plain
+
+    g = bytearray(chunked_genome())
+    g[500:3560] = g[20500:23560]  # a direct duplication
+    _, chunks, strand = prepared(tmp_path, [("chr1", bytes(g))])
+    cpu = torch.device("cpu")
+    before = launch_counts()
+    n_events = 0
+    for trim in ((0, 10000), (19000, 46000)):
+        s = RunSettings(reverse=reverse, complement=complement, probe_size=k)
+        engines = [DeviceWindowEngine(strand, s, dev, trim, cache=None)
+                   for dev in (gpu, cpu)]
+        r_gpu, r_cpu = (e.stage1(chunks) for e in engines)
+        idx = engines[0].index
+        _equal((idx.key, idx.sa, r_gpu.lane_lo, r_gpu.lane_hi,
+                r_gpu.lane_mask),
+               (engines[1].index.key, engines[1].index.sa, r_cpu.lane_lo,
+                r_cpu.lane_hi, r_cpu.lane_mask))
+        for (cs, cl, nc) in r_gpu.specs:
+            off = r_gpu.offs[(cs, cl)][0]
+            lanes = slice(off, off + nc)
+            for max_card in (500, 1):
+                args = (r_gpu.lane_lo[lanes], r_gpu.lane_hi[lanes],
+                        r_gpu.lane_mask[lanes], idx.sa,
+                        *rebased_bases(cs, cl, trim[0], idx.W), max_card, 0,
+                        k, reverse)
+                got, want = scan_core(*args), scan_core_plain(*args)
+                assert (got.n_events, got.total_kept) == \
+                    (want.n_events, want.total_kept)
+                _equal((got.flat,), (want.flat,))
+                n_events += got.n_events
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert after["offset_slots"] == before["offset_slots"]
+    # this genome's N run makes its exceptions dense: a plain upload, no KI
+    # (test_unpack_codes_equal_plain_on_gpu)
+    assert all(after[name] > before[name] for name in after
+               if name not in ("offset_slots", "unpack_codes"))
+    if reverse == complement:
+        assert n_events > 0
+
+
+@pytest.mark.parametrize("k", [20, 8])
+def test_gpu_big_json_equals_host(tmp_path, gpu, monkeypatch, k):
+    """With every probed text past the threshold of int32 addressing, trim
+    windows, shards and the whole genome (the planner's windows) skip the
+    fused build, run on the merge-join engine and write the host engine's
+    bytes."""
+    from asgart_tpu_torch import pipeline
+    from asgart_tpu_torch.fused_index import INDEX_CACHE
+    from asgart_tpu_torch.pipeline import search_duplications
+
+    g = bytearray(chunked_genome())
+    g[500:3560] = g[20500:23560]  # a direct duplication
+    fa, _, _ = prepared(tmp_path, [("chr1", bytes(g))])
+    monkeypatch.setattr(pipeline, "BIG_WINDOW_SPAN", 0)
+    trims = []
+    scan = pipeline.DeviceWindowEngine.scan_chunks
+    monkeypatch.setattr(pipeline.DeviceWindowEngine, "scan_chunks",
+                        lambda self, c: trims.append(self.trim)
+                        or scan(self, c))
+    for reverse, complement in TRANSFORMS:
+        for trim in ((0, 30000), (400, 52000), (35000, 60000)):
+            s = RunSettings(reverse=reverse, complement=complement,
+                            probe_size=k, trim=trim)
+            host = json_text(search_duplications([fa], s, engine="host"))
+            assert json_text(search_duplications(
+                [fa], s, engine="cuda", device=gpu)) == host
+            assert trims[-1] == trim
+        s = RunSettings(reverse=reverse, complement=complement,
+                        probe_size=k)
+        for shards in (2, 3):
+            host = json_text(search_duplications([fa], s, engine="host",
+                                                 shards=shards))
+            assert json_text(search_duplications(
+                [fa], s, engine="cuda", device=gpu, shards=shards)) == host
+        trims.clear()
+        host = json_text(search_duplications([fa], s, engine="host",
+                                             shards=2))
+        assert json_text(search_duplications(
+            [fa], s, engine="cuda", device=gpu)) == host
+        assert len(trims) == 2
+    INDEX_CACHE.clear()

@@ -137,7 +137,8 @@ def _assert_index_equal(strand, k, trim, reverse, complement):
     got = DeviceWindowIndex.build(strand.data, k, trim, reverse, complement,
                                   CPU)
     assert np.array_equal(got.key.numpy(), _port_key(ref.key_hi, ref.key_lo))
-    assert np.array_equal(got.sa.numpy(), np.asarray(ref.sa))
+    # window positions: the JAX index's genome positions minus the start
+    assert np.array_equal(got.sa.numpy() + trim[0], np.asarray(ref.sa))
     assert (got.W, got.n, got.first_len, got.win_start, got.win_end) == \
         (ref.W, ref.n, ref.first_len, ref.win_start, ref.win_end)
     return got
@@ -147,11 +148,11 @@ def _assert_index_equal(strand, k, trim, reverse, complement):
 @pytest.mark.parametrize("reverse,complement", TRANSFORMS)
 def test_window_index_equals_jax_transforms(tmp_path, reverse, complement,
                                             k):
-    """A middle window for each transform: its suffix order holds genome
-    positions (KG) and only positions inside the window."""
+    """A middle window for each transform: its suffix order holds window
+    positions (no KG), every one of the window's once."""
     _, strand = _strand(tmp_path, "chunked")
     got = _assert_index_equal(strand, k, (19000, 46000), reverse, complement)
-    assert np.array_equal(np.sort(got.sa.numpy()), np.arange(19000, 46001))
+    assert np.array_equal(np.sort(got.sa.numpy()), np.arange(46001 - 19000))
 
 
 @pytest.mark.parametrize("window", sorted(WINDOWS))

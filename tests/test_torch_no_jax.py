@@ -134,7 +134,7 @@ def test_wrappers_take_kernel_path_for_gpu_tensors(monkeypatch):
     from asgart_tpu_torch.kernels import (_build, group_bounds,
                                           invert_fused, mj_ranges,
                                           offset_slots, pack_keys, scan_core,
-                                          tie_keys, tie_refine)
+                                          tie_keys, tie_refine, unpack_codes)
 
     def mod(name):  # the module, not the wrapper of the same name
         return importlib.import_module(f"asgart_tpu_torch.kernels.{name}")
@@ -154,7 +154,8 @@ def test_wrappers_take_kernel_path_for_gpu_tensors(monkeypatch):
                     ("ties", "tie_keys_plain"),
                     ("ties", "tie_refine_plain"),
                     ("window", "offset_slots_plain"),
-                    ("merge_join", "mj_ranges_plain")):
+                    ("merge_join", "mj_ranges_plain"),
+                    ("codes", "unpack_codes_plain")):
         monkeypatch.setattr(mod(m), name, no_plain)
 
     i32, i64 = torch.int32, torch.int64
@@ -193,4 +194,8 @@ def test_wrappers_take_kernel_path_for_gpu_tensors(monkeypatch):
     with pytest.raises(RuntimeError, match="kernel library"):
         scan_core(torch.zeros(4, dtype=i32), torch.zeros(4, dtype=i32),
                   torch.ones(4, dtype=torch.bool),
-                  torch.arange(8, dtype=i32), 0, 100, 500, 0, 20, False)
+                  torch.arange(8, dtype=i32), 0, 0, 100, 500, 0, 20, False)
+    with pytest.raises(RuntimeError, match="kernel library"):
+        unpack_codes(torch.zeros(3, dtype=torch.uint8),
+                     torch.zeros(1, dtype=i64),
+                     torch.zeros(1, dtype=torch.uint8), 10)

@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from asgart_tpu.pipeline import search_duplications as jax_search
-from asgart_tpu_torch import pipeline
+from asgart_tpu_torch import fused_index, pipeline
 from asgart_tpu_torch.fused_index import (MJ_BYTES_PER_LANE,
                                           MJ_KEY_BYTES_PER_LANE,
                                           MJ_PEAK_BYTES_PER_ROW,
@@ -168,9 +168,12 @@ def test_plan_shards():
     assert plan_shards(n1, 25, False, need - 1) == 5
     # nothing fits: the probe side alone outgrows the budget
     assert plan_shards(n1, 20, True, mj(256) - 1) is None
-    # beyond int32 probe addressing: the doubled text of -R/-C runs
-    assert plan_shards(2**30 + 1, 20, True, float("inf")) is None
-    assert plan_shards(2**30 + 1, 20, False, float("inf")) == 2
+    # beyond int32 probe addressing (the doubled text of -R/-C runs) the
+    # windows fit the merge-join engine or nothing:
+    # no fused build there, so k = 25 has no S
+    assert plan_shards(2**30 + 1, 20, True, float("inf")) == 2
+    assert plan_shards(2**30 + 1, 25, True, float("inf")) is None
+    assert plan_shards(2**30 + 1, 25, False, float("inf")) == 2
 
 
 def test_auto_shard(tmp_path, monkeypatch, caplog):
@@ -215,12 +218,27 @@ def test_refusals(tmp_path, monkeypatch, caplog):
         _port(fa, s)
     with pytest.raises(NotImplementedError, match="fits no device route"):
         _port(fa, plain, shards=2)
-    # beyond int32 probe addressing
+    # beyond int32 probe addressing, no fused build: the merge-join engine
+    # (its index window-relative) holds the trim window and the planner's
+    # windows of the whole genome; at k > 20 the refusal names the host
+    # engine
     monkeypatch.setattr(pipeline, "probe_span", lambda *a: 2**31)
-    with pytest.raises(NotImplementedError, match="A10"):
-        _port(fa, s)
-    with pytest.raises(NotImplementedError, match="A10"):
-        _port(fa, plain)
+    monkeypatch.setattr(pipeline, "mj_fits", fused_index.mj_fits)
+    big = []
+    scan = pipeline.DeviceWindowEngine.scan_chunks
+
+    def spy(self, chunks):
+        big.append(self.trim)
+        return scan(self, chunks)
+
+    monkeypatch.setattr(pipeline.DeviceWindowEngine, "scan_chunks", spy)
+    assert _port(fa, s) == _jax_host(fa, s)
+    assert _port(fa, plain) == _jax_host(fa, plain, shards=2)
+    assert big == [(5000, 70000), (0, 45000), (45000, 90000)]
+    with pytest.raises(NotImplementedError, match="host engine"):
+        _port(fa, RunSettings(probe_size=25, trim=(5000, 70000)))
+    with pytest.raises(NotImplementedError, match="host engine"):
+        _port(fa, RunSettings(probe_size=25))
 
 
 @pytest.mark.parametrize("phase", ["device", "tail"])

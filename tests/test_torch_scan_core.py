@@ -1,7 +1,9 @@
-"""KD ``scan_core`` (asgart_tpu_torch/kernels/scan_core.py) against the live
+"""KD ``scan_core`` (asgart_tpu_torch/kernels/scan_core.py) with the fused
+and merge-join engines' filter constants (``fused_bases``) against the live
 prefixes of the JAX ``_scan_core`` outputs (asgart_tpu/device_engine.py:352)
 on lanes of a JAX-built fused index: ev_pack[:, :n_events],
-m_flat[:total_kept] and z_trail. Exact (integers; tolerance 0)."""
+m_flat[:total_kept] and z_trail. Exact (integers; tolerance 0). The
+big-window engine's rebased constants: tests/test_torch_big_window.py."""
 
 import jax  # noqa: F401  (JAX on the CPU, tests/conftest.py)
 import jax.numpy as jnp
@@ -11,6 +13,7 @@ import torch
 
 from asgart_tpu_torch.structs import RunSettings
 from asgart_tpu_torch.kernels import scan_core
+from asgart_tpu_torch.kernels.scan_core import fused_bases
 
 from torch_jax_ref import chunked_genome, prepared, specs_for
 from torch_jax_ref import (one_port_test_at_a_time,  # noqa: F401
@@ -53,8 +56,8 @@ def _port_scan(idx, off, nc, cs, cl, max_card, j0, k, reverse):
     res = scan_core(t(idx.lane_lo[lanes], torch.int32),
                     t(idx.lane_hi[lanes], torch.int32),
                     t(idx.lane_mask[lanes], torch.bool),
-                    t(idx.sa, torch.int32), cs, cl, max_card, j0, k,
-                    reverse)
+                    t(idx.sa, torch.int32), *fused_bases(cs, cl), max_card,
+                    j0, k, reverse)
     return res.to_host()
 
 
