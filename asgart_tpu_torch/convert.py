@@ -2,8 +2,9 @@
 
 The system has no weights; its state is the device index. These helpers
 take the arrays of a JAX ``FusedIndex`` (asgart_tpu/device_index.py:1580),
-``DeviceWindowIndex`` (:1342) or ``BigWindowEngine`` (its window-relative
-``key_hi``, ``key_lo`` and ``sa``; asgart_tpu/device_engine.py:2453),
+``DeviceWindowIndex`` (:1342), ``DeviceIndex`` (:1109) or
+``BigWindowEngine`` (its window-relative ``key_hi``, ``key_lo`` and
+``sa``; asgart_tpu/device_engine.py:2453),
 read out with ``np.asarray``, and give the port's counterparts, so the
 port's engines can run on an index the JAX package built.
 """
@@ -14,13 +15,15 @@ import numpy as np
 import torch
 
 from .fused_index import FusedIndex
+from .table_index import DeviceIndex
 from .window_index import DeviceWindowIndex
 
 
 def rank_from_decimated(rank_dec: np.ndarray, step: int, W: int
                         ) -> np.ndarray:
     """Plain-layout rank [W] from the JAX decimated rank (position p sits
-    at (p % step) * C + p // step, C = len(rank_dec) // step)."""
+    at (p % step) * C + p // step, C = len(rank_dec) // step); the JAX
+    decimated tables pos_lo and pos_hi share the layout."""
     C = len(rank_dec) // step
     p = np.arange(W)
     return np.asarray(rank_dec)[(p % step) * C + p // step]
@@ -67,3 +70,20 @@ def window_index_from_numpy(key_hi, key_lo, sa, k: int, n: int,
         sa=torch.tensor(sa, dtype=torch.int32, device=device),
         k=k, n=n, first_len=first_len, W=W, win_start=int(win_start),
         win_end=int(win_end), reverse=reverse, complement=complement)
+
+
+def table_index_from_numpy(sa, pos_lo, pos_hi, k: int, n: int,
+                           first_len: int, reverse: bool, complement: bool,
+                           device: torch.device) -> DeviceIndex:
+    """The port's DeviceIndex from a JAX DeviceIndex's suffix order and
+    decimated, padded tables: the tables in plain position layout [n]
+    (:func:`rank_from_decimated`), the N flag kept in pos_lo's sign bit."""
+    step = k // 2
+
+    def dev(a, plain=True):
+        a = rank_from_decimated(np.asarray(a), step, n) if plain else a
+        return torch.tensor(np.asarray(a), dtype=torch.int32, device=device)
+
+    return DeviceIndex(sa=dev(sa, plain=False), pos_lo=dev(pos_lo),
+                       pos_hi=dev(pos_hi), k=k, n=n, first_len=first_len,
+                       reverse=reverse, complement=complement)

@@ -54,4 +54,25 @@ __device__ __forceinline__ long long run_start(long long i, Same same) {
   return good;
 }
 
+// One past the last index of the run that holds row i in an array of n
+// rows whose equal rows are adjacent: the forward mirror of run_start.
+template <class Same>
+__device__ __forceinline__ long long run_end(long long i, long long n,
+                                             Same same) {
+  if (i + 1 >= n || !same(i + 1)) return i + 1;
+  long long good = i + 1;  // known equal
+  long long bad = n;       // known different (or past the array)
+  for (long long d = 1;; d *= 2) {
+    const long long probe = i + 2 * d;
+    if (probe >= n) break;
+    if (!same(probe)) { bad = probe; break; }
+    good = probe;
+  }
+  while (bad - good > 1) {
+    const long long mid = good + (bad - good) / 2;
+    if (same(mid)) good = mid; else bad = mid;
+  }
+  return bad;
+}
+
 }  // namespace asgart

@@ -12,6 +12,13 @@
 //
 // The key is one int64 word (k <= 20, flag in bit 0) or two words (k =
 // 21..30: w1 int64, w0 int32 with the flag in bit 0), one template each.
+//
+// Two options serve the table build (the JAX _group_bounds with flag_n_k
+// = k, :352-420): n_shift >= 0 sets run_lo's sign bit where the row's
+// first symbol, (first word >> n_shift) & 7, is N (rank 4), the N-probe
+// flag that KJ carries into position space; run_end gives direct rows
+// their run end (exclusive) in run_hi, as the JAX unflagged mode's
+// reverse cummin does for a text without an appended half.
 // The JAX package finds run starts with a cummax scan, which on a GPU
 // needs a cross-block pass. Here every row finds its own run start by a
 // galloping search backwards over the sorted keys (asgart::run_start): no
@@ -54,6 +61,7 @@ struct Word2 {
 template <class Keys>
 __global__ void group_bounds_kernel(Keys keys, const int* __restrict__ sa,
                                     long long M, long long W,
+                                    int n_shift, int run_end,
                                     int* __restrict__ run_lo,
                                     int* __restrict__ run_hi,
                                     uint8_t* __restrict__ tied) {
@@ -62,12 +70,13 @@ __global__ void group_bounds_kernel(Keys keys, const int* __restrict__ sa,
     const auto full = keys.at(i, 0);
     const auto flagless = keys.at(i, 1);
     const bool direct = sa[i] < W;
+    const auto same_full = [&](long long j) { return keys.at(j, 0) == full; };
     const long long lo = asgart::run_start(
         i, [&](long long j) { return keys.at(j, 1) == flagless; });
-    run_lo[i] = (int)lo;
-    run_hi[i] = (int)(direct ? lo : asgart::run_start(i, [&](long long j) {
-      return keys.at(j, 0) == full;
-    }));
+    const bool n_probe = n_shift >= 0 && ((full.a >> n_shift) & 7) == 4;
+    run_lo[i] = (int)lo | (n_probe ? (int)0x80000000u : 0);
+    run_hi[i] = (int)(!direct ? asgart::run_start(i, same_full)
+                      : run_end ? asgart::run_end(i, M, same_full) : lo);
     const bool starts = i == 0 || !(keys.at(i - 1, 0) == full);
     const bool ends = i == M - 1 || !(keys.at(i + 1, 0) == full);
     tied[i] = direct && !(starts && ends);
@@ -80,18 +89,19 @@ __global__ void group_bounds_kernel(Keys keys, const int* __restrict__ sa,
 // (skey, skey_lo).
 ASGART_API int asgart_group_bounds(const void* skey, const void* skey_lo,
                                    const void* sa, long long M, long long W,
-                                   void* run_lo, void* run_hi, void* tied,
-                                   void* stream) {
+                                   int n_shift, int run_end, void* run_lo,
+                                   void* run_hi, void* tied, void* stream) {
   const unsigned grid = asgart::grid_for(M);
   cudaStream_t s = (cudaStream_t)stream;
   if (skey_lo == nullptr) {
     group_bounds_kernel<<<grid, asgart::kThreads, 0, s>>>(
-        Word1{(const long long*)skey}, (const int*)sa, M, W, (int*)run_lo,
-        (int*)run_hi, (uint8_t*)tied);
+        Word1{(const long long*)skey}, (const int*)sa, M, W, n_shift,
+        run_end, (int*)run_lo, (int*)run_hi, (uint8_t*)tied);
   } else {
     group_bounds_kernel<<<grid, asgart::kThreads, 0, s>>>(
         Word2{(const long long*)skey, (const int*)skey_lo}, (const int*)sa,
-        M, W, (int*)run_lo, (int*)run_hi, (uint8_t*)tied);
+        M, W, n_shift, run_end, (int*)run_lo, (int*)run_hi,
+        (uint8_t*)tied);
   }
   return (int)cudaGetLastError();
 }

@@ -15,6 +15,11 @@
 //     appended half is read through index arithmetic, never built)
 //   device_index.py:1288 _window_codes (the trim window's text + '$' + k
 //     zeros, read in place: window mode below)
+//   for the table engine (`doubled` mode): device_index.py:244
+//     _build_text_codes + :269 _pack_planes_all / :283 _pack_planes3_all
+//     over the doubled text, and :317 _flagged_sort's / :341
+//     _flagged_sort3's flag (positions >= n1 are 1), as DeviceIndex.build
+//     (:1140) runs them
 //   for the merge-join window engine, the two sides apart:
 //     device_engine.py:904 _pack_batch_probe_keys alone (W = 0: probe-only
 //     mode) and device_index.py:269 _pack_planes_all over _window_codes
@@ -25,7 +30,11 @@
 // text row of the window text codes[ws, ws + W - 1) + '$': symbol t is
 // codes[ws + r + t] while r + t < W - 1 and 0 past it ('$' rank, the JAX
 // zero padding). The whole genome is the window ws = 0, W = n1, whose
-// last symbol codes[n1 - 1] is its own '$'. Row
+// last symbol codes[n1 - 1] is its own '$'. In `doubled` mode (ws = 0,
+// W = 2 n1 - 1, no probe rows) the direct text is the table engine's
+// doubled text: codes[0, n1) ('$' last), then the appended half T(genome)
+// read through the transform (q - n1 in it), 0 past W; rows r >= n1 carry
+// the flag. Row
 // W + j is probe lane j: its symbols are read from the transformed half
 // (complement via COMP, reversed index n1-2-q) at x0 + j*step + t, with
 // the flag bit set; lanes past the chunks' total are pad rows with the
@@ -73,7 +82,7 @@ __global__ void pack_keys_kernel(const uint8_t* __restrict__ codes,
                                  const long long* __restrict__ x0cl,
                                  int n_chunks, long long W, long long ws,
                                  long long total, int k, int reverse,
-                                 int complement,
+                                 int complement, int doubled,
                                  long long* __restrict__ key,
                                  int* __restrict__ key_lo,
                                  uint8_t* __restrict__ lane_mask) {
@@ -88,10 +97,21 @@ __global__ void pack_keys_kernel(const uint8_t* __restrict__ codes,
     if (r < W) {
       for (int t = 0; t < k; ++t) {
         long long q = r + t;
-        long long s = q < W - 1 ? __ldg(codes + ws + q) : 0;
+        long long s;
+        if (!doubled) {
+          s = q < W - 1 ? __ldg(codes + ws + q) : 0;
+        } else if (q < n1) {
+          s = __ldg(codes + q);
+        } else if (q < W) {
+          const long long a = q - n1;
+          s = __ldg(codes + (reverse ? n1 - 2 - a : a));
+          if (complement) s = kComp[s & 7];
+        } else {
+          s = 0;
+        }
         if (t < n_hi) hi = (hi << 3) | s; else lo = (lo << 3) | s;
       }
-      store_key<kWords>(r, hi, lo, 0, key, key_lo);
+      store_key<kWords>(r, hi, lo, doubled && r >= n1, key, key_lo);
       continue;
     }
     const long long lane = r - W;
@@ -139,8 +159,9 @@ ASGART_API int asgart_pack_keys(const void* codes, long long n1,
                                 const void* lane_off, const void* x0cl,
                                 int n_chunks, long long W, long long ws,
                                 long long total, int k, int reverse,
-                                int complement, void* key, void* key_lo,
-                                void* lane_mask, void* stream) {
+                                int complement, int doubled, void* key,
+                                void* key_lo, void* lane_mask,
+                                void* stream) {
   const long long M = W + total;
   const unsigned grid = asgart::grid_for(M);
   cudaStream_t s = (cudaStream_t)stream;
@@ -148,12 +169,13 @@ ASGART_API int asgart_pack_keys(const void* codes, long long n1,
     pack_keys_kernel<1><<<grid, asgart::kThreads, 0, s>>>(
         (const uint8_t*)codes, n1, (const long long*)lane_off,
         (const long long*)x0cl, n_chunks, W, ws, total, k, reverse,
-        complement, (long long*)key, nullptr, (uint8_t*)lane_mask);
+        complement, doubled, (long long*)key, nullptr, (uint8_t*)lane_mask);
   } else {
     pack_keys_kernel<2><<<grid, asgart::kThreads, 0, s>>>(
         (const uint8_t*)codes, n1, (const long long*)lane_off,
         (const long long*)x0cl, n_chunks, W, ws, total, k, reverse,
-        complement, (long long*)key, (int*)key_lo, (uint8_t*)lane_mask);
+        complement, doubled, (long long*)key, (int*)key_lo,
+        (uint8_t*)lane_mask);
   }
   return (int)cudaGetLastError();
 }

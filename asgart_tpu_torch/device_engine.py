@@ -1,5 +1,6 @@
 """The device engines on one device: the fused engine (the whole genome or
-one trim window) and the merge-join window engine.
+one trim window), the table engine (the whole genome, chunk by chunk) and
+the merge-join window engine.
 
 Counterpart of ``FusedEngine`` (asgart_tpu/device_engine.py:2157) for the
 one-device route (k = 2..30), with its ``trim`` window build, and of both
@@ -7,6 +8,12 @@ merge-join window engines at k = 2..20: ``DeviceWindowEngine`` (:1749) and
 ``BigWindowEngine`` (:2380), which the JAX package keeps apart because its
 window index holds genome positions in int32. The port's window index
 always keeps window positions, so one engine serves every genome size.
+The table engine is the counterpart of ``DeviceEngine`` (:1180) on one
+device: its index (table_index.py) does not depend on the chunk set, so
+``--checkpoint`` runs scan and journal one chunk at a time; KM
+``table_ranges`` reads each probe lane's window from the position tables
+(the front of ``_scan_chunk``, :202), for all of a call's chunks in one
+launch.
 Per chunk: KD ``scan_core`` on the chunk's lane slice, one device-to-host
 copy of its exactly-sized outputs, then the native event chain with the
 arguments of device_engine.py:1519-1525 (the merge-join engine's matches
@@ -24,8 +31,9 @@ from . import native
 from .codes import upload_codes
 from .fused_index import INDEX_CACHE, FusedIndex, IndexCache
 from .host_helpers import _merge_shard_events
-from .kernels import mj_ranges, pack_keys, scan_core
+from .kernels import mj_ranges, pack_keys, scan_core, table_ranges
 from .kernels.scan_core import fused_bases
+from .table_index import DeviceIndex
 from .window_index import DeviceWindowIndex, ProbeKeyCache, WindowRanges
 
 
@@ -94,6 +102,71 @@ class FusedEngine:
         int32 [3, n], m int32, z_trail) or None (no event), in order."""
         idx = self.ensure_index(chunks)
         return scan_lanes(self.settings, idx, idx.sa, chunks, fused_bases)
+
+
+class TableEngine:
+    """Engine over a :class:`~asgart_tpu_torch.table_index.DeviceIndex` of
+    the whole genome on ``device`` (the JAX ``DeviceEngine`` on one
+    device, without its capacity buckets, pre-passes, slices and packed
+    downloads: KD sizes its outputs exactly). The index is built (or
+    served from ``cache``) at the first scan, whatever chunks it is asked
+    for; ``index`` supplies a prebuilt one (e.g. from
+    :mod:`asgart_tpu_torch.convert`)."""
+
+    m_offset = 0  # added to the matches on the host (genome positions)
+
+    def __init__(self, strand, settings, device: torch.device,
+                 cache: IndexCache | None = INDEX_CACHE,
+                 index: DeviceIndex | None = None):
+        self.strand = strand
+        self.settings = settings
+        self.device = device
+        self.cache = cache
+        self.index = index
+
+    def ensure_index(self, chunks=None) -> DeviceIndex:
+        if self.index is None:
+            s = self.settings
+            args = (s.probe_size, s.reverse, s.complement)
+
+            def build():
+                return DeviceIndex.build(self.strand.data, *args,
+                                         self.device)
+
+            self.index = build() if self.cache is None else \
+                self.cache.get_or_build(
+                    "table", self.strand.data, (*args, str(self.device)),
+                    build)
+        return self.index
+
+    def ranges(self, chunks) -> WindowRanges:
+        """Every chunk's probe lanes with their windows, read from the
+        tables by KM (one launch for all ``chunks``)."""
+        idx = self.ensure_index()
+        s = self.settings
+        specs = chunk_specs(chunks, s)
+        lane_lo, lane_hi, mask, totals, lane_off = table_ranges(
+            idx.pos_lo, idx.pos_hi, specs, idx.first_len, s.probe_size,
+            s.reverse, s.complement)
+        offs = {(cs, cl): (off, int(t)) for (cs, cl, _), off, t in
+                zip(specs, lane_off, totals.tolist())}
+        return WindowRanges(lane_lo=lane_lo, lane_hi=lane_hi,
+                            lane_mask=mask, specs=specs, offs=offs)
+
+    def run_chunks(self, chunks) -> list:
+        """Raw families (native-engine format, chunk-relative left
+        coordinates) for each chunk, in order."""
+        return chain_chunk_events(self.scan_chunks(chunks), self.settings)
+
+    def run_chunk(self, chunk) -> list:
+        """Raw families of one chunk (a journaled run's unit of work)."""
+        return self.run_chunks([chunk])[0]
+
+    def scan_chunks(self, chunks) -> list:
+        """The device phase, as :meth:`FusedEngine.scan_chunks`."""
+        ranges = self.ranges(chunks)
+        return scan_lanes(self.settings, ranges, self.index.sa, chunks,
+                          fused_bases)
 
 
 class DeviceWindowEngine:
@@ -186,6 +259,11 @@ class DeviceWindowEngine:
         coordinates) for each chunk, in order."""
         return chain_chunk_events(self.scan_chunks(chunks), self.settings,
                                   self.m_offset)
+
+    def run_chunk(self, chunk) -> list:
+        """Raw families of one chunk (a journaled run's unit of work: its
+        stage 1 packs and joins this chunk's probes alone)."""
+        return self.run_chunks([chunk])[0]
 
     def scan_chunks(self, chunks) -> list:
         """The device phase, as :meth:`FusedEngine.scan_chunks`."""

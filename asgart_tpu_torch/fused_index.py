@@ -65,6 +65,20 @@ MJ_BYTES_PER_LANE = 46
 MJ_KEY_BYTES_PER_LANE = 9  # int64 key + bool mask
 
 
+# The table engine (table_index.py). Device bytes per text row at the
+# build's peak: a full tie round's (its int64 keys and their stable sort,
+# with int64 row indices and the sort's scratch, beside the order, rank,
+# tied flags and tables), whatever the key width, above the first sort's
+# (48.76 B per row with one key word, 56.63 with two). Measured with
+# torch.cuda.max_memory_allocated in chip_smoke.py's table paths on an
+# NVIDIA H100 80GB HBM3 (700 W power limit), -RC: 70.51 B per row on a
+# 4 Mbp repeat-dense genome, whose build runs full rounds; plus 10%
+# (PERF.md §6). A genome whose first tied count stays under
+# tied_cap runs no full round, but which ones do is known only after the
+# first sort, so every build is charged for one.
+TABLE_PEAK_BYTES_PER_ROW = 78
+
+
 def sort_keys(keys: list):
     """Stable sort of the fused rows by their key words (most significant
     first), ties kept in row order as ``jax.lax.sort(is_stable=True)``
@@ -181,6 +195,23 @@ def fits(n1: int, W: int, k: int, doubled: bool, device: torch.device,
     code bytes resident across a sharded run's windows."""
     return probe_span(n1, doubled) < (1 << 31) and window_fits_bytes(
         n1, W, k, free_bytes(device), resident)
+
+
+def table_fits_bytes(n1: int, k: int, doubled: bool, free: float,
+                     resident: int = 0) -> bool:
+    """Whether a table build for an ``n1``-byte strand fits ``free`` bytes:
+    int32 position addressing (n < 2^31, as device_index.py:1177 requires)
+    and n times ``TABLE_PEAK_BYTES_PER_ROW``, plus
+    ``resident`` bytes held beside it (``device_index_fits``, :127)."""
+    n = probe_span(n1, doubled)
+    return n < (1 << 31) and 2 <= k <= MAX_K and \
+        n * TABLE_PEAK_BYTES_PER_ROW + resident <= free
+
+
+def table_fits(n1: int, k: int, doubled: bool, device: torch.device,
+               resident: int = 0) -> bool:
+    """:func:`table_fits_bytes` against :func:`free_bytes`."""
+    return table_fits_bytes(n1, k, doubled, free_bytes(device), resident)
 
 
 @dataclass

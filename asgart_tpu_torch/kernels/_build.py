@@ -36,13 +36,14 @@ _I32 = ctypes.c_int
 # entry point -> argument types (all return int: a cudaError_t)
 SIGNATURES = {
     # codes, n1, lane_off [n_chunks + 1], x0cl [n_chunks, 2], n_chunks, W,
-    # ws, total, k, reverse, complement, key, key_lo (None: one word),
-    # lane_mask, stream
+    # ws, total, k, reverse, complement, doubled, key, key_lo (None: one
+    # word), lane_mask, stream
     "asgart_pack_keys": [_P, _I64, _P, _P, _I32, _I64, _I64, _I64, _I32,
-                         _I32, _I32, _P, _P, _P, _P],
-    # skey, skey_lo (None: one word), sa, M, W, run_lo, run_hi, tied,
-    # stream
-    "asgart_group_bounds": [_P, _P, _P, _I64, _I64, _P, _P, _P, _P],
+                         _I32, _I32, _I32, _P, _P, _P, _P],
+    # skey, skey_lo (None: one word), sa, M, W, n_shift, run_end, run_lo,
+    # run_hi, tied, stream
+    "asgart_group_bounds": [_P, _P, _P, _I64, _I64, _I32, _I32, _P, _P, _P,
+                            _P],
     # ps, prims, rank, n, W, h, key, bad, stream
     "asgart_tie_keys": [_P, _P, _P, _I64, _I64, _I64, _P, _P, _P],
     # skey, order, slots, ps, n, sa, rank, p_sorted, rs, still, stream
@@ -67,6 +68,16 @@ SIGNATURES = {
     "asgart_mj_ranges": [_P, _I64, _P, _P, _I64, _P, _I32, _P, _P, _P, _P],
     # packed, n4, n1, exc_pos, exc_code, n_exc, codes, stream
     "asgart_unpack_codes": [_P, _I64, _I64, _P, _P, _I64, _P, _P],
+    # sa, run_lo, run_hi, n, pos_lo, pos_hi, rank, stream
+    "asgart_invert_tables": [_P, _P, _P, _I64, _P, _P, _P, _P],
+    # pos_lo, pos_hi, n, lane_off [n_chunks + 1], x0cl [n_chunks, 2],
+    # n_chunks, k, total, lane_lo, lane_hi, lane_mask, totals, stream
+    "asgart_table_ranges": [_P, _P, _I64, _P, _P, _I32, _I32, _I64, _P, _P,
+                            _P, _P, _P],
+    # sa, rank, n, h, direct_bound, key, stream
+    "asgart_full_round_keys": [_P, _P, _I64, _I64, _I64, _P, _P],
+    # skey, order, sa, n, direct_bound, new_sa, rank, tied, stream
+    "asgart_full_round_refine": [_P, _P, _P, _I64, _I64, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -43,7 +43,8 @@ def chunk_tables(specs, n1: int, k: int, reverse: bool, complement: bool):
 
 
 def pack_keys(codes: torch.Tensor, specs, k: int, reverse: bool,
-              complement: bool, W: int, total: int, ws: int = 0):
+              complement: bool, W: int, total: int, ws: int = 0,
+              doubled: bool = False):
     """Keys of the W direct text rows then ``total`` probe-lane rows
     (``specs`` = ((chunk_start, chunk_len, n_lanes), ...), lanes
     back-to-back, padded to ``total``) and the probe lane mask.
@@ -53,16 +54,25 @@ def pack_keys(codes: torch.Tensor, specs, k: int, reverse: bool,
     is the strand's '$'). Probe rows read the whole genome either way.
     The merge-join window engine packs the two sides apart: W = 0 gives
     the probe rows alone (probe-only mode), total = 0 and no specs the
-    window's direct rows alone.
+    window's direct rows alone. ``doubled`` (the table engine's build of
+    an R/C run: W = 2 n1 - 1, no probe rows) makes the direct text the
+    doubled text, the genome and its '$' then the appended half (the
+    genome complemented, then reversed), whose rows carry the flag.
 
     Returns (keys, lane_mask bool [total]): ``keys`` is a list of the
     :func:`key_words` words, [key int64 [W + total]] or [w1 int64,
     w0 int32], most significant first (a list, so that the sort can drop
     each word once it is dead)."""
     n1 = codes.numel()
-    if not (0 <= ws and 0 <= W and ws + W <= n1) or not 2 <= k <= MAX_K:
-        raise ValueError(f"pack_keys: bad ws={ws} / W={W} / k={k} for "
-                         f"n1={n1}")
+    if doubled:
+        if not (reverse or complement) or ws or specs or total \
+                or W != 2 * n1 - 1:
+            raise ValueError("pack_keys: the doubled text takes W = 2 n1 - "
+                             "1 rows of an R/C run and nothing else")
+    elif not (0 <= ws and 0 <= W and ws + W <= n1):
+        raise ValueError(f"pack_keys: bad ws={ws} / W={W} for n1={n1}")
+    if not 2 <= k <= MAX_K:
+        raise ValueError(f"pack_keys: bad k={k}")
     if codes.dtype != torch.uint8 or not codes.is_contiguous():
         raise ValueError("pack_keys: codes must be contiguous uint8")
     lane_off, x0s, cls = chunk_tables(specs, n1, k, reverse, complement)
@@ -70,7 +80,7 @@ def pack_keys(codes: torch.Tensor, specs, k: int, reverse: bool,
         raise ValueError("pack_keys: total is below the chunks' lanes")
     if not _build.on_cuda(codes):
         return pack_keys_plain(codes, lane_off, x0s, cls, k, reverse,
-                               complement, W, total, ws)
+                               complement, W, total, ws, doubled)
     dev = codes.device
     keys = [torch.empty(W + total, dtype=torch.int64, device=dev)]
     if key_words(k) == 2:
@@ -84,7 +94,7 @@ def pack_keys(codes: torch.Tensor, specs, k: int, reverse: bool,
     _build.check(lib.asgart_pack_keys(
         codes.data_ptr(), n1, off_t.data_ptr(), x0cl.data_ptr(),
         len(specs), W, ws, total, k, int(reverse), int(complement),
-        keys[0].data_ptr(), keys[1].data_ptr() if len(keys) == 2 else None,
+        int(doubled), keys[0].data_ptr(), keys[1].data_ptr() if len(keys) == 2 else None,
         lane_mask.data_ptr(), _build.stream_of(codes)), "pack_keys")
     return keys, lane_mask
 
@@ -93,7 +103,7 @@ pack_keys.launches = 0
 
 
 def pack_keys_plain(codes, lane_off, x0s, cls, k, reverse, complement, W,
-                    total, ws=0):
+                    total, ws=0, doubled=False):
     """Plain PyTorch version of the KA kernel (same arguments after
     :func:`chunk_tables`). It widens only the codes it reads (the window,
     and each probe symbol through the transform's index map), so it runs
@@ -117,16 +127,27 @@ def pack_keys_plain(codes, lane_off, x0s, cls, k, reverse, complement, W,
                 lo = (lo << 3) | s
         return hi, lo, first
 
-    padded = torch.cat([codes[ws:ws + max(W - 1, 0)].to(torch.int64),
-                        torch.zeros(k + 1, dtype=torch.int64, device=dev)])
+    comp = torch.as_tensor(COMP_CODE, device=dev).to(torch.int64)
+    if doubled:  # the genome and its '$', then T(genome)
+        half = codes[:n1 - 1].to(torch.int64)
+        if complement:
+            half = comp[half]
+        if reverse:
+            half = half.flip(0)
+        text = [codes.to(torch.int64), half]
+    else:
+        text = [codes[ws:ws + max(W - 1, 0)].to(torch.int64)]
+    padded = torch.cat(text + [torch.zeros(k + 1, dtype=torch.int64,
+                                           device=dev)])
     hi_d, lo, _ = fold(lambda t: padded[t:t + W])
     lo_d = lo << 1  # flag 0
+    if doubled:
+        lo_d[n1:] |= 1
 
     n_live = lane_off[-1]
     # the probe source: the transformed text codes[:n1 - 1], complemented
     # then reversed, for R/C runs; the direct text otherwise
     n_src = n1 - 1 if (reverse or complement) else n1
-    comp = torch.as_tensor(COMP_CODE, device=dev).to(torch.int64)
     counts = torch.tensor([lane_off[i + 1] - lane_off[i]
                            for i in range(len(x0s))], dtype=torch.int64,
                           device=dev)

@@ -1,0 +1,143 @@
+"""KJ ``invert_tables`` and KM ``table_ranges``: the table engine's
+position tables, and each probe lane's read of them.
+
+Kernels: ``csrc/tables.cu`` (see its header for what they replace in the
+JAX package and how they are bounded). ``invert_tables_plain`` and
+``table_ranges_plain`` are the same functions in plain PyTorch.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..host_helpers import _probe_x0
+from . import _build
+
+
+def invert_tables(sa: torch.Tensor, run_lo: torch.Tensor,
+                  run_hi: torch.Tensor):
+    """Scatter the slot-indexed run bounds of the sorted text to its
+    positions: ``pos_lo[sa] = run_lo`` (the N-probe flag in the sign bit,
+    as KB sets it), ``pos_hi[sa] = run_hi`` and ``rank[sa] = run_lo &
+    0x7FFFFFFF``; ``sa`` (int32 [n]) must be a permutation of [0, n).
+
+    Returns (pos_lo, pos_hi, rank), int32 [n] each."""
+    n = sa.numel()
+    for t in (sa, run_lo, run_hi):
+        if t.dtype != torch.int32 or not t.is_contiguous() \
+                or t.numel() != n:
+            raise ValueError("invert_tables: sa, run_lo and run_hi must be "
+                             "contiguous int32 of one length")
+    if not _build.on_cuda(sa, run_lo, run_hi):
+        return invert_tables_plain(sa, run_lo, run_hi)
+    pos_lo, pos_hi, rank = (torch.empty(n, dtype=torch.int32,
+                                        device=sa.device) for _ in range(3))
+    lib = _build.lib()
+    invert_tables.launches += 1
+    _build.check(lib.asgart_invert_tables(
+        sa.data_ptr(), run_lo.data_ptr(), run_hi.data_ptr(), n,
+        pos_lo.data_ptr(), pos_hi.data_ptr(), rank.data_ptr(),
+        _build.stream_of(sa)), "invert_tables")
+    return pos_lo, pos_hi, rank
+
+
+invert_tables.launches = 0
+
+
+def invert_tables_plain(sa, run_lo, run_hi):
+    """Plain PyTorch version of the KJ kernel."""
+    n = sa.numel()
+    p = sa.long()
+    outs = [torch.empty(n, dtype=torch.int32, device=sa.device)
+            for _ in range(3)]
+    for out, v in zip(outs, (run_lo, run_hi, run_lo & 0x7FFFFFFF)):
+        out[p] = v
+    return tuple(outs)
+
+
+def table_x0s(specs, n1: int, k: int, reverse: bool, complement: bool):
+    """(lane_off [n_chunks + 1], x0 [n_chunks], cl [n_chunks]) as Python
+    ints: each chunk's first lane, and the table position of its probe
+    j = 0 (``_probe_x0``: in the appended half for R/C runs)."""
+    lane_off = [0]
+    x0s, cls = [], []
+    for (cs, cl, nc) in specs:
+        lane_off.append(lane_off[-1] + nc)
+        x0s.append(_probe_x0(cs, cl, n1, k, reverse, complement))
+        cls.append(cl)
+    return lane_off, x0s, cls
+
+
+def table_ranges(pos_lo: torch.Tensor, pos_hi: torch.Tensor, specs,
+                 first_len: int, k: int, reverse: bool, complement: bool):
+    """Every chunk's probe lanes read from the position tables: ``specs``
+    = ((chunk_start, chunk_len, n_lanes), ...), lanes back-to-back; lane j
+    of a chunk reads position ``_probe_x0 + j * (k // 2)`` of the tables of
+    a strand of ``first_len`` bytes.
+
+    Returns (lane_lo int32 [total], lane_hi int32 [total], lane_mask bool
+    [total], totals int64 [n_chunks], lane_off): lanes whose probe starts
+    with N (pos_lo's sign bit) or lies past the chunk's bound are masked
+    out with (0, 0); totals are the exact sums of (lane_hi - lane_lo) over
+    each chunk's live lanes."""
+    n = pos_lo.numel()
+    for t in (pos_lo, pos_hi):
+        if t.dtype != torch.int32 or not t.is_contiguous() \
+                or t.numel() != n:
+            raise ValueError("table_ranges: pos_lo and pos_hi must be "
+                             "contiguous int32 of one length")
+    if not 2 <= k:
+        raise ValueError(f"table_ranges: bad k={k}")
+    lane_off, x0s, cls = table_x0s(specs, first_len, k, reverse, complement)
+    if not _build.on_cuda(pos_lo, pos_hi):
+        return (*table_ranges_plain(pos_lo, pos_hi, lane_off, x0s, cls, k),
+                lane_off)
+    dev = pos_lo.device
+    total = lane_off[-1]
+    n_chunks = len(specs)
+    lane_lo = torch.empty(total, dtype=torch.int32, device=dev)
+    lane_hi = torch.empty(total, dtype=torch.int32, device=dev)
+    lane_mask = torch.empty(total, dtype=torch.bool, device=dev)
+    totals = torch.empty(max(n_chunks, 1), dtype=torch.int64, device=dev)
+    off_t = torch.tensor(lane_off, dtype=torch.int64, device=dev)
+    x0cl = torch.tensor([v for pair in zip(x0s, cls) for v in pair] or [0],
+                        dtype=torch.int64, device=dev)
+    lib = _build.lib()
+    table_ranges.launches += 1
+    _build.check(lib.asgart_table_ranges(
+        pos_lo.data_ptr(), pos_hi.data_ptr(), n, off_t.data_ptr(),
+        x0cl.data_ptr(), n_chunks, k, total, lane_lo.data_ptr(),
+        lane_hi.data_ptr(), lane_mask.data_ptr(), totals.data_ptr(),
+        _build.stream_of(pos_lo)), "table_ranges")
+    return lane_lo, lane_hi, lane_mask, totals[:n_chunks], lane_off
+
+
+table_ranges.launches = 0
+
+
+def table_ranges_plain(pos_lo, pos_hi, lane_off, x0s, cls, k):
+    """Plain PyTorch version of the KM kernel (same arguments after
+    :func:`table_x0s`): gathers at the probe positions, then the masks and
+    the per-chunk sums."""
+    dev = pos_lo.device
+    n = pos_lo.numel()
+    step = k // 2
+    i64 = torch.int64
+    counts = torch.tensor([lane_off[i + 1] - lane_off[i]
+                           for i in range(len(x0s))], dtype=i64, device=dev)
+    chunk = torch.repeat_interleave(torch.arange(len(x0s), device=dev),
+                                    counts)
+    j = torch.arange(lane_off[-1], dtype=i64, device=dev) - \
+        torch.tensor(lane_off[:-1] or [0], dtype=i64, device=dev)[chunk]
+    x = torch.tensor(x0s or [0], dtype=i64, device=dev)[chunk] + j * step
+    cl = torch.tensor(cls or [0], dtype=i64, device=dev)[chunk]
+    inside = (j * step < cl - k - step) & (x < n)
+    xc = torch.where(inside, x, 0)
+    raw = pos_lo[xc]
+    mask = inside & (raw >= 0)
+    lane_lo = torch.where(mask, raw & 0x7FFFFFFF, 0)
+    lane_hi = torch.where(mask, pos_hi[xc], 0)
+    csum = torch.cat([torch.zeros(1, dtype=i64, device=dev),
+                      torch.cumsum((lane_hi - lane_lo).to(i64), 0)])
+    off = torch.tensor(lane_off, dtype=i64, device=dev)
+    return lane_lo, lane_hi, mask, csum[off[1:]] - csum[off[:-1]]

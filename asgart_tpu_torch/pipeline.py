@@ -9,26 +9,44 @@ through ``SearchEngine``, and ``_finalize_result``) are copies of the JAX
 package's, without its ``engine="tpu"`` branches;
 tests/test_torch_host_copies.py pins them against their originals.
 
-Device routes, in the JAX package's order (pipeline.py:567-640, :786-842),
-chosen by free device memory alone: a window takes the fused build if it
-fits, else the merge-join window engine (k <= 20) if it fits; the whole
-genome takes the fused build, else the merge-join engine over one window
-(0, n1 - 1), else the auto-shard planner's windows. Past int32 probe
-addressing (a probed text of ``BIG_WINDOW_SPAN`` = 2^31 bases or more:
--R/-C runs of genomes over ~1.07 Gbp) the fused build and the one-window
-route drop out: every window takes the merge-join engine, whose index
-keeps window positions (the JAX ``BigWindowEngine``'s route, k <= 20, W <
-2^30, chunks under 2^30 bases; pipeline.py:630-636), and the whole genome
-the planner's windows, sized by the same fit (:796-810). A sharded run
-picks one route for all its windows before any window runs. With
-``engine="cuda"`` every input the port does not cover yet raises
-``NotImplementedError`` naming its route; no failure falls back to another
-engine.
+Device routes, in the JAX package's order (pipeline.py:567-642, :761-848),
+chosen by free device memory alone:
+
+- a trim window: the fused build if it fits, else the merge-join window
+  engine (k <= 20) if it fits;
+- the whole genome: the fused build, else the table engine
+  (table_index.py, :642's ``DeviceEngine``), else the merge-join engine
+  over one window (0, n1 - 1; k <= 20), else (k <= 20) the auto-shard
+  planner's windows;
+- with ``checkpoint`` (a journal of finished chunks, :721-746 and
+  :888-900, written and read alike by both engines and both packages) the
+  fused build, which needs the chunk set at build time, is not used
+  (:763): the whole genome takes the table engine, else the one-window
+  merge join; a trim window the merge-join engine (k <= 20); no planner
+  runs. Chunks then run one at a time, in order.
+
+Past int32 probe addressing (a probed text of ``BIG_WINDOW_SPAN`` = 2^31
+bases or more: -R/-C runs of genomes over ~1.07 Gbp) the fused build, the
+table and the one-window route drop out: every window takes the
+merge-join engine, whose index keeps window positions (the JAX
+``BigWindowEngine``'s route, k <= 20, W < 2^30, chunks under 2^30 bases;
+pipeline.py:630-636), and the whole genome the planner's windows, sized by
+the same fit (:796-810). A sharded run picks one route for all its
+windows before any window runs. With ``engine="cuda"`` every input the
+port does not cover raises ``NotImplementedError`` naming its route; no
+failure falls back to another engine. Where the JAX package's
+``engine="tpu"`` quietly switches to its host engine, the port raises:
+k > 30 (:137-145), a k = 21..30 trim window beyond the fused build
+(:768-774, journaled ones included), a genome beyond the table that no S
+<= 256 holds (or, at k = 21..30, beyond the fused build and the table;
+:843-848), ``--checkpoint`` beyond the table and the one-window merge join
+(:786), and no CUDA device (:869-877).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 import os
 import time
@@ -41,11 +59,12 @@ import torch
 from . import native, postprocess
 from .codes import upload_codes
 from .device import cuda_device
-from .device_engine import (DeviceWindowEngine, FusedEngine,
+from .device_engine import (DeviceWindowEngine, FusedEngine, TableEngine,
                             chain_chunk_events)
 from .fasta import Strand, prepare_data
 from .fused_index import (INDEX_CACHE, MAX_K, MJ_MAX_K, fits, free_bytes,
                           mj_fits, mj_window_fits_bytes, probe_span,
+                          table_fits,
                           window_fits_bytes)
 from .index import CODE, MAX_PROBE_SIZE, ByteIndex, GenomeIndex, PositionIndex
 from .structs import ProtoSD, RunResult, RunSettings, SD, StrandResult
@@ -314,35 +333,46 @@ def _too_large(n1: int, settings: RunSettings, what: str):
             "on the host engine in the asgart_tpu package (its big-window "
             f"engine holds probe sizes up to {MJ_MAX_K}); use "
             "engine='host'")
+    if k > MJ_MAX_K:
+        return NotImplementedError(
+            f"{what} beyond one device's fused build and table at "
+            f"probe_size {k} runs on the host engine in the asgart_tpu "
+            "package, with whole-genome semantics (its merge-join engines "
+            f"and auto-shard planner hold probe sizes up to {MJ_MAX_K}); "
+            "use engine='host'")
     return NotImplementedError(
         f"{what} fits no device route of the cuda engine on this device "
-        "(neither the fused build nor the merge-join window engine holds "
-        "it); use more --shards or engine='host'")
+        "(no fused build, table or merge-join window engine holds it); "
+        "use more --shards or engine='host'")
 
 
 def _window_route(n1: int, W: int, settings: RunSettings, device,
                   resident: int, keys_held: bool = False,
-                  chunk_len: int = 0):
+                  chunk_len: int = 0, journal: bool = False):
     """The engine class of a W-row trim window: :class:`FusedEngine` if
-    its build fits (``resident`` bytes held beside it) and the probed text
-    is within int32 addressing, else :class:`DeviceWindowEngine` if the
-    merge-join engine fits (``keys_held``: a sharded run's probe keys stay
-    cached beside each later window's build). Past int32 addressing the
-    merge-join engine takes only chunks under 2^30 bases (``chunk_len``:
-    the longest), as the JAX ``BigWindowEngine`` does. Raises when no
-    route holds the window."""
+    its build fits (``resident`` bytes held beside it), the probed text is
+    within int32 addressing and no ``journal`` is kept, else
+    :class:`DeviceWindowEngine` if the merge-join engine fits
+    (``keys_held``: a sharded run's probe keys stay cached beside each
+    later window's build). Past int32 addressing the merge-join engine
+    takes only chunks under 2^30 bases (``chunk_len``: the longest), as
+    the JAX ``BigWindowEngine`` does. Raises when no route holds the
+    window."""
     k = settings.probe_size
     big = _big(n1, settings)
-    if not big and fits(n1, W, k, _doubled(settings), device, resident):
+    if not big and not journal and fits(n1, W, k, _doubled(settings),
+                                        device, resident):
         return FusedEngine
     if k > MJ_MAX_K:
         if big:
             raise _too_large(n1, settings, f"a {W}-row trim window")
+        beyond = "with --checkpoint (no fused build keeps a journal)" \
+            if journal else "beyond one device's fused build"
         raise NotImplementedError(
-            f"a {W}-row trim window at probe_size {k} beyond one device's "
-            "fused build runs on the host engine in the asgart_tpu package "
-            f"(its merge-join window engines hold probe sizes up to "
-            f"{MJ_MAX_K}); use engine='host'")
+            f"a {W}-row trim window at probe_size {k} {beyond} runs on the "
+            "host engine in the asgart_tpu package (its merge-join window "
+            f"engines hold probe sizes up to {MJ_MAX_K}); use "
+            "engine='host'")
     if big and chunk_len >= (1 << 30):
         raise NotImplementedError(
             f"a chunk of {chunk_len} bases (an N-free run of 2^30 or more) "
@@ -370,7 +400,11 @@ def plan_shards(n1: int, k: int, doubled: bool, free: float
     2..256 whose windows fit ``free`` device bytes next to the n1
     resident code bytes, in a fused build or in the merge-join engine
     (its probe keys held across the windows; past int32 probe addressing
-    only the merge-join engine, :796-810), or None (no S fits)."""
+    only the merge-join engine, :796-810), or None (no S fits). None at
+    k > 20: there the JAX package keeps whole-genome semantics, since its
+    planner runs only where its merge-join engines do (:768-778)."""
+    if k > MJ_MAX_K:
+        return None
     big = probe_span(n1, doubled) >= BIG_WINDOW_SPAN
     total_len = n1 - 1
     for S in range(2, MAX_SHARDS + 1):
@@ -392,6 +426,98 @@ def _protosds(raws, chunks, settings) -> list:
         families.extend(raw_families_to_protosds(raw, settings, start,
                                                  length))
     return families
+
+
+class Journal:
+    """The ``--checkpoint`` journal, as the JAX package keeps it
+    (asgart_tpu/pipeline.py:721-746, 888-900), so a journal either
+    package wrote resumes in the other: a header line (``files``,
+    ``settings.to_json_obj()``, ``reverse``, ``complement``), then one
+    line per finished chunk, ``{"chunk": [start, length], "families":
+    [[ProtoSD fields, ...], ...]}``, flushed as it is written. A journal
+    whose header differs is started afresh."""
+
+    def __init__(self, path: str, files: list, settings: RunSettings):
+        header = {"files": files, "settings": settings.to_json_obj(),
+                  "reverse": settings.reverse,
+                  "complement": settings.complement}
+        self.done: dict = {}
+        if os.path.exists(path):
+            with open(path) as fh:
+                lines = fh.read().splitlines()
+            if lines and json.loads(lines[0]) == header:
+                for line in lines[1:]:
+                    rec = json.loads(line)
+                    self.done[tuple(rec["chunk"])] = rec["families"]
+                log.info("checkpoint: %d chunks already done",
+                         len(self.done))
+            else:
+                log.warning("checkpoint mismatch; starting fresh")
+        self.path = path
+        self.header = header
+
+    def todo(self, chunks) -> list:
+        """The chunks without a record."""
+        return [c for c in chunks if tuple(c) not in self.done]
+
+    def run(self, chunks, run_chunk) -> list:
+        """Every chunk's families (ProtoSDs) in chunk order: restored from
+        its record, or ``run_chunk(chunk)`` and recorded; one chunk at a
+        time."""
+        families = []
+        with open(self.path, "a" if self.done else "w") as fh:
+            if not self.done:
+                fh.write(json.dumps(self.header) + "\n")
+                fh.flush()
+            for chunk in chunks:
+                rec = self.done.get(tuple(chunk))
+                if rec is not None:
+                    families.extend([ProtoSD(**sd) for sd in fam]
+                                    for fam in rec)
+                    continue
+                fams = run_chunk(chunk)
+                fh.write(json.dumps({
+                    "chunk": list(chunk),
+                    "families": [[vars(sd) for sd in fam]
+                                 for fam in fams]}) + "\n")
+                fh.flush()
+                families.extend(fams)
+        return families
+
+
+def _whole_route(n1: int, settings: RunSettings, device, journal: bool):
+    """The whole genome's engine: (engine class, trim) with trim (0, n1 -
+    1) for the one-window merge join, or the planner's S (an int) for an
+    auto-sharded run; raises when no route holds the genome (module
+    docstring)."""
+    k = settings.probe_size
+    doubled = _doubled(settings)
+    big = _big(n1, settings)
+    if not big and not journal and fits(n1, n1, k, doubled, device):
+        return FusedEngine, None
+    if not big and table_fits(n1, k, doubled, device):
+        if not journal:
+            log.info("whole-genome fused build exceeds the device; using "
+                     "the table engine")
+        return TableEngine, None
+    if not big and mj_fits(n1, n1, k, device, resident=n1):
+        # the whole genome as the one window (0, n1 - 1): its text is
+        # the genome and its '$', so the output is the whole genome's
+        # (pipeline.py:591-604); the settings stay untrimmed
+        log.info("whole-genome table exceeds the device; using the "
+                 "one-window merge-join device engine")
+        return DeviceWindowEngine, (0, n1 - 1)
+    if journal:
+        raise NotImplementedError(
+            "--checkpoint with a genome beyond one device's table and "
+            "one-window merge join runs on the host engine in the "
+            "asgart_tpu package (a journaled run is not auto-sharded); "
+            "use engine='host'")
+    S = plan_shards(n1, k, doubled, free_bytes(device))
+    if S is None:
+        raise _too_large(n1, settings, "a genome, in any number of "
+                         f"windows up to {MAX_SHARDS},")
+    return None, S
 
 
 def _host_families(se: SearchEngine, to_process, settings) -> list:
@@ -418,15 +544,18 @@ def search_duplications(
 ) -> RunResult:
     """Find the segmental duplications of ``strands_files``.
 
-    ``engine="cuda"`` runs the fused device engine on ``device`` (default
+    ``engine="cuda"`` runs the device engines on ``device`` (default
     :func:`~asgart_tpu_torch.device.cuda_device`; pass
     ``torch.device("cpu")`` for the plain PyTorch versions of the
     kernels); ``engine="host"`` runs the host ``SearchEngine``
     (``index_cache`` applies to it only). ``settings.trim`` indexes one
     window; ``shards`` > 1 indexes that many windows in turn. A genome
-    whose whole fused build does not fit the device runs as one
-    merge-join window, or sharded automatically (module docstring).
-    ``profile``: dict to fill with phase timings."""
+    whose whole fused build does not fit the device runs on the table
+    engine, as one merge-join window, or sharded automatically (module
+    docstring). ``checkpoint``: the path of a journal of finished chunks,
+    which a rerun with the same files and settings restores instead of
+    scanning them again (on either engine). ``profile``: dict to fill
+    with phase timings."""
     if engine not in ENGINES:
         raise ValueError(f"engine must be one of {ENGINES}")
     if not (1 <= settings.probe_size <= 10000):
@@ -448,59 +577,58 @@ def search_duplications(
                         "only and is ignored with --shards")
         return _search_duplications_sharded(strands_files, settings, shards,
                                             engine, device, profile)
-    if checkpoint is not None:
-        raise _unsupported("--checkpoint", "A12")
     prof = profile if profile is not None else {}
     total = time.time()
     t0 = time.time()
     trim, to_process, strand = prepare_data(
         strands_files, settings.skip_masked, settings.trim)
     prof["prepare_s"] = round(time.time() - t0, 3)
+    journal = None if checkpoint is None else \
+        Journal(checkpoint, strands_files, settings)
 
     t0 = time.time()
     if engine == "cuda":
         n1 = int(len(strand.data))
-        k = settings.probe_size
-        doubled = _doubled(settings)
-        big = _big(n1, settings)
         if trim is not None:
             route = _window_route(n1, trim[1] - trim[0] + 1, settings,
                                   device, resident=n1,
-                                  chunk_len=_longest(to_process))
-            eng = route(strand, settings, device, trim=trim)
-        elif not big and fits(n1, n1, k, doubled, device):
-            eng = FusedEngine(strand, settings, device)
-        elif not big and mj_fits(n1, n1, k, device, resident=n1):
-            # the whole genome as the one window (0, n1 - 1): its text is
-            # the genome and its '$', so the output is the whole genome's
-            # (pipeline.py:591-604); the settings stay untrimmed
-            log.info("whole-genome fused build exceeds the device; using "
-                     "the one-window merge-join device engine")
-            eng = DeviceWindowEngine(strand, settings, device, (0, n1 - 1))
+                                  chunk_len=_longest(to_process),
+                                  journal=journal is not None)
         else:
-            S = plan_shards(n1, k, doubled, free_bytes(device))
-            if S is None:
-                raise _too_large(n1, settings, "a genome, in any number of "
-                                 f"windows up to {MAX_SHARDS},")
-            log.warning(
-                "genome too large for a one-HBM device index; "
-                "auto-sharding into %d trim windows — output is "
-                "byte-equal to the reference's --trim + merge "
-                "workflow (families never span windows); run with "
-                "engine=host for whole-genome trim-free semantics", S)
-            return _search_duplications_sharded(strands_files, settings, S,
-                                                "cuda", device, profile)
-        eng.ensure_index(to_process)
+            route, trim = _whole_route(n1, settings, device,
+                                       journal is not None)
+            if route is None:  # the planner's number of windows
+                log.warning(
+                    "genome too large for a one-HBM device index; "
+                    "auto-sharding into %d trim windows — output is "
+                    "byte-equal to the reference's --trim + merge "
+                    "workflow (families never span windows); run with "
+                    "engine=host for whole-genome trim-free semantics",
+                    trim)
+                return _search_duplications_sharded(
+                    strands_files, settings, trim, "cuda", device, profile)
+        eng = route(strand, settings, device, **(
+            {} if trim is None else {"trim": trim}))
+        if journal is None or journal.todo(to_process):
+            eng.ensure_index(to_process)
         prof["index_s"] = round(time.time() - t0, 3)
         t0 = time.time()
-        families = _protosds(eng.run_chunks(to_process), to_process,
-                             settings)
+        if journal is None:
+            families = _protosds(eng.run_chunks(to_process), to_process,
+                                 settings)
+        else:
+            families = journal.run(
+                to_process, lambda c: raw_families_to_protosds(
+                    eng.run_chunk(c), settings, c[0], c[1]))
     else:
         se = SearchEngine(strand, settings, trim, engine="host",
                           index_cache=index_cache)
         prof["index_s"] = round(time.time() - t0, 3)
         t0 = time.time()
-        families = _host_families(se, to_process, settings)
+        if journal is None:
+            families = _host_families(se, to_process, settings)
+        else:
+            families = journal.run(to_process, se.run_chunk)
     prof["scan_s"] = round(time.time() - t0, 3)
 
     t0 = time.time()

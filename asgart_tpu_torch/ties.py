@@ -1,19 +1,25 @@
-"""Tie resolution of the fused index: prefix doubling on the tied subset.
+"""Tie resolution of the device indexes: prefix doubling on the tied subset,
+after full-array rounds while a table build's tied set is large.
 
 Counterpart of ``_resolve_ties`` (asgart_tpu/device_index.py:807) with
 ``_extract_tied`` (:642), ``_slot_payload`` (:682) and ``_doubling_rounds``
 (:696). Each round is KE ``tie_keys``, a stable library sort of the round
 keys, KF ``tie_refine`` (kernels/ties.py), then a compaction of the
-entries still tied.
+entries still tied. A table build (table_index.py) passes ``tied_cap``:
+while more than that many rows are tied, a full round (``_full_round``,
+:769) runs first: KK ``full_round_keys``, the stable sort, KL
+``full_round_refine``, over every row, appended ones included, so that the
+order of the appended half's rows is the JAX package's too.
 
 Tied slots are direct rows whose k-mer (key) group has more than one
 direct entry. Manber-Myers rounds refine them: sort each tied group by
 the rank of the suffix h symbols further on, scatter the positions back
 into the group's (ascending) slots, give every new sub-run the slot of
 its start as rank, keep only entries still tied, and double h. The
-fused build's tied set never leaves the subset form (the JAX package's
-full-array rounds and its ``FusedTiedOverflow`` bail-out are not needed:
-subset rounds are exact at any tied count).
+fused and merge-join builds' tied sets never leave the subset form (the
+JAX fused build's ``FusedTiedOverflow`` bail-out is not needed: subset
+rounds are exact at any tied count); only the table build, whose appended
+rows the full rounds reorder, runs them.
 
 Reads of ``rank[p + h]`` stay inside the direct text: two distinct
 suffixes tied on their first h symbols contain no '$' there (it is
@@ -27,14 +33,48 @@ from __future__ import annotations
 
 import torch
 
-from .kernels import tie_keys, tie_refine
+from .kernels import (full_round_keys, full_round_refine, tie_keys,
+                      tie_refine)
+
+
+def full_rounds(sa: torch.Tensor, rank: torch.Tensor, tied_slot: torch.Tensor,
+                k: int, tied_cap: int, direct_bound: int):
+    """Full-array rounds over the n rows of a table build (``sa``, ``rank``
+    int32 [n], ``rank`` updated in place) while more than ``tied_cap`` rows
+    are tied, as the JAX ``_resolve_ties`` runs them. Returns (sa,
+    tied_slot, h): the new order, its tied rows and the next round's
+    h."""
+    n = sa.numel()
+    n_tied = int(tied_slot.sum())
+    h = k
+    while n_tied > tied_cap and h < 2 * n:
+        key = full_round_keys(sa, rank, min(h, n), direct_bound)
+        skey, order = torch.sort(key, stable=True)
+        del key
+        sa, tied_slot = full_round_refine(skey, order, sa, rank,
+                                          direct_bound)
+        del skey, order
+        h = min(2 * h, 2 * n)
+        n_tied = int(tied_slot.sum())
+    return sa, tied_slot, h
 
 
 def resolve_ties(sa: torch.Tensor, rank: torch.Tensor,
-                 tied_slot: torch.Tensor, M: int, k: int) -> torch.Tensor:
-    """Refine ``sa`` (int32 [M], updated in place and returned) until no
-    direct suffix is tied. ``rank`` (int32 [W], plain position layout,
-    updated in place) holds each direct position's group start slot."""
+                 tied_slot: torch.Tensor, M: int, k: int,
+                 tied_cap: int | None = None, direct_bound: int | None = None
+                 ) -> torch.Tensor:
+    """Refine ``sa`` (int32 [M], updated in place and returned unless full
+    rounds replace it) until no direct suffix is tied. ``rank`` (int32,
+    plain position layout, updated in place) holds each position's group
+    start slot: [W] for the fused and merge-join builds; [M] for a table
+    build, which passes ``tied_cap`` (full rounds first while more rows
+    are tied) and ``direct_bound`` (n1: the appended half's positions start
+    there; M for a text without one)."""
+    h = k
+    if tied_cap is not None:
+        sa, tied_slot, h = full_rounds(sa, rank, tied_slot, k, tied_cap,
+                                       direct_bound)
+        rank = rank[:direct_bound]  # tied suffixes read no appended rank
     slots = torch.nonzero(tied_slot).flatten()  # ascending
     if slots.numel() == 0:
         return sa
@@ -42,7 +82,6 @@ def resolve_ties(sa: torch.Tensor, rank: torch.Tensor,
     prims = rank[ps.long()]
     slots = slots.to(torch.int32)
     bad = torch.zeros(1, dtype=torch.int32, device=sa.device)
-    h = k
     while h < 2 * M:
         key = tie_keys(ps, prims, rank, min(h, M), bad)
         skey, order = torch.sort(key, stable=True)

@@ -4,6 +4,7 @@
                                        # the 3100 Mbp big-window genome
     python3 chip_smoke.py --mbp 4      # smaller 128 Mbp-stage genome
     python3 chip_smoke.py --big-mbp 0  # without the full-scale phase
+    python3 chip_smoke.py --mbp 4 --repeats-mbp 4 --big-mbp 0  # quick
 
 1. prints the card (nvidia-smi name and power limit) and the versions;
 2. builds the CUDA kernels from asgart_tpu_torch/csrc with nvcc;
@@ -53,7 +54,26 @@
       the path to have been launched (the merge-join trim paths' cache
       hits launch neither KA nor KH; their shards paths pack the probe
       keys once a run; the merge-join paths never launch KG);
-4. ``big_whole``: a ``--big-mbp`` genome (default 3100 Mbp, the size of a
+4. three ``--checkpoint`` paths on the table engine (:func:`run_table_path`):
+   ``table`` (the 128 Mbp genome, k = 20), ``table_k25`` (the same genome,
+   k = 25: two-word keys) and ``table_repeats`` (a ``--repeats-mbp``
+   genome, default 64 Mbp, of :func:`repeat_genome`: more than a quarter of
+   its direct 20-mers tied, so that at the default ``tied_cap`` full rounds
+   run first), all -RC. Each kernel against its plain version on the path's
+   arrays (KI; KA's doubled mode; the sort; KB with the N flag; KJ, and
+   three ``index_put_``; KK / KL on the first full round where one runs; KE
+   / KF on the first subset round; KM, and torch gathers with the masks; KD
+   on the largest chunk), the step-by-step index against
+   ``DeviceIndex.build`` and its peak per text row against
+   ``TABLE_PEAK_BYTES_PER_ROW``; the host engine with a journal; then
+   through ``search_duplications(engine="cuda", checkpoint=...)``: (a) the
+   cold run, the path's main run, whose launches are reported and must
+   cover every kernel of the path; (b) a rerun that restores every chunk and
+   launches nothing; (c) a rerun with the journal's last record removed,
+   which launches KM and KD once each; (d) on the 128 Mbp paths, a run
+   without a journal (the fused build); every JSON byte-equal to the host
+   engine's;
+5. ``big_whole``: a ``--big-mbp`` genome (default 3100 Mbp, the size of a
    whole human genome, GRCh38's ~3.1 Gbp; at 1100 Mbp and more the
    doubled text passes 2^31, at 2148 Mbp and more the strand too) of
    100 Mbp records made record by record from the seed, with one planted -RC
@@ -72,7 +92,7 @@
    (:func:`gapped_copy`): the strand is dense, so ``upload_codes`` counts
    exceptions part of the way and takes the ``CODE`` LUT; its host time
    against the LUT and pinned copy alone, and its codes against theirs;
-5. prints a {"kernels": [...]} line (each kernel once per path, with the
+6. prints a {"kernels": [...]} line (each kernel once per path, with the
    path's name and k), the card again, and last {"ok": true, ...}.
 
 Any failure raises before the last line; without CUDA it exits non-zero
@@ -99,6 +119,12 @@ WHOLE = ("unpack_codes", "pack_keys", "group_bounds", "invert_fused",
          "tie_keys", "tie_refine", "scan_core")
 WINDOW = WHOLE + ("offset_slots",)  # KG runs when the window starts > 0
 MJ = WHOLE + ("mj_ranges",)  # the merge-join window engine: no KG
+# the table engine (--checkpoint): its build, then KM and KD per chunk;
+# full rounds (KK, KL) where the first tied count passes tied_cap
+TABLE = ("unpack_codes", "pack_keys", "group_bounds", "invert_tables",
+         "tie_keys", "tie_refine", "table_ranges", "scan_core")
+FULL_ROUNDS = ("full_round_keys", "full_round_refine")
+REPEATS_MBP = 64.0  # the repeat-dense genome of the table_repeats path
 RECORD_BP = 100_000_000  # record length of the big-window genome
 PLANT_BP = 20_000  # its planted -RC pair
 N_RUN_BP = 30_000  # and its N runs (a chunk break: more than 5000)
@@ -199,11 +225,13 @@ def recorder(rows: list, path: str, k: int):
     return record
 
 
-def tie_checks(record, tag: str, sa, rank, tied, M: int, k: int, device):
-    """KE / KF on the first tie round (the largest tied set) against their
-    plain versions, then the whole tie resolution with KE/KF and with
-    their plain versions in the same rounds, in turns (plain, kernel,
-    kernel, plain). Returns the resolved ``sa``."""
+def tie_checks(record, tag: str, sa, rank, tied, M: int, k: int, device,
+               h: int | None = None):
+    """KE / KF on the first tie round (the largest tied set; ``h``: its
+    prefix length, k by default) against their plain versions, then the
+    whole tie resolution with KE/KF and with their plain versions in the
+    same rounds, in turns (plain, kernel, kernel, plain). Returns the
+    resolved ``sa``."""
     import torch
 
     from asgart_tpu_torch import ties as ties_mod
@@ -220,7 +248,7 @@ def tie_checks(record, tag: str, sa, rank, tied, M: int, k: int, device):
     ps = sa[slots]
     prims = rank[ps.long()]
     slots = slots.to(torch.int32)
-    h = min(k, M)
+    h = min(k if h is None else h, M)
     bad_k = torch.zeros(1, dtype=torch.int32, device=device)
     bad_p = torch.zeros(1, dtype=torch.int32, device=device)
     ke = lambda: tie_keys(ps, prims, rank, h, bad_k)  # noqa: E731
@@ -1025,6 +1053,364 @@ def run_mj_path(fa: str, n: int, device, path: str, settings,
     return rows, host
 
 
+def repeat_genome(n: int):
+    """A repeat-dense genome of n bases made from the seed: random
+    background; 40% of its bases in copies of 300 Alu-like elements of 300
+    bp (each copy 1.5% divergent, half of them reverse-complemented, laid
+    on a 300 bp grid); and one 1/20-genome segment copied twice, exactly,
+    once direct and once reverse-complemented. More than a quarter of its
+    direct 20-mers lie in tied groups."""
+    import numpy as np
+
+    rng = np.random.default_rng([SEED, 7])
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    comp = np.zeros(256, dtype=np.uint8)
+    for a, b in zip(b"ACGT", b"TGCA"):
+        comp[a] = b
+    g = acgt[rng.integers(0, 4, n, dtype=np.uint8)]
+    elements = acgt[rng.integers(0, 4, (300, 300), dtype=np.uint8)]
+    n_copies = int(0.4 * n / 300)
+    at = rng.choice(n // 300, n_copies, replace=False) * 300
+    copies = elements[rng.integers(0, 300, n_copies)]
+    mut = rng.random(copies.shape) < 0.015
+    copies[mut] = acgt[rng.integers(0, 4, int(mut.sum()), dtype=np.uint8)]
+    rc = rng.random(n_copies) < 0.5
+    copies[rc] = comp[copies[rc]][:, ::-1]
+    for i in range(0, n_copies, 1 << 16):  # bounded index arrays
+        g[at[i:i + (1 << 16), None] + np.arange(300)] = copies[i:i + (1 << 16)]
+    seg = n // 20
+    src = int(rng.integers(0, n - seg))
+    for rev in (False, True):
+        dst = int(rng.integers(0, n - seg))
+        copy = g[src:src + seg].copy()
+        g[dst:dst + seg] = comp[copy][::-1] if rev else copy
+    return g
+
+
+def table_ties(record, tag: str, sa, rank, tied, n: int, n1: int, k: int,
+               device):
+    """The table build's tie resolution at the default ``tied_cap``: when
+    the first tied count passes it, KK / KL on the first full round
+    against their plain versions (each side on its own copies of the rank)
+    and the full rounds with them; then KE / KF on the first subset round
+    (:func:`tie_checks`). Returns (resolved sa, first tied count, full
+    rounds run)."""
+    import torch
+
+    from asgart_tpu_torch import ties as ties_mod
+    from asgart_tpu_torch.kernels import full_round_keys, full_round_refine
+    from asgart_tpu_torch.kernels.ties import (full_round_keys_plain,
+                                               full_round_refine_plain)
+
+    cap = max(1024, n // 8)
+    first = int(tied.sum())
+    print(f"{tag} first tied count {first} of {n1} direct rows "
+          f"({100 * first / n1:.2f}%), tied_cap {cap} (n // 8): "
+          f"{'full rounds first' if first > cap else 'subset rounds only'}",
+          flush=True)
+    rounds, h = 0, k
+    if first > cap:
+        kk = lambda: full_round_keys(sa, rank, h, n1)  # noqa: E731
+        pk = lambda: full_round_keys_plain(sa, rank, h, n1)  # noqa: E731
+        key = kk()
+        err = max_abs_err((key,), (pk(),))
+        record("full_round_keys", "ties.cu",
+               "asgart_tpu/device_index.py:769", err, cuda_ms(kk),
+               cuda_ms(pk), f"n={n} rows, h={h}", 20 * n, 8 * n)
+        skey, order = torch.sort(key, stable=True)
+        del key
+        rank_k, rank_p = rank.clone(), rank.clone()
+        kl = lambda: full_round_refine(skey, order, sa, rank_k, n1)  # noqa: E731
+        pl = lambda: full_round_refine_plain(skey, order, sa,  # noqa: E731
+                                             rank_p, n1)
+        got, want = kl(), pl()
+        err = max_abs_err((*got, rank_k), (*want, rank_p))
+        record("full_round_refine", "ties.cu",
+               "asgart_tpu/device_index.py:769", err, cuda_ms(kl),
+               cuda_ms(pl), f"n={n} rows", 29 * n, 20 * n)
+        del skey, order, rank_k, rank_p, got, want
+        torch.cuda.empty_cache()
+        before = full_round_keys.launches
+        torch.cuda.synchronize()
+        t0 = time.time()
+        sa, tied, h = ties_mod.full_rounds(sa, rank, tied, k, cap, n1)
+        torch.cuda.synchronize()
+        rounds = full_round_keys.launches - before
+        print(f"{tag} {rounds} full rounds (KK, sort, KL) in "
+              f"{time.time() - t0:.4f} s (host clock + sync): "
+              f"{int(tied.sum())} rows still tied at h={h}", flush=True)
+    if tied.any():
+        sa = tie_checks(record, tag, sa, rank[:n1], tied, n, k, device, h)
+    return sa, first, rounds
+
+
+def table_kernel_checks(fa: str, path: str, settings, device
+                        ) -> tuple[list, int, int, int]:
+    """Each kernel of the table engine against its plain version at the
+    shapes of the path's genome: KI, KA's doubled mode, the sort, KB with
+    the N flag (and run ends without an appended half), KJ (and three
+    ``index_put_`` calls), the tie resolution (:func:`table_ties`), KM
+    (and torch gathers with the masks) and KD on the largest chunk; the
+    step-by-step index against ``DeviceIndex.build``'s, and the build's
+    peak per text row against ``TABLE_PEAK_BYTES_PER_ROW``. Returns
+    (kernel rows, text rows n, first tied count, full rounds)."""
+    import torch
+
+    from asgart_tpu_torch.device_engine import chunk_specs
+    from asgart_tpu_torch.fasta import prepare_data
+    from asgart_tpu_torch.fused_index import (TABLE_PEAK_BYTES_PER_ROW,
+                                              sort_keys)
+    from asgart_tpu_torch.kernels import (group_bounds, invert_tables,
+                                          pack_keys, table_ranges)
+    from asgart_tpu_torch.kernels.group_bounds import (group_bounds_plain,
+                                                       n_flag_shift)
+    from asgart_tpu_torch.kernels.pack_keys import pack_keys_plain
+    from asgart_tpu_torch.kernels.tables import (invert_tables_plain,
+                                                 table_ranges_plain,
+                                                 table_x0s)
+    from asgart_tpu_torch.table_index import DeviceIndex
+
+    s = settings
+    k = s.probe_size
+    rc = (s.reverse, s.complement)
+    doubled = s.reverse or s.complement
+    _, chunks, strand = prepare_data([fa], s.skip_masked, None)
+    specs = chunk_specs(chunks, s)
+    n1 = len(strand.data)
+    n = 2 * n1 - 1 if doubled else n1
+    rows = []
+    tag = f"{path} k={k}"
+    record = recorder(rows, path, k)
+
+    codes = ki_check(record, tag, strand.data, device)
+    ka = lambda: pack_keys(codes, (), k, *rc, n, 0,  # noqa: E731
+                           doubled=doubled)
+    kp = lambda: pack_keys_plain(codes, [0], [], [], k, *rc, n, 0,  # noqa: E731
+                                 0, doubled)
+    keys, _ = ka()
+    err = max_abs_err(keys, kp()[0])
+    words = len(keys)
+    kwb = 8 if words == 1 else 12  # key bytes per row
+    record("pack_keys", "pack_keys.cu",
+           "asgart_tpu/device_index.py:244 + :269" if words == 1 else
+           "asgart_tpu/device_index.py:244 + :283", err, cuda_ms(ka),
+           cuda_ms(kp), f"n={n} text rows, {words} key words",
+           n1 + n * kwb, n * (4 * k + 8))
+    del codes
+    torch.cuda.empty_cache()
+
+    ms = cuda_ms(lambda: sort_keys([w.clone() for w in keys]))
+    sort_bound, sort_by = bound(n * (2 * kwb + 4), 0)
+    skeys, sa = sort_keys(keys)
+    print(f"{tag} stable sort of {n} text rows by {words} key word(s) "
+          f"(fused_index.sort_keys, torch.sort): {ms:.3f} ms (CUDA events, "
+          f"incl. a copy of the keys), bound {sort_bound:.3f} ms "
+          f"({sort_by})", flush=True)
+
+    shift = n_flag_shift(k, words)
+    kb = lambda: group_bounds(skeys, sa, n1, flag_n_k=k,  # noqa: E731
+                              run_end=not doubled)
+    pb = lambda: group_bounds_plain(skeys, sa, n1, shift,  # noqa: E731
+                                    not doubled)
+    run_lo, run_hi, tied = kb()
+    err = max_abs_err((run_lo, run_hi, tied), pb())
+    record("group_bounds", "group_bounds.cu",
+           "asgart_tpu/device_index.py:352", err, cuda_ms(kb), cuda_ms(pb),
+           f"n={n}, {words} key words, N flag"
+           + ("" if doubled else ", run ends"), n * (kwb + 4 + 9), n * 24)
+    del skeys
+    torch.cuda.empty_cache()
+
+    kj = lambda: invert_tables(sa, run_lo, run_hi)  # noqa: E731
+    pj = lambda: invert_tables_plain(sa, run_lo, run_hi)  # noqa: E731
+    tables = kj()
+    err = max_abs_err(tables, pj())
+    sa64 = sa.long()
+    lib = [torch.empty(n, dtype=torch.int32, device=device)
+           for _ in range(3)]
+
+    def lj():  # three index_put_ calls (and the sign mask)
+        lib[0].index_put_((sa64,), run_lo)
+        lib[1].index_put_((sa64,), run_hi)
+        lib[2].index_put_((sa64,), run_lo & 0x7FFFFFFF)
+
+    lib_ms = cuda_ms(lj)
+    if any(not torch.equal(a, b) for a, b in zip(lib, tables)):
+        raise AssertionError(f"index_put_ differs from KJ on {tag}")
+    record("invert_tables", "tables.cu", "asgart_tpu/device_index.py:467",
+           err, cuda_ms(kj), cuda_ms(pj), f"n={n}", 24 * n, 3 * n,
+           library_ms=lib_ms)
+    del run_lo, run_hi, sa64, lib
+    pos_lo, pos_hi, rank = tables
+    del tables
+    torch.cuda.empty_cache()
+
+    sa, first, rounds = table_ties(record, tag, sa, rank, tied, n, n1, k,
+                                   device)
+    del rank, tied
+    torch.cuda.empty_cache()
+
+    km = lambda: table_ranges(pos_lo, pos_hi, specs, n1, k, *rc)  # noqa: E731
+    tabs = table_x0s(specs, n1, k, *rc)
+    pm = lambda: table_ranges_plain(pos_lo, pos_hi, *tabs, k)  # noqa: E731
+    lane_lo, lane_hi, lane_mask, totals, lane_off = km()
+    err = max_abs_err((lane_lo, lane_hi, lane_mask, totals), pm())
+    total = lane_off[-1]
+    step = k // 2
+    x = torch.cat([torch.arange(nc, device=device) * step + x0
+                   for x0, (_, _, nc) in zip(tabs[1], specs)])
+    live = torch.cat([torch.arange(nc, device=device) * step < cl - k - step
+                      for (_, cl, nc) in specs])
+
+    def lm():  # gathers at the probe positions, then the masks
+        lo = pos_lo.index_select(0, x)
+        mask = live & (lo >= 0)
+        return (torch.where(mask, lo & 0x7FFFFFFF, 0),
+                torch.where(mask, pos_hi.index_select(0, x), 0), mask)
+
+    lib_ms = cuda_ms(lm)
+    if any(not torch.equal(a, b) for a, b in zip(lm(), (lane_lo, lane_hi,
+                                                        lane_mask))):
+        raise AssertionError(f"torch gathers differ from KM on {tag}")
+    record("table_ranges", "tables.cu", "asgart_tpu/device_engine.py:202",
+           err, cuda_ms(km), cuda_ms(pm), f"{total} lanes of "
+           f"{len(specs)} chunks, step {step}", 17 * total, 12 * total,
+           library_ms=lib_ms)
+    del x, live
+    kd_check(record, s, specs, lane_off, lane_lo, lane_hi, lane_mask, sa)
+    del lane_lo, lane_hi, lane_mask
+
+    # the same index through DeviceIndex.build, alone: its peak per row
+    held = (sa, pos_lo, pos_hi)
+    del sa, pos_lo, pos_hi
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.time()
+    idx = DeviceIndex.build(strand.data, k, *rc, device)
+    torch.cuda.synchronize()
+    t_build = time.time() - t0
+    peak = torch.cuda.max_memory_allocated(device) - base
+    if any(not torch.equal(a, b) for a, b in
+           zip(held, (idx.sa, idx.pos_lo, idx.pos_hi))):
+        raise AssertionError(f"DeviceIndex.build differs from the "
+                             f"step-by-step build on {tag}")
+    per_row = peak / n
+    limit = TABLE_PEAK_BYTES_PER_ROW
+    print(f"{tag} DeviceIndex.build alone: {t_build:.3f} s (host clock + "
+          f"sync), peak {peak} B above the {base} B resident = "
+          f"{per_row:.2f} B per text row ({n} rows; "
+          f"TABLE_PEAK_BYTES_PER_ROW = {limit})", flush=True)
+    if per_row > limit:
+        raise AssertionError(f"{tag}: the table build peaks above "
+                             "TABLE_PEAK_BYTES_PER_ROW")
+    del held, idx
+    torch.cuda.empty_cache()
+    return rows, n, first, rounds
+
+
+def run_table_path(fa: str, n_bp: int, device, path: str, settings,
+                   work: str, kernels=TABLE, min_sds: int = 1,
+                   min_tied: int = 0, journal_free: bool = True) -> list:
+    """A ``--checkpoint`` path on the table engine: the kernel checks
+    (:func:`table_kernel_checks`; the first tied count must pass
+    ``min_tied``), the host engine with a journal, then through the user
+    entry point with a journal of its own: (a) the cold run, with every
+    launch counter set to 0 just before and read just after, which must
+    launch ``kernels``; (b) a rerun, which restores every chunk and
+    launches nothing; (c) a rerun with the journal's last record removed,
+    which scans that chunk alone from the cached index (one KM and one KD
+    launch); (d) with ``journal_free``, a run without a journal (the fused
+    build). Every JSON must be the host engine's. Returns the kernel rows
+    with the launches of (a)."""
+    import torch
+
+    from asgart_tpu_torch import kernels as kmod
+    from asgart_tpu_torch.fused_index import INDEX_CACHE
+    from asgart_tpu_torch.pipeline import search_duplications
+
+    k = settings.probe_size
+    tag = f"{path} k={k}"
+    rows, n, first, rounds = table_kernel_checks(fa, path, settings, device)
+    if first <= min_tied:
+        raise AssertionError(f"{tag}: first tied count {first} is not "
+                             f"above {min_tied}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    journal = os.path.join(work, f"{path}_k{k}.jsonl")
+    host_journal = journal + ".host"
+    for f in (journal, host_journal):
+        if os.path.exists(f):
+            os.remove(f)
+    t0 = time.time()
+    host = json_text(search_duplications([fa], settings, engine="host",
+                                         checkpoint=host_journal))
+    print(f"{tag} host engine with a journal: {time.time() - t0:.3f} s "
+          "wall", flush=True)
+
+    INDEX_CACHE.clear()
+    torch.cuda.empty_cache()
+    runs = {}
+    for run in ("cold", "resumed", "last_chunk", "no_journal")[
+            :4 if journal_free else 3]:
+        if run == "last_chunk":
+            with open(journal) as fh:
+                lines = fh.read().splitlines()
+            with open(journal, "w") as fh:
+                fh.write("\n".join(lines[:-1]) + "\n")
+        if run == "cold":
+            torch.cuda.reset_peak_memory_stats(device)
+        kmod.reset_launch_counts()
+        prof: dict = {}
+        t0 = time.time()
+        res = search_duplications(
+            [fa], settings, engine="cuda", device=device, profile=prof,
+            checkpoint=None if run == "no_journal" else journal)
+        torch.cuda.synchronize()
+        runs[run] = (time.time() - t0, json_text(res), prof,
+                     kmod.launch_counts())
+        if run == "cold":
+            peak = torch.cuda.max_memory_allocated(device)
+    for run, (t, text, prof, c) in runs.items():
+        print(f"{tag} cuda {run}: {t:.3f} s wall, {n_bp / 1e6 / t:.2f} "
+              f"Mbp/s, phases {json.dumps(prof)}, launches "
+              f"{json.dumps({m: v for m, v in c.items() if v})}")
+    n_sds = sum(len(f) for f in json.loads(host)["families"])
+    counts = runs["cold"][3]
+    print(f"{tag} JSON {len(host)} bytes, {n_sds} SDs; {len(lines) - 1} "
+          f"chunks journaled; peak device memory of the cold run {peak} B "
+          f"= {peak / n:.2f} B per text row ({n} rows); launches on the "
+          f"main path (the cold run): {json.dumps(counts)}", flush=True)
+    for run, (_, text, _, _) in runs.items():
+        if text != host:
+            raise AssertionError(f"{tag} cuda {run} JSON differs from the "
+                                 f"host engine's ({len(text)} vs "
+                                 f"{len(host)} bytes)")
+    if n_sds < min_sds:
+        raise AssertionError(f"{n_sds} duplications found on {tag}, "
+                             f"expected at least {min_sds}")
+    for name in kernels:
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"{tag} main path")
+    if any(runs["resumed"][3].values()):
+        raise AssertionError(f"{tag}: the resumed run launched "
+                             f"{runs['resumed'][3]}")
+    last = {m: v for m, v in runs["last_chunk"][3].items() if v}
+    if last != {"table_ranges": 1, "scan_core": 1}:
+        raise AssertionError(f"{tag}: the last chunk's rerun launched "
+                             f"{last}, not KM and KD once each")
+    if journal_free and runs["no_journal"][3]["table_ranges"]:
+        raise AssertionError(f"{tag}: the run without a journal took the "
+                             "table engine, not the fused build")
+    for row in rows:
+        row["launches"] = counts[row["name"]]
+    INDEX_CACHE.clear()
+    torch.cuda.empty_cache()
+    return rows
+
+
 def big_genome(fa: str, mbp: float) -> dict:
     """Write the big-window genome: records of ``RECORD_BP`` bases (the
     last one shorter), each made from the seed and its index with numpy's
@@ -1347,6 +1733,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mbp", type=float, default=128.0,
                     help="synthetic genome size in Mbp (default 128)")
+    ap.add_argument("--repeats-mbp", type=float, default=REPEATS_MBP,
+                    help="table_repeats genome size in Mbp (default "
+                    f"{REPEATS_MBP:g})")
     ap.add_argument("--big-mbp", type=float, default=3100.0,
                     help="big_whole genome size in Mbp: at least 1100 (the "
                     "doubled text past 2^31), or 0 to skip the phase "
@@ -1431,6 +1820,26 @@ def main(argv=None) -> int:
     rows += run_mj_path(fa, n, device, "big_shards",
                         RunSettings(probe_size=20, **rc), shards=SHARDS,
                         host=shard_host, big=True)[0]
+    # --checkpoint on the table engine: one-word and two-word keys, then a
+    # repeat-dense genome whose first tied count passes the default
+    # tied_cap (full rounds)
+    for k in (20, 25):
+        rows += run_table_path(fa, n, device, "table" if k == 20 else
+                               "table_k25", RunSettings(probe_size=k, **rc),
+                               work, min_sds=min_sds)
+    nr = int(args.repeats_mbp * 1e6)
+    t0 = time.time()
+    rfa = os.path.join(work, "repeats.fa")
+    with open(rfa, "wb") as fh:
+        fh.write(b">chr1\n" + repeat_genome(nr).tobytes() + b"\n")
+    print(f"repeats genome: {nr} bp (seed {SEED}) in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    # its runs are the host chain's (~40 s each): no journal-free run
+    rows += run_table_path(rfa, nr, device, "table_repeats",
+                           RunSettings(probe_size=20, **rc), work,
+                           kernels=TABLE + FULL_ROUNDS,
+                           min_tied=(2 * (nr + 1) - 1) // 8,
+                           journal_free=False)
     if args.big_mbp:
         rows += run_big_whole(work, args.big_mbp, device)
     assert "jax" not in sys.modules

@@ -2,10 +2,13 @@
 every transform and k in {8, 20} (one-word keys) and {25, 30} (two-word
 keys), KA's window mode and KG on trim windows, the merge-join window
 engine's kernels (KA's probe-only mode and window keys, KC with no lanes,
-KH, KD with rebased constants on its window-relative index), KI, and the
-port's JSON on the GPU against the host engine (whole genome, trim windows
-and ``shards``, on the fused build, on the merge-join engine with its
-route chosen by free memory alone, and past int32 addressing). The
+KH, KD with rebased constants on its window-relative index), KI, the table
+engine's (KA's doubled mode, KB's N flag and run ends, KJ, KK / KL at a
+small ``tied_cap``, KM, KD on its lanes), and the port's JSON on the GPU
+against the host engine (whole genome, trim windows and ``shards``, on the
+fused build, on the table engine with and without ``--checkpoint``, on
+the merge-join engine with its route chosen by free memory alone, and past
+int32 addressing). The
 kernels have no CPU mode, so without a CUDA GPU these tests skip. On a
 machine with a GPU (and without jax, which tests/conftest.py imports),
 run them with::
@@ -25,6 +28,9 @@ from torch_jax_ref import (TRANSFORMS, chunked_genome, json_text, prepared,
                            vocab_genome)
 
 pytestmark = pytest.mark.cuda
+# the table engine's kernels, which only its build and scan launch
+TABLE_KERNELS = ("invert_tables", "table_ranges", "full_round_keys",
+                 "full_round_refine")
 
 
 @pytest.fixture
@@ -114,9 +120,11 @@ def test_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse, complement, k):
     after = launch_counts()
     # KG runs on trim windows only (test_window_kernels_equal_plain_on_gpu),
     # KH on the merge-join engine (test_mj_kernels_equal_plain_on_gpu), KI
-    # in upload_codes (test_unpack_codes_equal_plain_on_gpu)
+    # in upload_codes (test_unpack_codes_equal_plain_on_gpu), KJ, KM, KK and
+    # KL on the table engine (test_table_kernels_equal_plain_on_gpu)
     assert all(after[name] > before[name] for name in after
-               if name not in ("offset_slots", "mj_ranges", "unpack_codes"))
+               if name not in ("offset_slots", "mj_ranges", "unpack_codes",
+                               *TABLE_KERNELS))
     if reverse == complement:
         assert n_events > 0
 
@@ -202,7 +210,8 @@ def test_window_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse,
     torch.cuda.synchronize()
     after = launch_counts()
     assert all(after[name] > before[name] for name in after
-               if name not in ("scan_core", "mj_ranges", "unpack_codes"))
+               if name not in ("scan_core", "mj_ranges", "unpack_codes",
+                               *TABLE_KERNELS))
 
 
 @pytest.mark.parametrize("k", [20, 25])
@@ -296,15 +305,16 @@ def test_mj_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse, complement,
     # the window index keeps window positions: no KG
     assert after["offset_slots"] == before["offset_slots"]
     assert all(after[name] > before[name] for name in after
-               if name not in ("scan_core", "unpack_codes", "offset_slots"))
+               if name not in ("scan_core", "unpack_codes", "offset_slots",
+                               *TABLE_KERNELS))
 
 
 @pytest.mark.parametrize("k", [20, 8])
 def test_gpu_mj_trim_and_shards_json_equal_host(tmp_path, gpu, monkeypatch,
                                                 k):
-    """With no fused build fitting, trim windows, shards and the whole
-    genome (one window) run on the merge-join engine and write the host
-    engine's bytes."""
+    """With no fused build (and no table) fitting, trim windows, shards and
+    the whole genome (one window) run on the merge-join engine and write
+    the host engine's bytes."""
     from asgart_tpu_torch import pipeline
     from asgart_tpu_torch.fused_index import INDEX_CACHE
     from asgart_tpu_torch.pipeline import search_duplications
@@ -314,6 +324,7 @@ def test_gpu_mj_trim_and_shards_json_equal_host(tmp_path, gpu, monkeypatch,
     g[500:3560] = g[20500:23560]  # a direct duplication
     fa, _, _ = prepared(tmp_path, [("chr1", bytes(g))])
     monkeypatch.setattr(pipeline, "fits", lambda *a, **kw: False)
+    monkeypatch.setattr(pipeline, "table_fits", lambda *a, **kw: False)
     for reverse, complement in TRANSFORMS:
         for trim in ((0, 30000), (400, 52000), (35000, 60000)):
             s = RunSettings(reverse=reverse, complement=complement,
@@ -340,10 +351,12 @@ def test_gpu_mj_trim_and_shards_json_equal_host(tmp_path, gpu, monkeypatch,
 def test_gpu_natural_route_ballast(tmp_path, gpu):
     """A ballast tensor that leaves free memory between the merge-join
     projection and the fused build's sends a trim window, the whole
-    genome as one window, and every window of a sharded run (its held
-    probe keys charged) to the merge-join engine; the JSON is the host
-    engine's."""
-    from asgart_tpu_torch import fused_index
+    genome as one window (the table, which the router tries before it,
+    made not to fit: at this size its projection lies below the fused
+    build's, and a ballast below it leaves too little for any build to
+    run), and every window of a sharded run (its held probe keys charged)
+    to the merge-join engine; the JSON is the host engine's."""
+    from asgart_tpu_torch import fused_index, pipeline
     from asgart_tpu_torch.fused_index import (INDEX_CACHE, MJ_BYTES_PER_LANE,
                                               MJ_KEY_BYTES_PER_LANE,
                                               MJ_PEAK_BYTES_PER_ROW,
@@ -383,6 +396,7 @@ def test_gpu_natural_route_ballast(tmp_path, gpu):
         try:
             with pytest.MonkeyPatch.context() as mp:
                 mp.setattr(DeviceWindowIndex, "build", classmethod(spy))
+                mp.setattr(pipeline, "table_fits", lambda *a, **kw: False)
                 got = json_text(search_duplications(
                     [fa], s, engine="cuda", device=gpu, shards=shards))
         finally:
@@ -470,7 +484,8 @@ def test_big_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse, complement,
     # this genome's N run makes its exceptions dense: a plain upload, no KI
     # (test_unpack_codes_equal_plain_on_gpu)
     assert all(after[name] > before[name] for name in after
-               if name not in ("offset_slots", "unpack_codes"))
+               if name not in ("offset_slots", "unpack_codes",
+                               *TABLE_KERNELS))
     if reverse == complement:
         assert n_events > 0
 
@@ -516,3 +531,156 @@ def test_gpu_big_json_equals_host(tmp_path, gpu, monkeypatch, k):
             [fa], s, engine="cuda", device=gpu)) == host
         assert len(trims) == 2
     INDEX_CACHE.clear()
+
+
+@pytest.mark.parametrize("k", [20, 8, 25])
+@pytest.mark.parametrize("reverse,complement", TRANSFORMS)
+def test_table_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse,
+                                          complement, k):
+    """The table build's kernels step by step (KA doubled, the sort, KB
+    with the N flag and run ends, KJ, two full rounds KK / KL, then KE /
+    KF), the whole build against the plain build on the CPU, then KM and
+    KD on its lanes."""
+    from asgart_tpu_torch.device_engine import TableEngine, chunk_specs
+    from asgart_tpu_torch.fused_index import sort_keys
+    from asgart_tpu_torch.kernels import (full_round_keys, full_round_refine,
+                                          group_bounds, invert_tables,
+                                          launch_counts, pack_keys,
+                                          scan_core, table_ranges)
+    from asgart_tpu_torch.kernels.group_bounds import (group_bounds_plain,
+                                                       n_flag_shift)
+    from asgart_tpu_torch.kernels.pack_keys import pack_keys_plain
+    from asgart_tpu_torch.kernels.scan_core import (fused_bases,
+                                                    scan_core_plain)
+    from asgart_tpu_torch.kernels.tables import (invert_tables_plain,
+                                                 table_ranges_plain,
+                                                 table_x0s)
+    from asgart_tpu_torch.kernels.ties import (full_round_keys_plain,
+                                               full_round_refine_plain)
+    from asgart_tpu_torch.table_index import DeviceIndex
+
+    g = bytearray(chunked_genome())
+    g[500:3560] = g[20500:23560]  # a direct duplication
+    _, chunks, strand = prepared(tmp_path, [("chr1", bytes(g))])
+    s = RunSettings(reverse=reverse, complement=complement, probe_size=k)
+    n1 = len(strand.data)
+    doubled = reverse or complement
+    n = 2 * n1 - 1 if doubled else n1
+    before = launch_counts()
+    codes = torch.from_numpy(CODE[strand.data]).to(gpu)
+    keys, _ = pack_keys(codes, (), k, reverse, complement, n, 0,
+                        doubled=doubled)
+    want, _ = pack_keys_plain(codes, [0], [], [], k, reverse, complement, n,
+                              0, 0, doubled)
+    _equal(keys, want)
+    skeys, sa = sort_keys(keys)
+    bounds = group_bounds(skeys, sa, n1, flag_n_k=k, run_end=not doubled)
+    _equal(bounds, group_bounds_plain(skeys, sa, n1,
+                                      n_flag_shift(k, len(skeys)),
+                                      not doubled))
+    run_lo, run_hi, tied = bounds
+    assert bool((run_lo < 0).any())  # the genome's N probes
+    tables = invert_tables(sa, run_lo, run_hi)
+    _equal(tables, invert_tables_plain(sa, run_lo, run_hi))
+    pos_lo, pos_hi, rank = tables
+    h = k
+    for _ in range(2):
+        key = full_round_keys(sa, rank, h, n1)
+        _equal((key,), (full_round_keys_plain(sa, rank, h, n1),))
+        skey, order = torch.sort(key, stable=True)
+        rank_p = rank.clone()
+        got = full_round_refine(skey, order, sa, rank, n1)
+        _equal((*got, rank), (*full_round_refine_plain(skey, order, sa,
+                                                       rank_p, n1), rank_p))
+        sa = got[0]
+        h *= 2
+    # the whole build, full rounds and subset rounds, against the CPU's
+    for cap in (None, 64):
+        idx = DeviceIndex.build(strand.data, k, reverse, complement, gpu,
+                                tied_cap=cap)
+        ref = DeviceIndex.build(strand.data, k, reverse, complement,
+                                torch.device("cpu"), tied_cap=cap)
+        _equal((idx.sa, idx.pos_lo, idx.pos_hi),
+               (ref.sa, ref.pos_lo, ref.pos_hi))
+    specs = chunk_specs(chunks, s)
+    got = table_ranges(idx.pos_lo, idx.pos_hi, specs, n1, k, reverse,
+                       complement)
+    want = table_ranges_plain(idx.pos_lo, idx.pos_hi,
+                              *table_x0s(specs, n1, k, reverse, complement),
+                              k)
+    _equal(got[:4], want)
+    lane_lo, lane_hi, mask, _, lane_off = got
+    n_events = 0
+    for c, (cs, cl, nc) in enumerate(specs):
+        lanes = slice(lane_off[c], lane_off[c] + nc)
+        args = (lane_lo[lanes], lane_hi[lanes], mask[lanes], idx.sa,
+                *fused_bases(cs, cl), 500, 0, k, reverse)
+        got, want = scan_core(*args), scan_core_plain(*args)
+        assert (got.n_events, got.total_kept) == \
+            (want.n_events, want.total_kept)
+        _equal((got.flat,), (want.flat,))
+        n_events += got.n_events
+    if reverse == complement:
+        assert n_events > 0
+    eng = TableEngine(strand, s, gpu, cache=None, index=idx)
+    assert [eng.run_chunk(c) for c in chunks] == eng.run_chunks(chunks)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert all(after[name] > before[name] for name in
+               ("pack_keys", "group_bounds", "scan_core", "tie_keys",
+                "tie_refine", *TABLE_KERNELS))
+
+
+def test_gpu_table_json_equals_host(tmp_path, gpu, monkeypatch):
+    """The table engine end to end: ``--checkpoint`` runs (first, resumed,
+    and resumed with the last record removed) and the route past a fused
+    build that does not fit write the host engine's bytes, also with the
+    host engine journaling; the CLI's ``--engine cuda --checkpoint``
+    too."""
+    from asgart_tpu_torch import pipeline
+    from asgart_tpu_torch.cli.main import main
+    from asgart_tpu_torch.fused_index import INDEX_CACHE
+    from asgart_tpu_torch.kernels import launch_counts
+    from asgart_tpu_torch.pipeline import search_duplications
+    from asgart_tpu_torch.table_index import DeviceIndex
+
+    g = bytearray(chunked_genome())
+    g[500:3560] = g[20500:23560]  # a direct duplication
+    fa, _, _ = prepared(tmp_path, [("chr1", bytes(g))])
+    for i, (reverse, complement) in enumerate(TRANSFORMS):
+        for k in (20, 25):
+            s = RunSettings(reverse=reverse, complement=complement,
+                            probe_size=k)
+            ck = tmp_path / f"j{i}_{k}.jsonl"
+            host = json_text(search_duplications(
+                [fa], s, engine="host", checkpoint=str(tmp_path / "h")))
+            INDEX_CACHE.clear()
+            assert json_text(search_duplications(
+                [fa], s, engine="cuda", device=gpu,
+                checkpoint=str(ck))) == host
+            assert isinstance(INDEX_CACHE._index, DeviceIndex)
+            before = launch_counts()
+            assert json_text(search_duplications(
+                [fa], s, engine="cuda", device=gpu,
+                checkpoint=str(ck))) == host
+            assert launch_counts() == before  # every chunk restored
+            lines = ck.read_text().splitlines()
+            ck.write_text("\n".join(lines[:-1]) + "\n")
+            assert json_text(search_duplications(
+                [fa], s, engine="cuda", device=gpu,
+                checkpoint=str(ck))) == host
+            after = launch_counts()
+            assert after["table_ranges"] == before["table_ranges"] + 1
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(pipeline, "fits", lambda *a, **kw: False)
+                INDEX_CACHE.clear()
+                assert json_text(search_duplications(
+                    [fa], s, engine="cuda", device=gpu)) == host
+                assert isinstance(INDEX_CACHE._index, DeviceIndex)
+    INDEX_CACHE.clear()
+    out = [tmp_path / f"{e}.json" for e in ("host", "cuda")]
+    for engine, o in zip(("host", "cuda"), out):
+        assert main([fa, "-R", "-C", "--engine", engine, "--checkpoint",
+                     str(tmp_path / f"{engine}.ckpt"), "--out",
+                     str(o)]) == 0
+    assert out[0].read_text() == out[1].read_text()

@@ -20,7 +20,9 @@ from asgart_tpu_torch import fused_index, pipeline
 from asgart_tpu_torch.fused_index import (INDEX_CACHE, MJ_BYTES_PER_LANE,
                                           MJ_KEY_BYTES_PER_LANE,
                                           MJ_PEAK_BYTES_PER_ROW,
-                                          PEAK_BYTES_PER_ROW, projected_rows)
+                                          PEAK_BYTES_PER_ROW,
+                                          TABLE_PEAK_BYTES_PER_ROW,
+                                          projected_rows)
 from asgart_tpu_torch.pipeline import search_duplications
 from asgart_tpu_torch.structs import RunSettings
 from asgart_tpu_torch.window_index import DeviceWindowIndex
@@ -138,7 +140,10 @@ def test_natural_route(tmp_path, monkeypatch):
     """Routing follows memory alone: with the free bytes between the two
     projections, a trim window, the shards' windows and the whole genome
     (one window (0, n1 - 1), whose JSON is the whole genome's) run on the
-    merge-join engine."""
+    merge-join engine; the whole genome only when the table engine, which
+    the router tries before it, does not fit either (at this size the
+    table's projection lies below the fused build's, whose bucket slack
+    dominates)."""
     fa = _genome(tmp_path)
     n1 = 90001
     s = RunSettings(reverse=True, complement=True)
@@ -150,8 +155,14 @@ def test_natural_route(tmp_path, monkeypatch):
         return orig(cls, *a, **kw)
 
     monkeypatch.setattr(DeviceWindowIndex, "build", classmethod(spy))
+    table = (2 * n1 - 1) * TABLE_PEAK_BYTES_PER_ROW
+    assert _mj_need(n1, n1, 20) < table < _free_between(n1, n1, 20)
     monkeypatch.setattr(fused_index, "free_bytes",
                         lambda device: _free_between(n1, n1, 20))
+    assert _port(fa, s) == _jax(fa, s)
+    assert built == []  # the table engine
+    monkeypatch.setattr(fused_index, "free_bytes",
+                        lambda device: (_mj_need(n1, n1, 20) + table) / 2)
     assert _port(fa, s) == _jax(fa, s)
     assert built == [(0, n1 - 1)]
     trim = RunSettings(reverse=True, complement=True, trim=(5000, 70000))

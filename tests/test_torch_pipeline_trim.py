@@ -140,7 +140,8 @@ def test_shards_json_masked_multifasta(tmp_path):
 def test_plan_shards():
     """The smallest S whose windows fit, in a fused build or (k <= 20) in
     the merge-join engine with the run's probe keys held beside each
-    window's build, from (n1, k, doubled, free bytes) alone."""
+    window's build, from (n1, k, doubled, free bytes) alone; none at k =
+    21..30."""
     n1 = 128_000_001
     step_rows = n1 // 10 + (1 << 21)
     lanes = n1 // 10
@@ -160,12 +161,12 @@ def test_plan_shards():
         assert plan_shards(n1, 20, True, mj(S)) == S
         assert plan_shards(n1, 20, True, mj(S) - 1) == S + 1
     assert plan_shards(n1, 20, True, float("inf")) == 2
-    # two-word keys: the fused build alone (more bytes per row, probe
-    # step 12 fewer lanes)
+    # two-word keys: no planner at all, whatever fits (the JAX package
+    # keeps whole-genome semantics at k = 21..30; ROADMAP F11)
     W4 = window(4)
     need = (W4 + n1 // 12 + (1 << 21)) * PEAK_BYTES_PER_ROW[2] + n1
-    assert plan_shards(n1, 25, False, need) == 4
-    assert plan_shards(n1, 25, False, need - 1) == 5
+    assert plan_shards(n1, 25, False, need) is None
+    assert plan_shards(n1, 25, False, float("inf")) is None
     # nothing fits: the probe side alone outgrows the budget
     assert plan_shards(n1, 20, True, mj(256) - 1) is None
     # beyond int32 probe addressing (the doubled text of -R/-C runs) the
@@ -173,17 +174,18 @@ def test_plan_shards():
     # no fused build there, so k = 25 has no S
     assert plan_shards(2**30 + 1, 20, True, float("inf")) == 2
     assert plan_shards(2**30 + 1, 25, True, float("inf")) is None
-    assert plan_shards(2**30 + 1, 25, False, float("inf")) == 2
+    assert plan_shards(2**30 + 1, 25, False, float("inf")) is None
 
 
 def test_auto_shard(tmp_path, monkeypatch, caplog):
-    """A genome whose whole fused build and one-window merge join do not
-    fit runs sharded into the planner's S windows, byte-equal to the JAX
-    host engine's S windows; when no S fits, the run raises."""
+    """A genome whose whole fused build, table and one-window merge join
+    do not fit runs sharded into the planner's S windows, byte-equal to
+    the JAX host engine's S windows; when no S fits, the run raises."""
     fa = _genome(tmp_path)
     s = RunSettings(reverse=True, complement=True)
     # the whole genome (W = n1) does not fit; its windows do
     monkeypatch.setattr(pipeline, "fits", lambda n1, W, *a, **kw: W != n1)
+    monkeypatch.setattr(pipeline, "table_fits", lambda *a, **kw: False)
     monkeypatch.setattr(pipeline, "mj_fits", lambda *a, **kw: False)
     monkeypatch.setattr(pipeline, "plan_shards", lambda *a: 3)
     with caplog.at_level(logging.WARNING, logger="asgart"):
