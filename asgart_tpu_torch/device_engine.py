@@ -17,17 +17,24 @@ launch.
 Per chunk: KD ``scan_core`` on the chunk's lane slice, one device-to-host
 copy of its exactly-sized outputs, then the native event chain with the
 arguments of device_engine.py:1519-1525 (the merge-join engine's matches
-first rebased to genome positions in int64, :1488-1490). The JAX engines'
-capacity buckets, overflow retries, sliced and grouped dispatch and packed
-downloads are not needed: KD sizes its outputs exactly.
+first rebased to genome positions in int64, :1488-1490). With
+``ASGART_DEVICE_CHAIN`` set (read at each chain, as ``_chain_merged``
+reads it, :1495) the events stay on the card and KN ``chain_bursts``
+chains them right after the chunk's scan, adding the window start to the
+matches in int64; only the families come back (chain.py). The JAX
+engines' capacity buckets, overflow retries, sliced and grouped dispatch
+and packed downloads are not needed: KD sizes its outputs exactly.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
 from . import native
+from .chain import chain_events_tensors, config_for, events_from_flat
 from .codes import upload_codes
 from .fused_index import INDEX_CACHE, FusedIndex, IndexCache
 from .host_helpers import _merge_shard_events
@@ -61,7 +68,7 @@ class FusedEngine:
     ``codes`` are the strand's codes already on ``device``; ``index``
     supplies a prebuilt index (e.g. from :mod:`asgart_tpu_torch.convert`)."""
 
-    m_offset = 0  # added to the matches on the host (genome positions)
+    m_offset = 0  # added to the matches (genome positions)
 
     def __init__(self, strand, settings, device: torch.device,
                  cache: IndexCache | None = INDEX_CACHE,
@@ -94,12 +101,15 @@ class FusedEngine:
     def run_chunks(self, chunks) -> list:
         """Raw families (native-engine format, chunk-relative left
         coordinates) for each chunk, in order."""
-        return chain_chunk_events(self.scan_chunks(chunks), self.settings,
-                                  self.m_offset)
+        return families(self.scan_chunks(chunks), self.settings,
+                        self.m_offset)
 
     def scan_chunks(self, chunks) -> list:
-        """The device phase: each chunk's merged events on the host, (ev
-        int32 [3, n], m int32, z_trail) or None (no event), in order."""
+        """The device phase (:func:`device_phase`), in chunk order."""
+        return device_phase(self, chunks)
+
+    def scan_results(self, chunks):
+        """KD's result for each chunk, in order (:func:`scan_lanes`)."""
         idx = self.ensure_index(chunks)
         return scan_lanes(self.settings, idx, idx.sa, chunks, fused_bases)
 
@@ -113,7 +123,7 @@ class TableEngine:
     for; ``index`` supplies a prebuilt one (e.g. from
     :mod:`asgart_tpu_torch.convert`)."""
 
-    m_offset = 0  # added to the matches on the host (genome positions)
+    m_offset = 0  # added to the matches (genome positions)
 
     def __init__(self, strand, settings, device: torch.device,
                  cache: IndexCache | None = INDEX_CACHE,
@@ -156,14 +166,19 @@ class TableEngine:
     def run_chunks(self, chunks) -> list:
         """Raw families (native-engine format, chunk-relative left
         coordinates) for each chunk, in order."""
-        return chain_chunk_events(self.scan_chunks(chunks), self.settings)
+        return families(self.scan_chunks(chunks), self.settings,
+                        self.m_offset)
 
     def run_chunk(self, chunk) -> list:
         """Raw families of one chunk (a journaled run's unit of work)."""
         return self.run_chunks([chunk])[0]
 
     def scan_chunks(self, chunks) -> list:
-        """The device phase, as :meth:`FusedEngine.scan_chunks`."""
+        """The device phase (:func:`device_phase`), in chunk order."""
+        return device_phase(self, chunks)
+
+    def scan_results(self, chunks):
+        """KD's result for each chunk, in order (:func:`scan_lanes`)."""
         ranges = self.ranges(chunks)
         return scan_lanes(self.settings, ranges, self.index.sa, chunks,
                           fused_bases)
@@ -183,10 +198,11 @@ class DeviceWindowEngine:
     rescan of the same chunks from ``cache`` skips the build, the pack and
     the join. Then KD per chunk over the window-relative suffix order,
     with the rebased filter constants of :func:`rebased_bases`; the window
-    start ``m_offset`` is added to the matches on the host, in int64
-    (:func:`chain_chunk_events`). ``codes``: the strand's codes already on
-    ``device`` (uploaded on first need otherwise); ``index`` supplies a
-    prebuilt index (e.g. from :mod:`asgart_tpu_torch.convert`)."""
+    start ``m_offset`` is added to the matches in int64, on the host
+    (:func:`chain_chunk_events`) or by KN (:func:`chain_on_device`).
+    ``codes``: the strand's codes already on ``device`` (uploaded on first
+    need otherwise); ``index`` supplies a prebuilt index (e.g. from
+    :mod:`asgart_tpu_torch.convert`)."""
 
     def __init__(self, strand, settings, device: torch.device, trim,
                  cache: IndexCache | None = INDEX_CACHE,
@@ -197,7 +213,7 @@ class DeviceWindowEngine:
         self.settings = settings
         self.device = device
         self.trim = (int(trim[0]), int(trim[1]))
-        self.m_offset = self.trim[0]  # added to the matches on the host
+        self.m_offset = self.trim[0]  # added to the matches
         self.cache = cache
         self.index = index
         self.codes = codes
@@ -257,8 +273,8 @@ class DeviceWindowEngine:
     def run_chunks(self, chunks) -> list:
         """Raw families (native-engine format, chunk-relative left
         coordinates) for each chunk, in order."""
-        return chain_chunk_events(self.scan_chunks(chunks), self.settings,
-                                  self.m_offset)
+        return families(self.scan_chunks(chunks), self.settings,
+                        self.m_offset)
 
     def run_chunk(self, chunk) -> list:
         """Raw families of one chunk (a journaled run's unit of work: its
@@ -266,7 +282,11 @@ class DeviceWindowEngine:
         return self.run_chunks([chunk])[0]
 
     def scan_chunks(self, chunks) -> list:
-        """The device phase, as :meth:`FusedEngine.scan_chunks`."""
+        """The device phase (:func:`device_phase`), in chunk order."""
+        return device_phase(self, chunks)
+
+    def scan_results(self, chunks):
+        """KD's result for each chunk, in order (:func:`scan_lanes`)."""
         ranges = self.stage1(chunks)
         ws, W = self.trim[0], self.index.W
         return scan_lanes(self.settings, ranges, self.index.sa, chunks,
@@ -288,37 +308,80 @@ def rebased_bases(chunk_start: int, chunk_len: int, ws: int, W: int
             min(max(chunk_start + chunk_len - ws, -2), W + chunk_len + 2))
 
 
-def scan_lanes(settings, lanes, sa: torch.Tensor, chunks, bases) -> list:
+def device_chain() -> bool:
+    """Whether ``ASGART_DEVICE_CHAIN`` asks for the chain on the device
+    (read at each chain, as device_engine.py:1495 reads it)."""
+    return bool(os.environ.get("ASGART_DEVICE_CHAIN"))
+
+
+def device_phase(eng, chunks) -> list:
+    """The device phase of the engine ``eng`` over ``chunks``, one entry a
+    chunk, in order, for :func:`families`: with :func:`device_chain`, the
+    chunk's raw families, its events chained by KN on the device right
+    after its scan (:func:`chain_on_device`), so one chunk's events are on
+    the card at a time; else its merged events on the host, (ev int32 [3,
+    n], m int32, z_trail) or None (no event), for the host chain."""
+    finish = (lambda res: chain_on_device(res, eng.settings, eng.m_offset)
+              ) if device_chain() else host_events
+    return [finish(res) for res in eng.scan_results(chunks)]
+
+
+def families(results, settings, m_offset: int = 0) -> list:
+    """Raw families of each chunk of :func:`device_phase`'s ``results``: a
+    chunk chained on the device as it is, the others through the host
+    event chain (:func:`chain_chunk_events`). Touches no device memory, so
+    a sharded run's tail thread runs it without holding the index."""
+    return [r if isinstance(r, list) else
+            chain_chunk_events([r], settings, m_offset)[0] for r in results]
+
+
+def scan_lanes(settings, lanes, sa: torch.Tensor, chunks, bases):
     """KD over each chunk's lane slice of ``lanes`` (a :class:`FusedIndex`
     or a :class:`WindowRanges`: lane_lo, lane_hi, lane_mask, specs, offs)
     against the suffix order ``sa``, with the filter constants
-    ``bases(chunk_start, chunk_len)``, then one device-to-host copy per
-    chunk: (ev int32 [3, n], m int32, z_trail) or None (too short to
-    probe, or no event), in chunk order."""
+    ``bases(chunk_start, chunk_len)``: yields each chunk's ``ScanResult``,
+    or None (too short to probe), in chunk order, each before the next
+    chunk's scan."""
     s = settings
     n_lanes = {(cs, cl): nc for (cs, cl, nc) in lanes.specs}
-    out = []
     for c in chunks:
         chunk = (int(c[0]), int(c[1]))
         if chunk not in n_lanes:  # too short to probe
-            out.append(None)
+            yield None
             continue
         off = lanes.offs[chunk][0]
         sl = slice(off, off + n_lanes[chunk])
-        res = scan_core(lanes.lane_lo[sl], lanes.lane_hi[sl],
+        yield scan_core(lanes.lane_lo[sl], lanes.lane_hi[sl],
                         lanes.lane_mask[sl], sa, *bases(*chunk),
                         s.max_cardinality, 0, s.probe_size, s.reverse)
-        ev, m, z_trail = _merge_shard_events([res.to_host()])
-        out.append(None if ev is None else (ev, m, z_trail))
-    return out
+
+
+def host_events(res):
+    """One device-to-host copy of a chunk's KD result ``res``: (ev int32
+    [3, n], m int32, z_trail), or None (too short to probe, or no
+    event)."""
+    if res is None:
+        return None
+    ev, m, z_trail = _merge_shard_events([res.to_host()])
+    return None if ev is None else (ev, m, z_trail)
+
+
+def chain_on_device(res, settings, m_offset: int = 0) -> list:
+    """Raw families of one chunk's KD result ``res`` (None: too short to
+    probe), chained by KN on its device: the events are read in place from
+    ``res.flat``, the matches shifted by ``m_offset`` in int64 inside the
+    kernel, and only the family rows come back. No host chain runs,
+    whatever happens."""
+    if res is None or res.n_events == 0:
+        return []
+    ev = events_from_flat(res.flat, res.n_events, res.total_kept, m_offset)
+    return chain_events_tensors(ev, config_for(settings))[0]
 
 
 def chain_chunk_events(events, settings, m_offset: int = 0) -> list:
-    """The host phase: raw families of each chunk's events (the output of
-    :meth:`FusedEngine.scan_chunks`), the matches shifted by ``m_offset``
-    in int64 (a merge-join engine's window start); touches no device
-    memory, so a sharded run's tail thread runs it without holding the
-    index."""
+    """The host event chain: raw families of each chunk's events
+    (:func:`host_events`), the matches shifted by ``m_offset`` in int64 (a
+    merge-join engine's window start); touches no device memory."""
     k = settings.probe_size
     out = []
     for e in events:

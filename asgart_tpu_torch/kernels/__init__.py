@@ -2,6 +2,7 @@
 a plain-integer launch counter (``<wrapper>.launches``) and runs its plain
 PyTorch version only for tensors on the CPU."""
 
+from .chain import chain_bursts
 from .codes import unpack_codes
 from .group_bounds import group_bounds
 from .invert import invert_fused
@@ -14,7 +15,7 @@ from .window import offset_slots
 
 KERNELS = (unpack_codes, pack_keys, group_bounds, invert_fused, tie_keys,
            tie_refine, offset_slots, mj_ranges, scan_core, invert_tables,
-           table_ranges, full_round_keys, full_round_refine)
+           table_ranges, full_round_keys, full_round_refine, chain_bursts)
 
 
 def launch_counts() -> dict:

@@ -78,6 +78,15 @@ SIGNATURES = {
     "asgart_full_round_keys": [_P, _P, _I64, _I64, _I64, _P, _P],
     # skey, order, sa, n, direct_bound, new_sa, rank, tied, stream
     "asgart_full_round_refine": [_P, _P, _P, _I64, _I64, _P, _P, _P, _P],
+    # threads, arms_cap, arms_in_smem, blocks (out, host int32)
+    "asgart_chain_grid": [_I32, _I32, _I32, _P],
+    # ev_i, ev_z, m_off, m, m_is_i64, m_offset, burst_start, order,
+    # n_order, n_bursts, z_trail, t_split, ps, step, max_gap, min_dup,
+    # arms_cap, rows, out_cap, n_rows, next, status, tests, arms_global
+    # (None: shared memory), blocks, threads, stream
+    "asgart_chain_bursts": [_P, _P, _P, _P, _I32, _I64, _P, _P, _I32, _I32,
+                            _P, _I32, _I64, _I64, _I64, _I64, _I32, _P,
+                            _I64, _P, _P, _P, _P, _P, _I32, _I32, _P],
 }
 
 _lock = threading.Lock()

@@ -41,6 +41,11 @@ k > 30 (:137-145), a k = 21..30 trim window beyond the fused build
 <= 256 holds (or, at k = 21..30, beyond the fused build and the table;
 :843-848), ``--checkpoint`` beyond the table and the one-window merge join
 (:786), and no CUDA device (:869-877).
+
+With ``ASGART_DEVICE_CHAIN`` set, every device engine chains its chunks'
+events on the device (KN, device_engine.py) in place of the host event
+chain; a sharded run then chains each window on this thread, and its tail
+thread only post-processes.
 """
 
 from __future__ import annotations
@@ -60,7 +65,7 @@ from . import native, postprocess
 from .codes import upload_codes
 from .device import cuda_device
 from .device_engine import (DeviceWindowEngine, FusedEngine, TableEngine,
-                            chain_chunk_events)
+                            families)
 from .fasta import Strand, prepare_data
 from .fused_index import (INDEX_CACHE, MAX_K, MJ_MAX_K, fits, free_bytes,
                           mj_fits, mj_window_fits_bytes, probe_span,
@@ -682,12 +687,13 @@ def _search_duplications_sharded(strands_files, settings, shards, engine,
 
 def _window_tail(events, to_process, strand, settings, m_offset: int = 0
                  ) -> RunResult:
-    """Host phase of one device window: chain its chunks' events (their
-    matches shifted by ``m_offset``, a merge-join window's start), then the
-    post-processing Step chain."""
-    families = _protosds(chain_chunk_events(events, settings, m_offset),
-                         to_process, settings)
-    return _finalize_result(families, strand, settings)
+    """Host phase of one device window: its chunks' raw families
+    (:func:`device_engine.families`: the host chain of the chunks not
+    chained on the device, their matches shifted by ``m_offset``, a
+    merge-join window's start), then the post-processing Step chain."""
+    raws = families(events, settings, m_offset)
+    return _finalize_result(_protosds(raws, to_process, settings), strand,
+                            settings)
 
 
 def _run_cuda_windows(windows, to_process, strand, settings, device
@@ -698,12 +704,13 @@ def _run_cuda_windows(windows, to_process, strand, settings, device
     engine charged for the probe keys it holds across windows) before
     anything is allocated, so a run no route holds fails before any window
     runs. This thread runs each window's device phase (build, scans,
-    downloads) in turn; one tail thread runs each window's host phase
+    downloads, and with ``ASGART_DEVICE_CHAIN`` the chain on the device)
+    in turn; one tail thread runs each window's host phase
     (:func:`_window_tail`) while the next window's device phase runs. The
-    tail holds no device memory (the scans' outputs are already on the
-    host), so no headroom check gates the overlap. A window's failure
-    fails the run: nothing reruns a window or moves it to the host
-    engine."""
+    tail holds no device memory (the scans' outputs, or the chained
+    families, are already on the host), so no headroom check gates the
+    overlap. A window's failure fails the run: nothing reruns a window or
+    moves it to the host engine."""
     # the one-entry index cache cannot hold a window set: free it, and
     # build the windows uncached
     INDEX_CACHE.clear()

@@ -92,8 +92,22 @@
    (:func:`gapped_copy`): the strand is dense, so ``upload_codes`` counts
    exceptions part of the way and takes the ``CODE`` LUT; its host time
    against the LUT and pinned copy alone, and its codes against theirs;
-6. prints a {"kernels": [...]} line (each kernel once per path, with the
-   path's name and k), the card again, and last {"ok": true, ...}.
+6. the device chain: ``ASGART_DEVICE_CHAIN=1`` set in the process for one
+   more run each of the whole genome at k = 20 (after its path), mj_shards
+   (behind a ballast of its own), table_repeats (cold, journaled) and
+   big_whole (:func:`device_chain_run`): the JSON must be the path's host
+   JSON (big_whole: its cold run's), KN and every kernel of the path
+   launched, the host event chain never called; then on each run's
+   largest chunk (:func:`kn_checks`) KN against ``native.chain_events``
+   (both timed) and against its plain version on the bursts that emit
+   rows and on the longest burst's first events, also with one arm and
+   one output row (both retries) and with its arms in global scratch; the
+   burst count and the longest burst printed;
+7. prints a {"kernels": [...]} line (each kernel once per path, with the
+   path's name and k; KN's rows: its time, the plain time and the bound
+   on the checked bursts, and beside them its chunk's events, bursts,
+   native tests, one KN pass over the chunk and the host chain's time on
+   the chunk), the card again, and last {"ok": true, ...}.
 
 Any failure raises before the last line; without CUDA it exits non-zero
 and prints no result. Nothing of JAX or of the JAX package is imported.
@@ -129,6 +143,9 @@ RECORD_BP = 100_000_000  # record length of the big-window genome
 PLANT_BP = 20_000  # its planted -RC pair
 N_RUN_BP = 30_000  # and its N runs (a chunk break: more than 5000)
 SLICE_ROWS = 1 << 25  # rows of a full-scale check's slices (32 M)
+PLAIN_EVENTS = 50_000  # bursts' events on which KN meets its plain version
+PLAIN_BURST = 200  # the longest of the bursts that top them up
+PLAIN_LONGEST = 4_000  # the longest of the others; the longest burst's cut
 # A gapped assembly's N, in Mbp of GRCh38's 24 chromosomes (3088 Mbp laid
 # end to end): roughly where its large gaps lie (the 1q12, 9q12, 16q11.2
 # and Yq12 heterochromatin, the short arms of 13, 14, 15, 21 and 22, and
@@ -222,6 +239,7 @@ def recorder(rows: list, path: str, k: int):
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": library_ms})
 
+    record.rows = rows
     return record
 
 
@@ -903,6 +921,34 @@ def run_path(fa: str, n: int, device, path: str, settings, shards: int = 1,
     return rows, host
 
 
+def run_device_chain_whole(fa: str, device, host: str,
+                           plain_events: int) -> list:
+    """The fused whole genome at k = 20 with ``ASGART_DEVICE_CHAIN=1``
+    (:func:`device_chain_run`, from an empty index cache), held to the
+    whole path's host JSON, then :func:`kn_checks`. Returns KN's row."""
+    import torch
+
+    from asgart_tpu_torch.fused_index import INDEX_CACHE
+    from asgart_tpu_torch.pipeline import search_duplications
+    from asgart_tpu_torch.structs import RunSettings
+
+    path, k = "whole", 20
+    tag = f"device_chain {path} k={k}"
+    s = RunSettings(probe_size=k, reverse=True, complement=True)
+    INDEX_CACHE.clear()
+    torch.cuda.empty_cache()
+    counts, largest, _ = device_chain_run(
+        tag, lambda prof: search_duplications(
+            [fa], s, engine="cuda", device=device, profile=prof), host,
+        WHOLE, device)
+    rows = []
+    kn_checks(recorder(rows, path, k), tag, largest, plain_events)
+    rows[-1]["launches"] = counts["chain_bursts"]
+    INDEX_CACHE.clear()
+    torch.cuda.empty_cache()
+    return rows
+
+
 def mj_ballast(n1: int, W: int, k: int, keys_held: bool, device):
     """A tensor on the card that leaves ``fused_index.free_bytes`` midway
     between the merge-join engine's projection for a W-row window (with
@@ -938,7 +984,8 @@ def mj_ballast(n1: int, W: int, k: int, keys_held: bool, device):
 
 def run_mj_path(fa: str, n: int, device, path: str, settings,
                 shards: int = 1, host: str | None = None,
-                min_sds: int = 1, big: bool = False) -> tuple[list, str]:
+                min_sds: int = 1, big: bool = False,
+                plain_events: int = 0) -> tuple[list, str]:
     """A merge-join path, which the router takes because a ballast tensor
     (:func:`mj_ballast`, held for the path's two runs) leaves too little
     memory for the fused build; or with ``big`` because
@@ -949,9 +996,12 @@ def run_mj_path(fa: str, n: int, device, path: str, settings,
     JSON ``host`` is given, then two runs through the user entry point
     (trim: cold, then a cache hit that launches neither KA nor KH; shards:
     two full runs, each packing the probe keys once), with every launch
-    counter set to 0 just before and read after each run. Returns the
-    path's kernel rows with their main-path launch counts, and the host
-    JSON."""
+    counter set to 0 just before and read after each run; with
+    ``plain_events`` (not with ``big``), a third run with
+    ``ASGART_DEVICE_CHAIN=1`` (:func:`device_chain_run`, behind a ballast
+    made for it: the first one's margin need not hold after two runs) and
+    :func:`kn_checks`. Returns the path's kernel rows with their main-path
+    launch counts, and the host JSON."""
     import torch
 
     from asgart_tpu_torch import kernels as kmod
@@ -984,8 +1034,9 @@ def run_mj_path(fa: str, n: int, device, path: str, settings,
     else:
         # the first window is the largest; the genome is one record (n +
         # '$')
-        ws, we = windows[0]
-        ballast, nb = mj_ballast(n + 1, we - ws + 1, k, shards > 1, device)
+        ws_we = windows[0]
+        ballast, nb = mj_ballast(n + 1, ws_we[1] - ws_we[0] + 1, k,
+                                 shards > 1, device)
     try:
         torch.cuda.reset_peak_memory_stats(device)
         kmod.reset_launch_counts()
@@ -1008,6 +1059,16 @@ def run_mj_path(fa: str, n: int, device, path: str, settings,
     finally:
         pipeline.BIG_WINDOW_SPAN = span
         if not big:
+            del ballast
+    if plain_events and not big:  # behind a ballast of its own
+        ballast, nb = mj_ballast(n + 1, ws_we[1] - ws_we[0] + 1, k,
+                                 shards > 1, device)
+        try:
+            dc_counts, dc_largest, _ = device_chain_run(
+                f"device_chain {tag}", lambda prof: search_duplications(
+                    [fa], settings, engine="cuda", device=device,
+                    shards=shards, profile=prof), host, MJ, device, nb)
+        finally:
             del ballast
 
     for tag2, (t, text, prof, c) in runs.items():
@@ -1048,9 +1109,255 @@ def run_mj_path(fa: str, n: int, device, path: str, settings,
                              "KH")
     for row in rows:
         row["launches"] = counts[row["name"]]
+    if plain_events and not big:
+        kn_checks(recorder(rows, path, k), f"device_chain {tag}",
+                  dc_largest, plain_events)
+        rows[-1]["launches"] = dc_counts["chain_bursts"]
     INDEX_CACHE.clear()
     torch.cuda.empty_cache()
     return rows, host
+
+
+def device_chain_run(tag: str, run, ref: str, kernels, device,
+                     ballast: int = 0):
+    """``run()`` (a ``search_duplications(engine="cuda")`` call) with
+    ``ASGART_DEVICE_CHAIN=1`` in the process, every launch counter set to
+    0 just before and read just after: its JSON must be ``ref``, every
+    kernel of ``kernels`` and KN must have been launched, and the host
+    event chain (``native.chain_events``) never called. Prints the wall,
+    the chunks chained, their bursts and longest burst, KN's passes and the
+    run's peak device memory (less ``ballast`` bytes). Returns (launch
+    counts, the largest chunk's (Events, ChainConfig, ChainStats), the
+    peak)."""
+    import torch
+
+    from asgart_tpu_torch import device_engine, native
+    from asgart_tpu_torch import kernels as kmod
+
+    seen = {"stats": [], "largest": None}
+    chain = device_engine.chain_events_tensors
+    host_chain = native.chain_events
+    host_calls = []
+
+    def spy(ev, cfg, *a, **kw):
+        out = chain(ev, cfg, *a, **kw)
+        seen["stats"].append(out[1])
+        if seen["largest"] is None or \
+                out[1].matches > seen["largest"][2].matches:
+            seen["largest"] = (ev, cfg, out[1])
+        return out
+
+    def counted(*a, **kw):
+        host_calls.append(1)
+        return host_chain(*a, **kw)
+
+    device_engine.chain_events_tensors = spy
+    native.chain_events = counted
+    os.environ["ASGART_DEVICE_CHAIN"] = "1"
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        kmod.reset_launch_counts()
+        prof: dict = {}
+        t0 = time.time()
+        res = run(prof)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = kmod.launch_counts()
+        peak = torch.cuda.max_memory_allocated(device) - ballast
+    finally:
+        del os.environ["ASGART_DEVICE_CHAIN"]
+        device_engine.chain_events_tensors = chain
+        native.chain_events = host_chain
+    text = json_text(res)
+    st = seen["stats"]
+    print(f"{tag} device chain: {wall:.3f} s wall, phases {json.dumps(prof)}"
+          f"; {len(st)} chunks chained on the card, "
+          f"{sum(x.events for x in st)} events, "
+          f"{sum(x.matches for x in st)} matches, "
+          f"{sum(x.bursts for x in st)} bursts, the longest "
+          f"{max((x.longest for x in st), default=0)} events, KN passes "
+          f"{[x.passes for x in st]}; peak device memory {peak} B; launches "
+          f"{json.dumps({m: v for m, v in counts.items() if v})}",
+          flush=True)
+    if text != ref:
+        raise AssertionError(f"{tag}: the device chain's JSON differs from "
+                             f"the reference ({len(text)} vs {len(ref)} "
+                             "bytes)")
+    if host_calls:
+        raise AssertionError(f"{tag}: the host chain ran {len(host_calls)} "
+                             "times under ASGART_DEVICE_CHAIN")
+    for name in (*kernels, "chain_bursts"):
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"{tag} device-chain run")
+    return counts, seen["largest"], peak
+
+
+def burst_prefix(ev, burst_start, b: int, n: int, t_split: int):
+    """The first ``n`` events of burst ``b`` of ``ev`` as an event stream
+    of their own, ended by ``t_split`` quiet probes (so every arm left
+    dies and emits, as at a burst's end)."""
+    import torch
+
+    from asgart_tpu_torch.chain import Events
+
+    lo = int(burst_start[b])
+    hi = lo + n
+    m_lo, m_hi = int(ev.m_off[lo]), int(ev.m_off[hi])
+    return Events(ev.ev_i[lo:hi].contiguous(), ev.ev_z[lo:hi].contiguous(),
+                  (ev.m_off[lo:hi + 1] - m_lo).contiguous(),
+                  ev.m[m_lo:m_hi].contiguous(),
+                  torch.full((1,), t_split, dtype=torch.int32,
+                             device=ev.m.device), ev.m_offset)
+
+
+def kn_checks(record, tag: str, largest, plain_events: int) -> None:
+    """KN on the largest chunk's events of a device-chain run: against
+    ``native.chain_events`` on the whole chunk (families equal; timed: one
+    KN pass at the capacities the chain ended with, the whole device
+    chain, the host chain), and against its plain version (tolerance 0,
+    each check emitting rows) on (a) the bursts that emit rows, shortest
+    first, each of at most PLAIN_LONGEST events, the longest burst too if
+    it is that short, topped up with bursts of at most PLAIN_BURST events
+    in time order, ``plain_events`` events in all; (b) where the longest
+    burst is longer, its first PLAIN_LONGEST events (:func:`burst_prefix`);
+    each also with one arm and one output row (both retries) and with the
+    arms in global scratch. Records KN's row: KN's time, the plain time
+    and the bound on the same checked events, and the chunk's numbers
+    beside them."""
+    import numpy as np
+    import torch
+
+    from asgart_tpu_torch import native
+    from asgart_tpu_torch.chain import (burst_threshold, bursts_from_events,
+                                        chain_rows, families_from_rows)
+    from asgart_tpu_torch.kernels import chain as kc
+
+    def work(e, n_ev, n_m, n_rows):  # events and matches read, rows written
+        return n_ev * 16 + n_m * e.m.element_size() + n_rows * 48
+
+    ev, cfg, st = largest
+    rows, st = chain_rows(ev, cfg)
+    t = burst_threshold(cfg)
+    bs, order = bursts_from_events(ev, t)
+    chain_ms = cuda_ms(lambda: chain_rows(ev, cfg), reps=1)
+    chunk_ms = cuda_ms(lambda: kc.chain_bursts(
+        ev.ev_i, ev.ev_z, ev.m_off, ev.m, ev.m_offset, bs, order,
+        ev.z_trail, t, cfg.probe_size, cfg.step_size, cfg.max_gap_size,
+        cfg.min_duplication_length, st.arms, max(st.rows, 1)), reps=1)
+    ev_i, ev_z, m_off, m = (x.cpu().numpy()
+                            for x in (ev.ev_i, ev.ev_z, ev.m_off, ev.m))
+    m = m.astype(np.int64) + ev.m_offset
+    t0 = time.time()
+    want = native.chain_events(
+        ev_i, ev_z, m_off, m, z_trail=int(ev.z_trail),
+        probe_size=cfg.probe_size, step_size=cfg.step_size,
+        max_gap_size=cfg.max_gap_size,
+        min_duplication_length=cfg.min_duplication_length,
+        max_cardinality=cfg.max_cardinality)
+    host_ms = (time.time() - t0) * 1e3
+    if families_from_rows(rows.cpu().numpy()) != want:
+        raise AssertionError(f"{tag}: KN's families differ from "
+                             "native.chain_events on the largest chunk")
+    # the plain version (one lockstep step per event position, a few ms on
+    # the card) on (a) the bursts that emit rows and (b) the longest
+    # burst's first events; (a) sorted by length, so that the plain
+    # version's lockstep groups of bursts are even
+    lens = (bs[1:] - bs[:-1]).cpu().numpy()
+    b_m = ev.m_off[bs]
+    b_m = (b_m[1:] - b_m[:-1]).cpu().numpy()  # each burst's matches
+    longest = int(order[0])
+    pick, total = [], 0
+    emitting = np.unique((rows[:, 0] >> 32).cpu().numpy()).tolist()
+    for b in sorted(emitting, key=lambda b: (lens[b], b)):
+        if lens[b] > PLAIN_LONGEST or total + lens[b] > plain_events:
+            break
+        pick.append(b)
+        total += int(lens[b])
+    if lens[longest] <= PLAIN_LONGEST and longest not in pick:
+        pick.append(longest)
+        total += int(lens[longest])
+    chosen = set(pick)
+    for b, n_ev in enumerate(lens.tolist()):
+        if total + PLAIN_BURST > plain_events:
+            break
+        if n_ev <= PLAIN_BURST and b not in chosen:
+            pick.append(b)
+            total += n_ev
+    pick.sort(key=lambda b: (lens[b], b))
+    checks = []
+    if pick:
+        checks.append((ev, torch.tensor(pick, dtype=torch.int32,
+                                        device=ev.m.device)))
+    if lens[longest] > PLAIN_LONGEST:
+        checks.append((burst_prefix(ev, bs, longest, PLAIN_LONGEST, t),
+                       None))
+    err, ms, plain_ms, nbytes, tests = 0, 0.0, 0.0, 0, 0
+    n_bursts, n_events, n_rows = 0, 0, 0
+    for e, sub in checks:
+        ids = None if sub is None else sub.long().cpu().numpy()
+        n_sub = e.ev_i.numel() if sub is None else int(lens[ids].sum())
+        n_m = int(e.m_off[-1]) if sub is None else int(b_m[ids].sum())
+        torch.cuda.synchronize()
+        t0 = time.time()
+        want_rows, p_st = chain_rows(e, cfg, kc.chain_bursts_plain, sub)
+        torch.cuda.synchronize()
+        p_ms = (time.time() - t0) * 1e3
+        got, k_st = chain_rows(e, cfg, bursts=sub)
+        k_ms = cuda_ms(lambda: chain_rows(e, cfg, bursts=sub), reps=1)
+        small, s_st = chain_rows(e, cfg._replace(max_arms=1, out_cap=1),
+                                 bursts=sub)
+        limit = kc.SMEM_LIMIT
+        kc.SMEM_LIMIT = 0  # the arms in global scratch
+        try:
+            scratch, _ = chain_rows(e, cfg._replace(max_arms=4), bursts=sub)
+        finally:
+            kc.SMEM_LIMIT = limit
+        for x in (got, small, scratch):
+            err = max(err, max_abs_err((x,), (want_rows,)))
+        if k_st.tests != p_st.tests:
+            raise AssertionError(f"{tag}: KN's test count {k_st.tests} != "
+                                 f"the plain version's {p_st.tests}")
+        what = (f"{k_st.bursts} bursts" if sub is not None else
+                f"the longest burst's first {n_sub} events")
+        print(f"{tag} KN against its plain version on {what} ({n_sub} "
+              f"events, {n_m} matches, {p_st.rows} rows): "
+              f"max_abs_err {err}; one arm and one row: {s_st.passes} "
+              f"passes; KN {k_ms:.3f} ms, plain {p_ms:.1f} ms", flush=True)
+        ms += k_ms
+        plain_ms += p_ms
+        nbytes += work(e, n_sub, n_m, k_st.rows)
+        tests += k_st.tests
+        n_bursts += k_st.bursts
+        n_events += n_sub
+        n_rows += k_st.rows
+    if n_rows == 0:
+        raise AssertionError(f"{tag}: the plain version emitted no row on "
+                             "the checked events: the check compares no "
+                             "family")
+    n_cut = sum(sub is None for _, sub in checks)
+    chunk_bound, _ = bound(work(ev, st.events, st.matches, st.rows),
+                           st.tests)
+    print(f"{tag} KN on the largest chunk ({st.events} events, {st.matches} "
+          f"matches, {st.bursts} bursts, the longest {st.longest} events, "
+          f"{st.tests} native tests, {st.rows} rows, {st.arms} arms): one "
+          f"pass {chunk_ms:.3f} ms (bound {chunk_bound:.3f} ms), the device "
+          f"chain {chain_ms:.3f} ms, the host chain on the same events "
+          f"{host_ms:.3f} ms", flush=True)
+    record("chain_bursts", "chain.cu", "asgart_tpu/chain_jax.py:337", err,
+           ms, plain_ms, f"{n_bursts - n_cut} bursts + {n_cut} cut burst "
+           f"({n_events} events, {n_rows} rows) of a chunk of "
+           f"{st.events} events, {st.matches} matches", nbytes, tests)
+    # the chunk's numbers beside the checked events' (ms, plain_ms and the
+    # bound above): one KN pass, the whole device chain, the host chain
+    record.rows[-1].update(
+        checked_events=n_events, checked_bursts=n_bursts,
+        checked_rows=n_rows, checked_tests=tests, chunk_ms=chunk_ms,
+        chunk_bound_ms=chunk_bound, chain_ms=chain_ms,
+        host_chain_ms=host_ms, events=st.events, matches=st.matches,
+        bursts=st.bursts, longest=st.longest, passes=st.passes,
+        arms=st.arms, tests=st.tests, rows=st.rows)
 
 
 def repeat_genome(n: int):
@@ -1312,7 +1619,8 @@ def table_kernel_checks(fa: str, path: str, settings, device
 
 def run_table_path(fa: str, n_bp: int, device, path: str, settings,
                    work: str, kernels=TABLE, min_sds: int = 1,
-                   min_tied: int = 0, journal_free: bool = True) -> list:
+                   min_tied: int = 0, journal_free: bool = True,
+                   last_chunk: bool = True, plain_events: int = 0) -> list:
     """A ``--checkpoint`` path on the table engine: the kernel checks
     (:func:`table_kernel_checks`; the first tied count must pass
     ``min_tied``), the host engine with a journal, then through the user
@@ -1322,8 +1630,11 @@ def run_table_path(fa: str, n_bp: int, device, path: str, settings,
     launches nothing; (c) a rerun with the journal's last record removed,
     which scans that chunk alone from the cached index (one KM and one KD
     launch); (d) with ``journal_free``, a run without a journal (the fused
-    build). Every JSON must be the host engine's. Returns the kernel rows
-    with the launches of (a)."""
+    build). Every JSON must be the host engine's. Without ``last_chunk``
+    (c) is left out. With ``plain_events``, then a cold journaled run with
+    ``ASGART_DEVICE_CHAIN=1`` (:func:`device_chain_run`, its peak against
+    the route's projection) and :func:`kn_checks`. Returns the kernel rows
+    with the launches of (a) (KN's: of the device-chain run)."""
     import torch
 
     from asgart_tpu_torch import kernels as kmod
@@ -1352,8 +1663,10 @@ def run_table_path(fa: str, n_bp: int, device, path: str, settings,
     INDEX_CACHE.clear()
     torch.cuda.empty_cache()
     runs = {}
-    for run in ("cold", "resumed", "last_chunk", "no_journal")[
-            :4 if journal_free else 3]:
+    for run in ("cold", "resumed", "last_chunk", "no_journal"):
+        if (run == "last_chunk" and not last_chunk) or \
+                (run == "no_journal" and not journal_free):
+            continue
         if run == "last_chunk":
             with open(journal) as fh:
                 lines = fh.read().splitlines()
@@ -1378,7 +1691,9 @@ def run_table_path(fa: str, n_bp: int, device, path: str, settings,
               f"{json.dumps({m: v for m, v in c.items() if v})}")
     n_sds = sum(len(f) for f in json.loads(host)["families"])
     counts = runs["cold"][3]
-    print(f"{tag} JSON {len(host)} bytes, {n_sds} SDs; {len(lines) - 1} "
+    with open(journal) as fh:
+        n_journaled = len(fh.read().splitlines()) - 1
+    print(f"{tag} JSON {len(host)} bytes, {n_sds} SDs; {n_journaled} "
           f"chunks journaled; peak device memory of the cold run {peak} B "
           f"= {peak / n:.2f} B per text row ({n} rows); launches on the "
           f"main path (the cold run): {json.dumps(counts)}", flush=True)
@@ -1397,7 +1712,8 @@ def run_table_path(fa: str, n_bp: int, device, path: str, settings,
     if any(runs["resumed"][3].values()):
         raise AssertionError(f"{tag}: the resumed run launched "
                              f"{runs['resumed'][3]}")
-    last = {m: v for m, v in runs["last_chunk"][3].items() if v}
+    last = {m: v for m, v in runs["last_chunk"][3].items() if v} \
+        if last_chunk else {"table_ranges": 1, "scan_core": 1}
     if last != {"table_ranges": 1, "scan_core": 1}:
         raise AssertionError(f"{tag}: the last chunk's rerun launched "
                              f"{last}, not KM and KD once each")
@@ -1406,6 +1722,28 @@ def run_table_path(fa: str, n_bp: int, device, path: str, settings,
                              "table engine, not the fused build")
     for row in rows:
         row["launches"] = counts[row["name"]]
+    if plain_events:
+        from asgart_tpu_torch.fused_index import TABLE_PEAK_BYTES_PER_ROW
+
+        INDEX_CACHE.clear()
+        torch.cuda.empty_cache()
+        dj = journal + ".device"
+        if os.path.exists(dj):
+            os.remove(dj)
+        dc_counts, dc_largest, dc_peak = device_chain_run(
+            f"device_chain {tag}", lambda prof: search_duplications(
+                [fa], settings, engine="cuda", device=device, profile=prof,
+                checkpoint=dj), host, kernels, device)
+        print(f"device_chain {tag}: peak {dc_peak} B = {dc_peak / n:.2f} B "
+              f"per text row against the host chain's {peak} B and the "
+              f"route's projection {TABLE_PEAK_BYTES_PER_ROW} B per row",
+              flush=True)
+        if dc_peak > TABLE_PEAK_BYTES_PER_ROW * n:
+            raise AssertionError(f"device_chain {tag}: peak {dc_peak} B "
+                                 "passes the table route's projection")
+        kn_checks(recorder(rows, path, k), f"device_chain {tag}",
+                  dc_largest, plain_events)
+        rows[-1]["launches"] = dc_counts["chain_bursts"]
     INDEX_CACHE.clear()
     torch.cuda.empty_cache()
     return rows
@@ -1604,9 +1942,12 @@ def big_whole_checks(tag: str, strand, chunks, settings, window, src: int,
     return rows
 
 
-def run_big_whole(work: str, mbp: float, device) -> list:
-    """The ``big_whole`` path (module docstring, step 4). Returns its
-    kernel rows with their main-path launch counts."""
+def run_big_whole(work: str, mbp: float, device, plain_events: int = 0
+                  ) -> list:
+    """The ``big_whole`` path (module docstring, step 5); with
+    ``plain_events``, a third run with ``ASGART_DEVICE_CHAIN=1`` held to
+    the cold run's JSON (:func:`device_chain_run`) and :func:`kn_checks`.
+    Returns its kernel rows with their main-path launch counts."""
     import logging
 
     import torch
@@ -1724,6 +2065,16 @@ def run_big_whole(work: str, mbp: float, device) -> list:
         raise AssertionError(f"{tag}: the copy past 2^31 came back at {far}")
     for row in rows:
         row["launches"] = counts[row["name"]]
+    if plain_events:
+        INDEX_CACHE.clear()
+        torch.cuda.empty_cache()
+        dc_counts, dc_largest, _ = device_chain_run(
+            f"device_chain {tag}", lambda prof: search_duplications(
+                [fa], s, engine="cuda", device=device, profile=prof), text,
+            MJ, device)
+        kn_checks(recorder(rows, path, k), f"device_chain {tag}",
+                  dc_largest, plain_events)
+        rows[-1]["launches"] = dc_counts["chain_bursts"]
     INDEX_CACHE.clear()
     torch.cuda.empty_cache()
     return rows
@@ -1740,6 +2091,9 @@ def main(argv=None) -> int:
                     help="big_whole genome size in Mbp: at least 1100 (the "
                     "doubled text past 2^31), or 0 to skip the phase "
                     "(default 3100, a whole human genome)")
+    ap.add_argument("--plain-events", type=int, default=PLAIN_EVENTS,
+                    help="events of the bursts on which KN is held to its "
+                    f"plain version (default {PLAIN_EVENTS})")
     args = ap.parse_args(argv)
     if args.big_mbp and args.big_mbp < 1100:
         ap.error("--big-mbp must be 0 or at least 1100")
@@ -1788,8 +2142,12 @@ def main(argv=None) -> int:
     rc = dict(reverse=True, complement=True)
     rows = []
     for k in (20, 25):  # one-word and two-word sort keys
-        rows += run_path(fa, n, device, "whole", RunSettings(probe_size=k,
-                                                            **rc))[0]
+        path_rows, path_host = run_path(fa, n, device, "whole",
+                                        RunSettings(probe_size=k, **rc))
+        rows += path_rows
+        if k == 20:
+            rows += run_device_chain_whole(fa, device, path_host,
+                                           args.plain_events)
     shard_rows, shard_host = run_path(fa, n, device, "shards",
                                       RunSettings(probe_size=20, **rc),
                                       shards=SHARDS, kernels=WINDOW)
@@ -1811,7 +2169,7 @@ def main(argv=None) -> int:
     rows += mj_rows
     rows += run_mj_path(fa, n, device, "mj_shards",
                         RunSettings(probe_size=20, **rc), shards=SHARDS,
-                        host=shard_host)[0]
+                        host=shard_host, plain_events=args.plain_events)[0]
     # the route past int32 addressing (no fused build) on the same windows,
     # held to the host JSON of the mj_trim and shards paths
     rows += run_mj_path(fa, n, device, "big_trim",
@@ -1834,14 +2192,16 @@ def main(argv=None) -> int:
         fh.write(b">chr1\n" + repeat_genome(nr).tobytes() + b"\n")
     print(f"repeats genome: {nr} bp (seed {SEED}) in "
           f"{time.time() - t0:.1f} s", flush=True)
-    # its runs are the host chain's (~40 s each): no journal-free run
+    # its runs are the host chain's (~40 s each): no journal-free run;
+    # then the device chain's journaled run
     rows += run_table_path(rfa, nr, device, "table_repeats",
                            RunSettings(probe_size=20, **rc), work,
                            kernels=TABLE + FULL_ROUNDS,
                            min_tied=(2 * (nr + 1) - 1) // 8,
-                           journal_free=False)
+                           journal_free=False,
+                           plain_events=args.plain_events)
     if args.big_mbp:
-        rows += run_big_whole(work, args.big_mbp, device)
+        rows += run_big_whole(work, args.big_mbp, device, args.plain_events)
     assert "jax" not in sys.modules
     assert not [m for m in sys.modules
                 if m == "asgart_tpu" or m.startswith("asgart_tpu.")]

@@ -18,6 +18,7 @@ run them with::
 Exact comparisons (integers; tolerance 0). No jax is imported here.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -28,9 +29,11 @@ from torch_jax_ref import (TRANSFORMS, chunked_genome, json_text, prepared,
                            vocab_genome)
 
 pytestmark = pytest.mark.cuda
-# the table engine's kernels, which only its build and scan launch
+# the table engine's kernels, which only its build and scan launch, and
+# KN, which runs only with ASGART_DEVICE_CHAIN set
 TABLE_KERNELS = ("invert_tables", "table_ranges", "full_round_keys",
                  "full_round_refine")
+CHAIN_KERNELS = ("chain_bursts",)
 
 
 @pytest.fixture
@@ -124,7 +127,7 @@ def test_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse, complement, k):
     # KL on the table engine (test_table_kernels_equal_plain_on_gpu)
     assert all(after[name] > before[name] for name in after
                if name not in ("offset_slots", "mj_ranges", "unpack_codes",
-                               *TABLE_KERNELS))
+                               *TABLE_KERNELS, *CHAIN_KERNELS))
     if reverse == complement:
         assert n_events > 0
 
@@ -211,7 +214,7 @@ def test_window_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse,
     after = launch_counts()
     assert all(after[name] > before[name] for name in after
                if name not in ("scan_core", "mj_ranges", "unpack_codes",
-                               *TABLE_KERNELS))
+                               *TABLE_KERNELS, *CHAIN_KERNELS))
 
 
 @pytest.mark.parametrize("k", [20, 25])
@@ -306,7 +309,7 @@ def test_mj_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse, complement,
     assert after["offset_slots"] == before["offset_slots"]
     assert all(after[name] > before[name] for name in after
                if name not in ("scan_core", "unpack_codes", "offset_slots",
-                               *TABLE_KERNELS))
+                               *TABLE_KERNELS, *CHAIN_KERNELS))
 
 
 @pytest.mark.parametrize("k", [20, 8])
@@ -485,7 +488,7 @@ def test_big_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse, complement,
     # (test_unpack_codes_equal_plain_on_gpu)
     assert all(after[name] > before[name] for name in after
                if name not in ("offset_slots", "unpack_codes",
-                               *TABLE_KERNELS))
+                               *TABLE_KERNELS, *CHAIN_KERNELS))
     if reverse == complement:
         assert n_events > 0
 
@@ -684,3 +687,141 @@ def test_gpu_table_json_equals_host(tmp_path, gpu, monkeypatch):
                      str(tmp_path / f"{engine}.ckpt"), "--out",
                      str(o)]) == 0
     assert out[0].read_text() == out[1].read_text()
+
+
+def _random_events(rng, n_events: int, step: int, t_split: int,
+                   tracks: int, junk: int):
+    """A synthetic event stream (numpy, ``native.chain_events``'s
+    arguments): probes every ``step`` bases with quiet runs (now and then
+    past ``t_split``, a burst break), each event's matches drawn from
+    ``tracks`` diagonals (arms that extend) and up to ``junk`` random
+    positions (arms that spawn, die and are pruned)."""
+    z = np.where(rng.random(n_events) < 0.03,
+                 rng.integers(t_split, 3 * t_split, n_events),
+                 np.where(rng.random(n_events) < 0.3,
+                          rng.integers(1, t_split, n_events), 0))
+    z[0] = 0
+    pe = np.cumsum((1 + z) * step)
+    diag = rng.integers(10**4, 10**7, tracks)
+    offs, flat = [0], []
+    for i in pe:
+        ms = [int(i + d + rng.integers(-2, 3)) for d in diag
+              if rng.random() < 0.6]
+        ms += [int(x) for x in rng.integers(0, 10**7,
+                                            int(rng.integers(0, junk + 1)))]
+        if not ms:
+            ms = [int(i + diag[0])]
+        flat += ms
+        offs.append(len(flat))
+    return (pe.astype(np.int64), z.astype(np.int64),
+            np.asarray(offs, np.int64), np.asarray(flat, np.int64),
+            int(rng.integers(0, 3 * t_split)))
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_chain_kernel_equals_plain_on_gpu(gpu, monkeypatch, case):
+    """KN against its plain version on the GPU and against
+    ``native.chain_events``, on synthetic event streams (many bursts,
+    in-burst quiet runs, more than 200 arms, matches past 2^31 through
+    ``m_offset``), with the first capacities and with one arm and one
+    output row (both retries), and with the arms in global scratch."""
+    from asgart_tpu_torch import chain, native
+    from asgart_tpu_torch.kernels import chain as kc
+    from asgart_tpu_torch.kernels import launch_counts
+
+    rng = np.random.default_rng(100 + case)
+    k = (20, 8, 14, 20)[case]
+    kw = dict(probe_size=k, step_size=k // 2, max_gap_size=(120, 30, 60,
+                                                            200)[case],
+              min_duplication_length=(1000, 60, 200, 300)[case],
+              max_cardinality=500)
+    cfg = chain.ChainConfig(**kw)
+    ev = _random_events(rng, (3000, 4000, 2000, 1500)[case], k // 2,
+                        chain.burst_threshold(cfg), (3, 6, 12, 40)[case],
+                        (2, 8, 30, 250)[case])
+    off = (0, 2**31 + 5, 0, 3 * 2**31)[case]
+    pe, zb, offs, flat, z_trail = ev
+    want = native.chain_events(pe, zb, offs, flat + off, z_trail=z_trail,
+                               **kw)
+    events = chain.upload_events(*ev, off, gpu)
+    before = launch_counts()["chain_bursts"]
+    plain, p_stats = chain.chain_rows(events, cfg, kc.chain_bursts_plain)
+    assert chain.families_from_rows(plain.cpu().numpy()) == want
+    for caps in (dict(), dict(max_arms=1, out_cap=1)):
+        c = cfg._replace(**caps)
+        rows, stats = chain.chain_rows(events, c)
+        torch.cuda.synchronize()
+        _equal((rows,), (plain,))
+        assert stats.tests == p_stats.tests and stats.bursts > 1
+        if caps:
+            assert stats.passes > 2
+    monkeypatch.setattr(kc, "SMEM_LIMIT", 0)  # arms in global scratch
+    rows, _ = chain.chain_rows(events, cfg._replace(max_arms=4))
+    torch.cuda.synchronize()
+    _equal((rows,), (plain,))
+    assert launch_counts()["chain_bursts"] > before + 3
+    assert want
+
+
+def test_chain_kernel_launch_failure_raises(gpu, monkeypatch):
+    """A launch the card refuses (a block of 2048 threads) raises; nothing
+    falls back to the plain version or to the host chain."""
+    from asgart_tpu_torch import chain
+    from asgart_tpu_torch.kernels import chain as kc
+
+    def no_plain(*a, **kw):
+        raise AssertionError("plain version used for a GPU tensor")
+
+    monkeypatch.setattr(kc, "chain_bursts_plain", no_plain)
+    monkeypatch.setattr(kc, "THREADS", 2048)
+    ev = _random_events(np.random.default_rng(1), 50, 10, 12, 2, 1)
+    cfg = chain.ChainConfig(20, 10, 120, 1000, 500)
+    with pytest.raises(RuntimeError, match="chain_bursts"):
+        chain.chain_rows(chain.upload_events(*ev, 0, gpu), cfg)
+
+
+def test_gpu_device_chain_json_equals_host(tmp_path, gpu, monkeypatch):
+    """ASGART_DEVICE_CHAIN=1: the fused whole genome, the table engine
+    with ``--checkpoint``, trim windows, shards and the merge-join route
+    past int32 addressing write the host engine's bytes; KN runs and the
+    host event chain never does."""
+    from asgart_tpu_torch import native, pipeline
+    from asgart_tpu_torch.fused_index import INDEX_CACHE
+    from asgart_tpu_torch.kernels import launch_counts
+    from asgart_tpu_torch.pipeline import search_duplications
+
+    g = bytearray(chunked_genome())
+    g[500:3560] = g[20500:23560]  # a direct duplication
+    fa, _, _ = prepared(tmp_path, [("chr1", bytes(g))])
+    monkeypatch.setenv("ASGART_DEVICE_CHAIN", "1")
+
+    def no_host_chain(*a, **kw):
+        raise AssertionError("the host chain ran under ASGART_DEVICE_CHAIN")
+
+    monkeypatch.setattr(native, "chain_events", no_host_chain)
+    for reverse, complement in TRANSFORMS:
+        s = RunSettings(reverse=reverse, complement=complement)
+        host = json_text(search_duplications([fa], s, engine="host"))
+        runs = [dict(), dict(checkpoint=str(tmp_path / f"{reverse}"
+                                            f"{complement}.jsonl"))]
+        for kw in runs:
+            INDEX_CACHE.clear()
+            before = launch_counts()["chain_bursts"]
+            assert json_text(search_duplications(
+                [fa], s, engine="cuda", device=gpu, **kw)) == host
+            if reverse == complement:  # R alone or C alone: no event here
+                assert launch_counts()["chain_bursts"] > before
+        trim = RunSettings(reverse=reverse, complement=complement,
+                           trim=(400, 52000))
+        host = json_text(search_duplications([fa], trim, engine="host"))
+        assert json_text(search_duplications(
+            [fa], trim, engine="cuda", device=gpu)) == host
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(pipeline, "BIG_WINDOW_SPAN", 0)
+            assert json_text(search_duplications(
+                [fa], trim, engine="cuda", device=gpu)) == host
+        host = json_text(search_duplications([fa], s, engine="host",
+                                             shards=3))
+        assert json_text(search_duplications(
+            [fa], s, engine="cuda", device=gpu, shards=3)) == host
+    INDEX_CACHE.clear()

@@ -131,7 +131,7 @@ def test_wrappers_take_kernel_path_for_gpu_tensors(monkeypatch):
     version."""
     import importlib
 
-    from asgart_tpu_torch.kernels import (_build, group_bounds,
+    from asgart_tpu_torch.kernels import (_build, chain_bursts, group_bounds,
                                           invert_fused, mj_ranges,
                                           offset_slots, pack_keys, scan_core,
                                           tie_keys, tie_refine, unpack_codes)
@@ -155,7 +155,8 @@ def test_wrappers_take_kernel_path_for_gpu_tensors(monkeypatch):
                     ("ties", "tie_refine_plain"),
                     ("window", "offset_slots_plain"),
                     ("merge_join", "mj_ranges_plain"),
-                    ("codes", "unpack_codes_plain")):
+                    ("codes", "unpack_codes_plain"),
+                    ("chain", "chain_bursts_plain")):
         monkeypatch.setattr(mod(m), name, no_plain)
 
     i32, i64 = torch.int32, torch.int64
@@ -199,3 +200,9 @@ def test_wrappers_take_kernel_path_for_gpu_tensors(monkeypatch):
         unpack_codes(torch.zeros(3, dtype=torch.uint8),
                      torch.zeros(1, dtype=i64),
                      torch.zeros(1, dtype=torch.uint8), 10)
+    with pytest.raises(RuntimeError, match="kernel library"):
+        chain_bursts(torch.zeros(2, dtype=i32), torch.zeros(2, dtype=i32),
+                     torch.arange(3, dtype=i64), torch.ones(2, dtype=i32), 0,
+                     torch.tensor([0, 2]), torch.zeros(1, dtype=i32),
+                     torch.zeros(1, dtype=i32), 12, 20, 10, 120, 1000, 256,
+                     64)

@@ -263,8 +263,8 @@ def test_failing_window_fails_the_run(tmp_path, monkeypatch, phase):
         monkeypatch.setattr(pipeline.FusedEngine, "scan_chunks",
                             failing(pipeline.FusedEngine.scan_chunks))
     else:
-        monkeypatch.setattr(pipeline, "chain_chunk_events",
-                            failing(pipeline.chain_chunk_events))
+        monkeypatch.setattr(pipeline, "families",
+                            failing(pipeline.families))
     monkeypatch.setattr(pipeline, "SearchEngine", None)  # no host fallback
     with pytest.raises(RuntimeError, match="window 2 failed"):
         _port(fa, RunSettings(reverse=True, complement=True), shards=3)
