@@ -8,9 +8,10 @@
 // (:665) and _scan_core_based_group (:636) for the merge-join engine,
 // whose suffix order is window-relative (the three constants rebased by
 // the window start and clamped on the host, as BigWindowEngine._rebased,
-// :2632, computes them); with the slicing
-// helpers _range_granule_totals (:589), _slice_lanes_dyn (:601) and
-// _slice_lanes (:964) made unnecessary.
+// :2632, computes them). A repeat-heavy chunk is scanned slice by slice,
+// each slice a view of the chunk's lanes with j0 at its lane offset
+// (_slice_lanes_dyn, :601, and _slice_lanes, :964, need no kernel; the
+// slice plan's granule totals are KO, csrc/slices.cu).
 //
 // For lane l (probe i = (j0 + l + 1) * step) and each match m = sa[x],
 // x in [lane_lo, lane_hi): keep m when m != i + self_base,

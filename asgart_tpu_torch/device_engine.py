@@ -21,9 +21,31 @@ first rebased to genome positions in int64, :1488-1490). With
 ``ASGART_DEVICE_CHAIN`` set (read at each chain, as ``_chain_merged``
 reads it, :1495) the events stay on the card and KN ``chain_bursts``
 chains them right after the chunk's scan, adding the window start to the
-matches in int64; only the families come back (chain.py). The JAX
-engines' capacity buckets, overflow retries, sliced and grouped dispatch
-and packed downloads are not needed: KD sizes its outputs exactly.
+matches in int64; only the families come back (chain.py).
+
+Sliced dispatch, on every engine (the JAX ``_dispatch_chunk_sliced``,
+:1316, and ``_sliced_windows``, :1394): a chunk whose exact raw total (the
+sum of its lanes' window sizes, which every engine already has) reaches
+``ASGART_DEVICE_SLICE_LANES`` (default 2^26) is scanned as consecutive
+probe slices, so the card holds one slice's KD transient and outputs at a
+time and not the whole chunk's. KO ``granule_totals`` sums the windows
+per granule of 4096 lanes, the host packs granules into slices (a copy of
+``_plan_slices``), and each slice is a view of the chunk's lanes scanned
+by KD with j0 at its lane offset. On the host chain each slice's outputs
+are copied to the host and let go before the next slice is scanned, and
+the parts merge with the aging carry (``_merge_shard_events``, as
+``_collect_chunk`` merges them, :1430); on the device chain the slices
+stay on the card and KP ``gather_flat`` merges them into one buffer in
+KD's layout for KN (the JAX ``_gather_flat``, :1112). Not carried over:
+the JAX engines' capacity buckets and overflow retries (KD sizes its
+outputs exactly, so neither the slices' ``ev_scale`` retries nor the
+``_CAP_CACHE`` marker), grouped dispatch and packed downloads;
+``_slice_caps``' refusal of a slice past ``SLICE_HARD_CAP``, which guards
+the JAX gather of a slice's raw windows (KD never holds them); the slice
+planner's B_GRAN lane cap and ``_fixed_slice_width``'s aligned power-of-two
+slices, which exist for the JAX table padding and static shapes (any
+partition into consecutive slices merges to the same stream); and
+``_sharded_sliced_scan`` (the mesh, A11).
 """
 
 from __future__ import annotations
@@ -37,9 +59,11 @@ from . import native
 from .chain import chain_events_tensors, config_for, events_from_flat
 from .codes import upload_codes
 from .fused_index import INDEX_CACHE, FusedIndex, IndexCache
-from .host_helpers import _merge_shard_events
-from .kernels import mj_ranges, pack_keys, scan_core, table_ranges
-from .kernels.scan_core import fused_bases
+from .host_helpers import (SLICE_GRAN, _merge_shard_events, _plan_slices,
+                           _slice_budget)
+from .kernels import (gather_flat, granule_totals, mj_ranges, pack_keys,
+                      scan_core, table_ranges)
+from .kernels.scan_core import ScanResult, fused_bases
 from .table_index import DeviceIndex
 from .window_index import DeviceWindowIndex, ProbeKeyCache, WindowRanges
 
@@ -117,8 +141,9 @@ class FusedEngine:
 class TableEngine:
     """Engine over a :class:`~asgart_tpu_torch.table_index.DeviceIndex` of
     the whole genome on ``device`` (the JAX ``DeviceEngine`` on one
-    device, without its capacity buckets, pre-passes, slices and packed
-    downloads: KD sizes its outputs exactly). The index is built (or
+    device, without its capacity buckets, pre-passes and packed downloads:
+    KD sizes its outputs exactly; repeat-heavy chunks are sliced as on
+    every engine, :func:`scan_lanes`). The index is built (or
     served from ``cache``) at the first scan, whatever chunks it is asked
     for; ``index`` supplies a prebuilt one (e.g. from
     :mod:`asgart_tpu_torch.convert`)."""
@@ -323,7 +348,11 @@ def device_phase(eng, chunks) -> list:
     n], m int32, z_trail) or None (no event), for the host chain."""
     finish = (lambda res: chain_on_device(res, eng.settings, eng.m_offset)
               ) if device_chain() else host_events
-    return [finish(res) for res in eng.scan_results(chunks)]
+    out = []
+    for res in eng.scan_results(chunks):
+        out.append(finish(res))
+        del res  # let go before the next chunk's scan
+    return out
 
 
 def families(results, settings, m_offset: int = 0) -> list:
@@ -335,44 +364,161 @@ def families(results, settings, m_offset: int = 0) -> list:
             chain_chunk_events([r], settings, m_offset)[0] for r in results]
 
 
+class Sliced:
+    """A chunk scanned as the probe slices of ``plan`` [(lane0, n_lanes,
+    raw total)]: iterating it runs ``scan(lane0, n_lanes)`` (KD on the
+    slice's view of the chunk's lanes) for one slice at a time, so a
+    consumer that lets go of each ``ScanResult`` before asking for the
+    next holds one slice's outputs."""
+
+    def __init__(self, scan, plan: list):
+        self.scan = scan
+        self.plan = plan
+
+    def __iter__(self):
+        for lane0, n, _ in self.plan:
+            yield self.scan(lane0, n)
+
+
+def slice_plan(lane_lo: torch.Tensor, lane_hi: torch.Tensor,
+               lane_mask: torch.Tensor, budget: int) -> list:
+    """The probe slices [(lane0, n_lanes, raw total)] of one chunk's lanes:
+    KO's exact granule totals packed by ``_plan_slices``, the last slice
+    cut at the chunk's last lane."""
+    n = lane_lo.numel()
+    gt = granule_totals(lane_lo, lane_hi, lane_mask, SLICE_GRAN).tolist()
+    return [(lane0, min(nl, n - lane0), t) for lane0, nl, t in
+            _plan_slices(gt, SLICE_GRAN, budget)]
+
+
 def scan_lanes(settings, lanes, sa: torch.Tensor, chunks, bases):
     """KD over each chunk's lane slice of ``lanes`` (a :class:`FusedIndex`
     or a :class:`WindowRanges`: lane_lo, lane_hi, lane_mask, specs, offs)
     against the suffix order ``sa``, with the filter constants
-    ``bases(chunk_start, chunk_len)``: yields each chunk's ``ScanResult``,
-    or None (too short to probe), in chunk order, each before the next
-    chunk's scan."""
+    ``bases(chunk_start, chunk_len)``: yields, in chunk order and each
+    before the next chunk's scan, None (too short to probe), the chunk's
+    ``ScanResult``, or a :class:`Sliced` when the chunk's exact raw total
+    reaches the slice budget (``ASGART_DEVICE_SLICE_LANES``, read at each
+    call); ``scan_lanes.sliced`` counts those chunks.
+
+    The JAX engines slice when the capacity bucket of the total passes the
+    budget; past B_GRAN the buckets are powers of two, so at the default
+    budget (2^26) that is this rule. The JAX table engine adds a 0.1%
+    margin to its float32 estimate (device_engine.py:1575-1576); the
+    totals here are exact, so no margin is added."""
     s = settings
+    budget = _slice_budget()
     n_lanes = {(cs, cl): nc for (cs, cl, nc) in lanes.specs}
     for c in chunks:
         chunk = (int(c[0]), int(c[1]))
         if chunk not in n_lanes:  # too short to probe
             yield None
             continue
-        off = lanes.offs[chunk][0]
-        sl = slice(off, off + n_lanes[chunk])
-        yield scan_core(lanes.lane_lo[sl], lanes.lane_hi[sl],
-                        lanes.lane_mask[sl], sa, *bases(*chunk),
-                        s.max_cardinality, 0, s.probe_size, s.reverse)
+        off, total = lanes.offs[chunk]
+        nc = n_lanes[chunk]
+        lo, hi, mask = (t[off: off + nc] for t in
+                        (lanes.lane_lo, lanes.lane_hi, lanes.lane_mask))
+        consts = bases(*chunk)
+
+        def scan(lane0, n, lo=lo, hi=hi, mask=mask, consts=consts):
+            # j0: the slice's lane offset within the chunk
+            return scan_core(lo[lane0: lane0 + n], hi[lane0: lane0 + n],
+                             mask[lane0: lane0 + n], sa, *consts,
+                             s.max_cardinality, lane0, s.probe_size,
+                             s.reverse)
+
+        if total < budget:
+            yield scan(0, nc)
+            continue
+        scan_lanes.sliced += 1
+        yield Sliced(scan, slice_plan(lo, hi, mask, budget))
+
+
+scan_lanes.sliced = 0
 
 
 def host_events(res):
-    """One device-to-host copy of a chunk's KD result ``res``: (ev int32
-    [3, n], m int32, z_trail), or None (too short to probe, or no
-    event)."""
+    """Device-to-host copies of a chunk's KD result ``res`` (a
+    ``ScanResult``, or a :class:`Sliced` whose slices are each copied and
+    let go before the next slice's scan), merged with the aging carry as
+    the JAX ``_collect_chunk`` merges its parts: (ev int32 [3, n], m
+    int32, z_trail), or None (too short to probe, or no event)."""
     if res is None:
         return None
-    ev, m, z_trail = _merge_shard_events([res.to_host()])
+    parts = []
+    for part in (res if isinstance(res, Sliced) else (res,)):
+        parts.append(part.to_host())
+        del part  # freed before the next slice's scan
+    ev, m, z_trail = _merge_shard_events(parts)
     return None if ev is None else (ev, m, z_trail)
+
+
+def merged_index(parts) -> torch.Tensor:
+    """int64 [3 E + K + 1], on the parts' device: for each entry of the
+    merged buffer of the KD results ``parts`` (E events and K kept matches
+    in all, in ``ScanResult.flat``'s layout [ev_i | ev_z | ev_kept | m |
+    z_trail]), its index in the concatenation of the parts' buffers; the
+    last entry takes the last part's z_trail. Built on the card as an
+    ``arange`` shifted in place run by run (4 S + 1 contiguous runs, each
+    one offset), so nothing but the result is allocated."""
+    dev = parts[0].flat.device
+    E = sum(p.n_events for p in parts)
+    K = sum(p.total_kept for p in parts)
+    base = [0]
+    for p in parts:
+        base.append(base[-1] + p.flat.numel())
+    runs = []  # (length, first source index), in output order
+    for r in range(3):
+        runs += [(p.n_events, b + r * p.n_events)
+                 for p, b in zip(parts, base)]
+    runs += [(p.total_kept, b + 3 * p.n_events) for p, b in zip(parts, base)]
+    runs.append((1, base[-1] - 1))
+    idx = torch.arange(3 * E + K + 1, dtype=torch.int64, device=dev)
+    t0 = 0
+    for n, src in runs:
+        if n and src != t0:
+            idx[t0: t0 + n] += src - t0
+        t0 += n
+    return idx
+
+
+def merge_slices(parts) -> ScanResult:
+    """One ``ScanResult`` of a sliced chunk's KD results ``parts``, on
+    their device: KP gathers the parts' events and matches into one
+    buffer (:func:`merged_index`), then one op on S + 1 values adds the
+    aging carry as ``_merge_shard_events`` does: to each part's first
+    event the quiet probes trailing the part before it (and any part with
+    no event before that), and the same to the last part's z_trail."""
+    E = sum(p.n_events for p in parts)
+    K = sum(p.total_kept for p in parts)
+    flat = gather_flat([p.flat for p in parts], merged_index(parts))
+    # cz[i]: the quiet probes trailing parts 0..i-1; a part with events
+    # receives those since the last part with events before it
+    zt = torch.cat([p.flat[-1:] for p in parts]).to(torch.int64)
+    cz = torch.cat([zt.new_zeros(1), torch.cumsum(zt, 0)])
+    rows, last, e0 = [], 0, 0  # (position in flat, part, carry since)
+    for i, p in enumerate(parts):
+        if p.n_events:
+            rows.append((E + e0, i, last))
+            last, e0 = i, e0 + p.n_events
+    rows.append((3 * E + K, len(parts) - 1, last))  # z_trail
+    pos, at, since = torch.tensor(rows, dtype=torch.int64).to(flat.device).T
+    flat[pos] += (cz[at] - cz[since]).to(torch.int32)
+    return ScanResult(flat, E, K)
 
 
 def chain_on_device(res, settings, m_offset: int = 0) -> list:
     """Raw families of one chunk's KD result ``res`` (None: too short to
-    probe), chained by KN on its device: the events are read in place from
-    ``res.flat``, the matches shifted by ``m_offset`` in int64 inside the
-    kernel, and only the family rows come back. No host chain runs,
-    whatever happens."""
-    if res is None or res.n_events == 0:
+    probe; a :class:`Sliced` chunk: all its slices scanned, then merged by
+    :func:`merge_slices` and let go), chained by KN on its device: the
+    events are read in place from ``res.flat``, the matches shifted by
+    ``m_offset`` in int64 inside the kernel, and only the family rows come
+    back. No host chain runs, whatever happens."""
+    if res is None:
+        return []
+    if isinstance(res, Sliced):
+        res = merge_slices(list(res))
+    if res.n_events == 0:
         return []
     ev = events_from_flat(res.flat, res.n_events, res.total_kept, m_offset)
     return chain_events_tensors(ev, config_for(settings))[0]

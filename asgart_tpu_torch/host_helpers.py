@@ -2,11 +2,13 @@
 
 ``asgart_tpu.device_index`` and ``asgart_tpu.device_engine`` import jax at
 module level, so the port cannot import these from there. Each is a copy
-of its original, named in its docstring; tests/test_torch_host_copies.py
-pins every copy against its original.
+of its original, named in its docstring or in the comment above it;
+tests/test_torch_host_copies.py pins every copy against its original.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -16,6 +18,9 @@ COMP_CODE = np.array([0, 5, 3, 2, 4, 1], dtype=np.uint8)
 
 # Copy of asgart_tpu.device_engine.B_GRAN (device_engine.py:60).
 B_GRAN = 1 << 20
+
+# Copy of asgart_tpu.device_engine.SLICE_GRAN (device_engine.py:478).
+SLICE_GRAN = 4096        # planning granule (probe lanes)
 
 
 def _bucket(n: int, lo: int = 1 << 16) -> int:
@@ -54,7 +59,6 @@ def _strand_fingerprint(data: np.ndarray) -> tuple:
     if n <= slice_bytes:
         h = hashlib.blake2b(buf, digest_size=16)
         return (h.hexdigest(), int(n))
-    import os
     from concurrent.futures import ThreadPoolExecutor
 
     starts = range(0, n, slice_bytes)
@@ -87,3 +91,36 @@ def _merge_shard_events(shard_events):
     if not evs:
         return None, None, carry
     return np.concatenate(evs, axis=1), np.concatenate(ms), carry
+
+
+# Copy of asgart_tpu.device_engine._slice_budget (device_engine.py:481).
+def _slice_budget() -> int:
+    env = os.environ.get("ASGART_DEVICE_SLICE_LANES")
+    return int(env) if env else (1 << 26)
+
+
+# Copy of asgart_tpu.device_engine._plan_slices (device_engine.py:609)
+# without its B_GRAN lane cap, which kept a slice's table reads inside the
+# JAX table padding (`table_pad_for`); KD reads no padded table and takes
+# any lane count.
+def _plan_slices(gran_totals, gran_lanes: int, budget: int):
+    """Greedy-pack consecutive granules into probe slices whose raw
+    totals stay within ``budget`` (a single over-budget granule becomes
+    its own slice). No lane cap: KD reads no padded table. Returns
+    [(lane0, n_lanes, total)] partitioning [0, len*gran_lanes)."""
+    slices = []
+    cur0 = 0
+    cur_lanes = 0
+    cur_tot = 0.0
+    for g, t in enumerate(gran_totals):
+        t = float(t)
+        if cur_lanes and cur_tot + t > budget:
+            slices.append((cur0, cur_lanes, cur_tot))
+            cur0 = g * gran_lanes
+            cur_lanes = 0
+            cur_tot = 0.0
+        cur_lanes += gran_lanes
+        cur_tot += t
+    if cur_lanes:
+        slices.append((cur0, cur_lanes, cur_tot))
+    return slices

@@ -78,6 +78,11 @@ SIGNATURES = {
     "asgart_full_round_keys": [_P, _P, _I64, _I64, _I64, _P, _P],
     # skey, order, sa, n, direct_bound, new_sa, rank, tied, stream
     "asgart_full_round_refine": [_P, _P, _P, _I64, _I64, _P, _P, _P, _P],
+    # lane_lo, lane_hi, lane_mask, n, gran, totals, stream
+    "asgart_granule_totals": [_P, _P, _P, _I64, _I64, _P, _P],
+    # srcs (device pointers), src_off [n_src + 1], n_src, idx, n, out,
+    # stream
+    "asgart_gather_flat": [_P, _P, _I32, _P, _I64, _P, _P],
     # threads, arms_cap, arms_in_smem, blocks (out, host int32)
     "asgart_chain_grid": [_I32, _I32, _I32, _P],
     # ev_i, ev_z, m_off, m, m_is_i64, m_offset, burst_start, order,

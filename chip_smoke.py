@@ -27,9 +27,10 @@
       card, on that path's arrays (KI on the strand's upload; the fused
       build of the genome, or of window 2 of the shards, or of the trim
       window, and its largest chunk's scan; KE/KF on the first, largest
-      tie round; KG on a fused window's final suffix order; KD with the
-      merge-join engine's rebased constants on its window-relative
-      order), requires equal outputs (tolerance 0: all integers), times
+      tie round; KG on a fused window's final suffix order; KA's
+      probe-only mode with its own bound and KD with the merge-join
+      engine's rebased constants on its window-relative order), requires
+      equal outputs (tolerance 0: all integers), times
       both with CUDA events after a warm-up, and gives each kernel its
       bound (the larger of its bytes over the HBM rate and its integer
       operations over the non-tensor-core rate) and the time of one
@@ -70,9 +71,15 @@
    cold run, the path's main run, whose launches are reported and must
    cover every kernel of the path; (b) a rerun that restores every chunk and
    launches nothing; (c) a rerun with the journal's last record removed,
-   which launches KM and KD once each; (d) on the 128 Mbp paths, a run
-   without a journal (the fused build); every JSON byte-equal to the host
-   engine's;
+   which launches KM and KD once each (a sliced chunk: KM, KO once and KD
+   once a slice); (d) on the 128 Mbp paths, a run without a journal (the
+   fused build); every JSON byte-equal to the host engine's. Where a
+   chunk's raw total reaches the slice budget (table_repeats' one chunk at
+   the default 2^26), :func:`sliced_checks` on it: KO and KP against their
+   plain versions, the plan (raw total, slices, the largest slice's raw
+   total), the scan phase's peak sliced and unsliced, and the KP-merged
+   buffer against one unsliced KD launch; its runs then launch KO, and its
+   device-chain run KP;
 5. ``big_whole``: a ``--big-mbp`` genome (default 3100 Mbp, the size of a
    whole human genome, GRCh38's ~3.1 Gbp; at 1100 Mbp and more the
    doubled text passes 2^31, at 2148 Mbp and more the strand too) of
@@ -82,7 +89,8 @@
    the planner must choose the merge-join engine's windows by itself.
    Each kernel against its plain version at offsets past 2^31 (KI on the
    whole strand; KA on the probe lanes of the chunks past 2^31 and the
-   last window's keys past it; KB, KH on 32 M-row slices of the last
+   last window's keys past it, with probe-only mode's own bound; KB, KH
+   on 32 M-row slices of the last
    window, KC and KE/KF on the whole of it, KD on two chunks against the
    last window's rebased constants); each window's build and stage-1
    peaks against the merge-join fit; two runs with equal JSON, the
@@ -92,7 +100,12 @@
    (:func:`gapped_copy`): the strand is dense, so ``upload_codes`` counts
    exceptions part of the way and takes the ``CODE`` LUT; its host time
    against the LUT and pinned copy alone, and its codes against theirs;
-6. the device chain: ``ASGART_DEVICE_CHAIN=1`` set in the process for one
+6. ``whole_sliced`` (:func:`run_whole_sliced`, after the whole k = 20
+   path): the same genome and settings with ``ASGART_DEVICE_SLICE_LANES``
+   at a quarter of the largest chunk's raw total (at least four slices),
+   :func:`sliced_checks` on that chunk, then one run on the host chain and
+   one on the device chain, each held to the whole path's host JSON;
+7. the device chain: ``ASGART_DEVICE_CHAIN=1`` set in the process for one
    more run each of the whole genome at k = 20 (after its path), mj_shards
    (behind a ballast of its own), table_repeats (cold, journaled) and
    big_whole (:func:`device_chain_run`): the JSON must be the path's host
@@ -103,7 +116,7 @@
    rows and on the longest burst's first events, also with one arm and
    one output row (both retries) and with its arms in global scratch; the
    burst count and the longest burst printed;
-7. prints a {"kernels": [...]} line (each kernel once per path, with the
+8. prints a {"kernels": [...]} line (each kernel once per path, with the
    path's name and k; KN's rows: its time, the plain time and the bound
    on the checked bursts, and beside them its chunk's events, bursts,
    native tests, one KN pass over the chunk and the host chain's time on
@@ -511,6 +524,122 @@ def kd_check(record, settings, specs, lane_off, lane_lo, lane_hi, lane_mask,
            9 * nc + 4 * reads + 4 * got.flat.numel(), 8 * reads + 20 * nc)
 
 
+def sliced_checks(record, tag: str, settings, chunk, lanes, sa,
+                  consts) -> list:
+    """The sliced dispatch of one chunk (``chunk`` = (start, len), its
+    ``lanes`` = (lane_lo, lane_hi, lane_mask) views, KD's constants
+    ``consts``) at the slice budget in force (``ASGART_DEVICE_SLICE_LANES``,
+    which must slice it): KO against its plain version; the plan (raw
+    total, slices, the largest slice's raw total); the scan phase's peak on
+    the host chain (``device_engine.host_events``: each slice scanned,
+    copied and let go before the next) against each slice's scan alone
+    and one unsliced KD launch over the same lanes; the host merge and the
+    KP-merged buffer (``merge_slices``, the device chain's) against the
+    unsliced outputs; KP against its plain version and ``torch.take``.
+    Returns the plan."""
+    import numpy as np
+    import torch
+
+    from asgart_tpu_torch import device_engine as de
+    from asgart_tpu_torch.host_helpers import SLICE_GRAN
+    from asgart_tpu_torch.kernels import gather_flat, granule_totals
+    from asgart_tpu_torch.kernels.scan_core import scan_core
+    from asgart_tpu_torch.kernels.slices import (gather_flat_plain,
+                                                 granule_totals_plain)
+    from asgart_tpu_torch.window_index import WindowRanges
+
+    s = settings
+    lo, hi, mask = lanes
+    n = lo.numel()
+    ko = lambda: granule_totals(lo, hi, mask, SLICE_GRAN)  # noqa: E731
+    po = lambda: granule_totals_plain(lo, hi, mask, SLICE_GRAN)  # noqa: E731
+    gt = ko()
+    err = max_abs_err((gt,), (po(),))
+    record("granule_totals", "slices.cu",
+           "asgart_tpu/device_engine.py:589 (+ :167)", err, cuda_ms(ko),
+           cuda_ms(po), f"chunk {chunk}: {n} lanes, {gt.numel()} granules "
+           f"of {SLICE_GRAN}", 9 * n + 8 * gt.numel(), 2 * n)
+    total = int(gt.sum())
+    ranges = WindowRanges(lane_lo=lo, lane_hi=hi, lane_mask=mask,
+                          specs=((*chunk, n),), offs={chunk: (0, total)})
+
+    def sliced():
+        (res,) = de.scan_lanes(s, ranges, sa, [chunk], lambda cs, cl: consts)
+        if not isinstance(res, de.Sliced):
+            raise AssertionError(f"{tag}: chunk {chunk} (raw total {total}) "
+                                 "was not sliced")
+        return res
+
+    plan = sliced().plan
+    big = max(plan, key=lambda p: p[2])
+    print(f"{tag} sliced chunk {chunk}: raw total {total} (budget "
+          f"{de._slice_budget()}), {len(plan)} slices, the largest slice's "
+          f"raw total {big[2]:.0f} ({big[1]} lanes from lane {big[0]})",
+          flush=True)
+
+    def peak(fn):  # (fn's result, its peak above what it found allocated)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - held
+
+    args = (s.max_cardinality, s.probe_size, s.reverse)
+    alone = []
+    for lane0, nl, _ in plan:
+        view = (lo[lane0: lane0 + nl], hi[lane0: lane0 + nl],
+                mask[lane0: lane0 + nl])
+        alone.append(peak(lambda: scan_core(
+            *view, sa, *consts, args[0], lane0, *args[1:]).to_host())[1])
+    host, host_peak = peak(lambda: de.host_events(sliced()))
+    one, one_peak = peak(lambda: scan_core(lo, hi, mask, sa, *consts,
+                                           args[0], 0, *args[1:]))
+    print(f"{tag} scan phase peak on the host chain: sliced {host_peak} B "
+          f"(each slice alone at most {max(alone)} B) against one unsliced "
+          f"KD launch's {one_peak} B ({one.n_events} events, "
+          f"{one.total_kept} matches: {4 * one.flat.numel()} B of outputs)",
+          flush=True)
+    if host_peak > max(alone) + (1 << 20):
+        raise AssertionError(f"{tag}: the sliced scan held more than one "
+                             "slice at a time")
+    want = de.host_events(one)  # None: no event
+    if (host is None) != (want is None) or host is not None and not (
+            all(np.array_equal(a, b) for a, b in zip(host[:2], want[:2]))
+            and host[2] == want[2]):
+        raise AssertionError(f"{tag}: the sliced host events differ from "
+                             "the unsliced scan's")
+    parts, dc_peak = peak(lambda: list(sliced()))
+    merged, merge_peak = peak(lambda: de.merge_slices(parts))
+    err = max_abs_err((merged.flat,), (one.flat,))
+    print(f"{tag} the KP-merged buffer of {len(parts)} slices against one "
+          f"unsliced KD launch: max_abs_err={err}; device-chain scan phase "
+          f"peak: slices {dc_peak} B, then the merge {merge_peak} B above "
+          "them", flush=True)
+    if err or (merged.n_events, merged.total_kept) != (one.n_events,
+                                                       one.total_kept):
+        raise AssertionError(f"{tag}: the KP-merged buffer differs from the "
+                             "unsliced scan's")
+    del merged, one
+    idx = de.merged_index(parts)
+    srcs = [p.flat for p in parts]
+    kp = lambda: gather_flat(srcs, idx)  # noqa: E731
+    pp = lambda: gather_flat_plain(srcs, idx)  # noqa: E731
+    err = max_abs_err((kp(),), (pp(),))
+    src = torch.cat(srcs)
+    lib = lambda: torch.take(src, idx)  # noqa: E731
+    if not torch.equal(lib(), kp()):
+        raise AssertionError(f"torch.take differs from KP on {tag}")
+    m = idx.numel()
+    record("gather_flat", "slices.cu", "asgart_tpu/device_engine.py:1112",
+           err, cuda_ms(kp), cuda_ms(pp), f"{m} entries from {len(srcs)} "
+           f"slices' buffers ({src.numel()} int32)",
+           12 * m + 4 * src.numel(), m, library_ms=cuda_ms(lib))
+    del parts, srcs, src, idx
+    torch.cuda.empty_cache()
+    return plan
+
+
 def json_text(result) -> str:
     from asgart_tpu_torch.exporters import JSONExporter
 
@@ -661,10 +790,13 @@ def mj_kernel_checks(fa: str, path: str, settings, device, trim
     err_p = max_abs_err((pkey, pmask), (*want_key, want_mask))
     del want_key, want_mask
     times = [cuda_ms(f) for f in (kaw, paw, kap, pap)]
+    # probe-only mode's own bound: the strand's codes, 9 B per lane out
+    p_bound, p_by = bound(n1 + 9 * total, total * (4 * k + 8))
     print(f"{tag} KA window keys (W={W}, ws={ws}): max_abs_err={err_w} "
           f"kernel {times[0]:.3f} ms, plain {times[1]:.3f} ms; probe-only "
           f"({total} lanes): max_abs_err={err_p} kernel {times[2]:.3f} ms, "
-          f"plain {times[3]:.3f} ms", flush=True)
+          f"plain {times[3]:.3f} ms, bound {p_bound:.4f} ms ({p_by})",
+          flush=True)
     record("pack_keys", "pack_keys.cu",
            "asgart_tpu/device_engine.py:904 + asgart_tpu/device_index.py:269",
            max(err_w, err_p), times[0] + times[2], times[1] + times[3],
@@ -944,6 +1076,97 @@ def run_device_chain_whole(fa: str, device, host: str,
     rows = []
     kn_checks(recorder(rows, path, k), tag, largest, plain_events)
     rows[-1]["launches"] = counts["chain_bursts"]
+    INDEX_CACHE.clear()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_whole_sliced(fa: str, device, host: str) -> list:
+    """``whole_sliced``: the whole path (the fused engine, k = 20, -RC)
+    with ``ASGART_DEVICE_SLICE_LANES`` set to a quarter of its largest
+    chunk's raw total (halved until that chunk takes at least four
+    slices; any other chunk whose total reaches the budget is sliced too):
+    :func:`sliced_checks` on that chunk; then, each from an empty index
+    cache, a run on the host chain and one on the device chain
+    (:func:`device_chain_run`), each launching every kernel of the whole
+    path and KO (the device chain also KP and KN), with its JSON held to
+    the whole path's host JSON ``host``. Returns the rows of KO and KP with
+    their launches."""
+    import torch
+
+    from asgart_tpu_torch import device_engine as de
+    from asgart_tpu_torch import kernels as kmod
+    from asgart_tpu_torch.fasta import prepare_data
+    from asgart_tpu_torch.fused_index import INDEX_CACHE
+    from asgart_tpu_torch.kernels.scan_core import fused_bases
+    from asgart_tpu_torch.pipeline import search_duplications
+    from asgart_tpu_torch.structs import RunSettings
+
+    path, k = "whole_sliced", 20
+    tag = f"{path} k={k}"
+    s = RunSettings(probe_size=k, reverse=True, complement=True)
+    _, chunks, strand = prepare_data([fa], s.skip_masked, None)
+    INDEX_CACHE.clear()
+    idx = de.FusedEngine(strand, s, device, cache=None).ensure_index(chunks)
+    (cs, cl, nc), (off, total) = max(
+        ((sp, idx.offs[sp[:2]]) for sp in idx.specs),
+        key=lambda x: x[1][1])
+    lanes = tuple(t[off: off + nc] for t in
+                  (idx.lane_lo, idx.lane_hi, idx.lane_mask))
+    # a quarter of the total, halved while the windows' spread across the
+    # granules leaves fewer than four slices
+    budget = total // 4
+    while budget and len(de.slice_plan(*lanes, budget)) < 4:
+        budget //= 2
+    rows = []
+    record = recorder(rows, path, k)
+    before = os.environ.get("ASGART_DEVICE_SLICE_LANES")
+    os.environ["ASGART_DEVICE_SLICE_LANES"] = str(budget)
+    try:
+        plan = sliced_checks(record, tag, s, (cs, cl), lanes, idx.sa,
+                             fused_bases(cs, cl))
+        if len(plan) < 4:
+            raise AssertionError(f"{tag}: {len(plan)} slices, not 4 or more")
+        del idx, lanes
+        torch.cuda.empty_cache()
+        kmod.reset_launch_counts()
+        sliced = de.scan_lanes.sliced
+        prof: dict = {}
+        t0 = time.time()
+        text = json_text(search_duplications(
+            [fa], s, engine="cuda", device=device, profile=prof))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = kmod.launch_counts()
+        sliced = de.scan_lanes.sliced - sliced
+        print(f"{tag} cuda (host chain): {wall:.3f} s wall, phases "
+              f"{json.dumps(prof)}; {sliced} chunks sliced; launches "
+              f"{json.dumps({m: v for m, v in counts.items() if v})}",
+              flush=True)
+        if text != host:
+            raise AssertionError(f"{tag}: the JSON differs from the whole "
+                                 f"path's host JSON ({len(text)} vs "
+                                 f"{len(host)} bytes)")
+        for name in WHOLE + ("granule_totals",):
+            if counts[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched on "
+                                     f"the {tag} main path")
+        if not sliced:
+            raise AssertionError(f"{tag}: no chunk was sliced")
+        INDEX_CACHE.clear()
+        torch.cuda.empty_cache()
+        dc_counts, _, _ = device_chain_run(
+            f"device_chain {tag}", lambda prof: search_duplications(
+                [fa], s, engine="cuda", device=device, profile=prof), host,
+            WHOLE + ("granule_totals", "gather_flat"), device)
+    finally:
+        if before is None:
+            del os.environ["ASGART_DEVICE_SLICE_LANES"]
+        else:
+            os.environ["ASGART_DEVICE_SLICE_LANES"] = before
+    for row in rows:
+        row["launches"] = (dc_counts if row["name"] == "gather_flat"
+                           else counts)[row["name"]]
     INDEX_CACHE.clear()
     torch.cuda.empty_cache()
     return rows
@@ -1459,14 +1682,18 @@ def table_kernel_checks(fa: str, path: str, settings, device
     ``index_put_`` calls), the tie resolution (:func:`table_ties`), KM
     (and torch gathers with the masks) and KD on the largest chunk; the
     step-by-step index against ``DeviceIndex.build``'s, and the build's
-    peak per text row against ``TABLE_PEAK_BYTES_PER_ROW``. Returns
-    (kernel rows, text rows n, first tied count, full rounds)."""
+    peak per text row against ``TABLE_PEAK_BYTES_PER_ROW``; where a
+    chunk's raw total reaches the slice budget, :func:`sliced_checks` on
+    the largest such chunk. Returns (kernel rows, text rows n, first tied
+    count, full rounds, each chunk's slice count, 0 where unsliced)."""
     import torch
 
-    from asgart_tpu_torch.device_engine import chunk_specs
+    from asgart_tpu_torch.device_engine import chunk_specs, slice_plan
     from asgart_tpu_torch.fasta import prepare_data
     from asgart_tpu_torch.fused_index import (TABLE_PEAK_BYTES_PER_ROW,
                                               sort_keys)
+    from asgart_tpu_torch.host_helpers import _slice_budget
+    from asgart_tpu_torch.kernels.scan_core import fused_bases
     from asgart_tpu_torch.kernels import (group_bounds, invert_tables,
                                           pack_keys, table_ranges)
     from asgart_tpu_torch.kernels.group_bounds import (group_bounds_plain,
@@ -1585,7 +1812,21 @@ def table_kernel_checks(fa: str, path: str, settings, device
            library_ms=lib_ms)
     del x, live
     kd_check(record, s, specs, lane_off, lane_lo, lane_hi, lane_mask, sa)
-    del lane_lo, lane_hi, lane_mask
+    # the chunks whose raw totals reach the slice budget: each one's slice
+    # count, and the sliced checks on the largest of them
+    tot = totals.tolist()
+    lanes = [tuple(t[lane_off[c]: lane_off[c] + nc] for t in
+                   (lane_lo, lane_hi, lane_mask))
+             for c, (_, _, nc) in enumerate(specs)]
+    sliced = [c for c in range(len(specs)) if tot[c] >= _slice_budget()]
+    n_slices = {c: len(slice_plan(*lanes[c], _slice_budget()))
+                for c in sliced}
+    if sliced:
+        c = max(sliced, key=lambda i: tot[i])
+        cs, cl, _ = specs[c]
+        sliced_checks(record, tag, s, (cs, cl), lanes[c], sa,
+                      fused_bases(cs, cl))
+    del lane_lo, lane_hi, lane_mask, lanes
 
     # the same index through DeviceIndex.build, alone: its peak per row
     held = (sa, pos_lo, pos_hi)
@@ -1614,7 +1855,8 @@ def table_kernel_checks(fa: str, path: str, settings, device
                              "TABLE_PEAK_BYTES_PER_ROW")
     del held, idx
     torch.cuda.empty_cache()
-    return rows, n, first, rounds
+    return rows, n, first, rounds, [n_slices.get(c, 0)
+                                    for c in range(len(specs))]
 
 
 def run_table_path(fa: str, n_bp: int, device, path: str, settings,
@@ -1643,7 +1885,10 @@ def run_table_path(fa: str, n_bp: int, device, path: str, settings,
 
     k = settings.probe_size
     tag = f"{path} k={k}"
-    rows, n, first, rounds = table_kernel_checks(fa, path, settings, device)
+    rows, n, first, rounds, slices = table_kernel_checks(
+        fa, path, settings, device)
+    if any(slices):  # KO plans the sliced chunks
+        kernels += ("granule_totals",)
     if first <= min_tied:
         raise AssertionError(f"{tag}: first tied count {first} is not "
                              f"above {min_tied}")
@@ -1712,11 +1957,14 @@ def run_table_path(fa: str, n_bp: int, device, path: str, settings,
     if any(runs["resumed"][3].values()):
         raise AssertionError(f"{tag}: the resumed run launched "
                              f"{runs['resumed'][3]}")
+    # KM and KD once, or KM, KO and KD once a slice (a sliced last chunk)
+    want = {"table_ranges": 1, "scan_core": 1} if not slices[-1] else \
+        {"table_ranges": 1, "granule_totals": 1, "scan_core": slices[-1]}
     last = {m: v for m, v in runs["last_chunk"][3].items() if v} \
-        if last_chunk else {"table_ranges": 1, "scan_core": 1}
-    if last != {"table_ranges": 1, "scan_core": 1}:
+        if last_chunk else want
+    if last != want:
         raise AssertionError(f"{tag}: the last chunk's rerun launched "
-                             f"{last}, not KM and KD once each")
+                             f"{last}, not {want}")
     if journal_free and runs["no_journal"][3]["table_ranges"]:
         raise AssertionError(f"{tag}: the run without a journal took the "
                              "table engine, not the fused build")
@@ -1730,10 +1978,16 @@ def run_table_path(fa: str, n_bp: int, device, path: str, settings,
         dj = journal + ".device"
         if os.path.exists(dj):
             os.remove(dj)
+        # a sliced chunk's slices merged on the card by KP
+        dc_kernels = kernels + (("gather_flat",) if "granule_totals" in
+                                kernels else ())
         dc_counts, dc_largest, dc_peak = device_chain_run(
             f"device_chain {tag}", lambda prof: search_duplications(
                 [fa], settings, engine="cuda", device=device, profile=prof,
-                checkpoint=dj), host, kernels, device)
+                checkpoint=dj), host, dc_kernels, device)
+        for row in rows:
+            if row["name"] == "gather_flat":
+                row["launches"] = dc_counts["gather_flat"]
         print(f"device_chain {tag}: peak {dc_peak} B = {dc_peak / n:.2f} B "
               f"per text row against the host chain's {peak} B and the "
               f"route's projection {TABLE_PEAK_BYTES_PER_ROW} B per row",
@@ -1853,12 +2107,17 @@ def big_whole_checks(tag: str, strand, chunks, settings, window, src: int,
                                   R, 0, we + 1 - R)
     err_w = max_abs_err((key[W - R:],), paw()[0])
     times = [cuda_ms(f) for f in (kaw, paw, kap, pap)]
+    # probe-only mode's own bound on the timed lanes: their chunks' codes,
+    # 9 B per lane out
+    p_bound, p_by = bound(sum(cl for _, cl, _ in sub) + 9 * nsub,
+                          nsub * (4 * k + 8))
     print(f"{tag} KA window keys (W={W}, ws={ws}; rows from {we + 1 - R} "
           f"checked): max_abs_err={err_w} kernel {times[0]:.3f} ms, plain "
           f"{times[1]:.3f} ms on {R} rows; probe-only ({total} lanes, "
           f"{nsub} from chunk start {sub[0][0]} checked): "
           f"max_abs_err={err_p} kernel {times[2]:.3f} ms, plain "
-          f"{times[3]:.3f} ms on {nsub} lanes", flush=True)
+          f"{times[3]:.3f} ms, bound {p_bound:.4f} ms ({p_by}) on {nsub} "
+          "lanes", flush=True)
     record("pack_keys", "pack_keys.cu",
            "asgart_tpu/device_engine.py:904 + asgart_tpu/device_index.py:269",
            max(err_w, err_p), times[0] + times[2], times[1] + times[3],
@@ -2148,6 +2407,7 @@ def main(argv=None) -> int:
         if k == 20:
             rows += run_device_chain_whole(fa, device, path_host,
                                            args.plain_events)
+            rows += run_whole_sliced(fa, device, path_host)
     shard_rows, shard_host = run_path(fa, n, device, "shards",
                                       RunSettings(probe_size=20, **rc),
                                       shards=SHARDS, kernels=WINDOW)

@@ -8,7 +8,9 @@ small ``tied_cap``, KM, KD on its lanes), and the port's JSON on the GPU
 against the host engine (whole genome, trim windows and ``shards``, on the
 fused build, on the table engine with and without ``--checkpoint``, on
 the merge-join engine with its route chosen by free memory alone, and past
-int32 addressing). The
+int32 addressing), and the sliced dispatch of a repeat-heavy chunk (KO
+and KP against their plain versions, a sliced scan against one unsliced
+KD launch, and the JSON of sliced runs on both chains and journaled). The
 kernels have no CPU mode, so without a CUDA GPU these tests skip. On a
 machine with a GPU (and without jax, which tests/conftest.py imports),
 run them with::
@@ -25,15 +27,18 @@ import torch
 from asgart_tpu_torch.index import CODE
 from asgart_tpu_torch.structs import RunSettings
 
-from torch_jax_ref import (TRANSFORMS, chunked_genome, json_text, prepared,
+from torch_jax_ref import (TRANSFORMS, chunked_genome, granule_lanes,
+                           json_text, prepared, satellite_genome,
                            vocab_genome)
 
 pytestmark = pytest.mark.cuda
-# the table engine's kernels, which only its build and scan launch, and
-# KN, which runs only with ASGART_DEVICE_CHAIN set
+# the table engine's kernels, which only its build and scan launch, KN,
+# which runs only with ASGART_DEVICE_CHAIN set, and KO / KP, which run
+# only on chunks whose raw totals reach the slice budget
 TABLE_KERNELS = ("invert_tables", "table_ranges", "full_round_keys",
                  "full_round_refine")
 CHAIN_KERNELS = ("chain_bursts",)
+SLICE_KERNELS = ("granule_totals", "gather_flat")
 
 
 @pytest.fixture
@@ -127,7 +132,8 @@ def test_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse, complement, k):
     # KL on the table engine (test_table_kernels_equal_plain_on_gpu)
     assert all(after[name] > before[name] for name in after
                if name not in ("offset_slots", "mj_ranges", "unpack_codes",
-                               *TABLE_KERNELS, *CHAIN_KERNELS))
+                               *TABLE_KERNELS, *CHAIN_KERNELS,
+                               *SLICE_KERNELS))
     if reverse == complement:
         assert n_events > 0
 
@@ -214,7 +220,8 @@ def test_window_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse,
     after = launch_counts()
     assert all(after[name] > before[name] for name in after
                if name not in ("scan_core", "mj_ranges", "unpack_codes",
-                               *TABLE_KERNELS, *CHAIN_KERNELS))
+                               *TABLE_KERNELS, *CHAIN_KERNELS,
+                               *SLICE_KERNELS))
 
 
 @pytest.mark.parametrize("k", [20, 25])
@@ -309,7 +316,8 @@ def test_mj_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse, complement,
     assert after["offset_slots"] == before["offset_slots"]
     assert all(after[name] > before[name] for name in after
                if name not in ("scan_core", "unpack_codes", "offset_slots",
-                               *TABLE_KERNELS, *CHAIN_KERNELS))
+                               *TABLE_KERNELS, *CHAIN_KERNELS,
+                               *SLICE_KERNELS))
 
 
 @pytest.mark.parametrize("k", [20, 8])
@@ -488,7 +496,8 @@ def test_big_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse, complement,
     # (test_unpack_codes_equal_plain_on_gpu)
     assert all(after[name] > before[name] for name in after
                if name not in ("offset_slots", "unpack_codes",
-                               *TABLE_KERNELS, *CHAIN_KERNELS))
+                               *TABLE_KERNELS, *CHAIN_KERNELS,
+                               *SLICE_KERNELS))
     if reverse == complement:
         assert n_events > 0
 
@@ -824,4 +833,103 @@ def test_gpu_device_chain_json_equals_host(tmp_path, gpu, monkeypatch):
                                              shards=3))
         assert json_text(search_duplications(
             [fa], s, engine="cuda", device=gpu, shards=3)) == host
+    INDEX_CACHE.clear()
+
+
+def test_slices_kernels_equal_plain_on_gpu(gpu):
+    """KO on whole and partial granules of several sizes and KP on a
+    source of one and of three buffers, against their plain versions."""
+    from asgart_tpu_torch.kernels import (gather_flat, granule_totals,
+                                          launch_counts)
+    from asgart_tpu_torch.kernels.slices import (gather_flat_plain,
+                                                 granule_totals_plain)
+
+    rng = np.random.default_rng(31)
+    kinds = ["event", "quiet", "over", "event", "quiet"]
+    n = 5 * 4096 - 77
+    lanes = [torch.from_numpy(a).to(gpu)
+             for a in granule_lanes(rng, kinds, n, 4096)[:3]]
+    before = launch_counts()
+    for gran in (4096, 64, 1000, 1):
+        for m in (n, 1, 0):
+            part = [t[:m] for t in lanes]
+            _equal([granule_totals(*part, gran)],
+                   [granule_totals_plain(*part, gran)])
+    srcs = [torch.from_numpy(rng.integers(-2**31, 2**31, m, dtype=np.int64)
+                             .astype(np.int32)).to(gpu)
+            for m in (1000, 1, 70000)]
+    for k in (1, 3):
+        total = sum(t.numel() for t in srcs[:k])
+        idx = torch.from_numpy(rng.integers(0, total, 200000)).to(gpu)
+        _equal([gather_flat(srcs[:k], idx)],
+               [gather_flat_plain(srcs[:k], idx)])
+    after = launch_counts()
+    assert after["granule_totals"] == before["granule_totals"] + 8
+    assert after["gather_flat"] == before["gather_flat"] + 2
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_sliced_scan_equals_unsliced_on_gpu(gpu, monkeypatch, packed):
+    """A chunk's lanes scanned as slices (every granule its own, or
+    granules packed up to the largest one's total) merge, by KP on the
+    card and on the host, to one unsliced KD launch's outputs."""
+    from asgart_tpu_torch import device_engine
+    from asgart_tpu_torch.kernels import granule_totals, scan_core
+    from asgart_tpu_torch.window_index import WindowRanges
+
+    rng = np.random.default_rng(37)
+    kinds = ["event", "quiet", "quiet", "event", "over", "event", "event"]
+    n = 7 * 4096 - 999
+    lo, hi, mask, sa = (torch.from_numpy(a).to(gpu) for a in
+                        granule_lanes(rng, kinds, n, 4096))
+    want = scan_core(lo, hi, mask, sa, 0, 0, 0, 8, 0, 20, False)
+    chunk = (0, 2 * n * 10)
+    lanes = WindowRanges(lane_lo=lo, lane_hi=hi, lane_mask=mask,
+                         specs=((*chunk, n),), offs={chunk: (0, 1 << 40)})
+    budget = int(granule_totals(lo, hi, mask).max()) if packed else 0
+    monkeypatch.setenv("ASGART_DEVICE_SLICE_LANES", str(budget))
+    s = RunSettings(max_cardinality=8)
+    (res,) = device_engine.scan_lanes(s, lanes, sa, [chunk],
+                                      lambda cs, cl: (0, 0, 0))
+    parts = list(res)
+    assert len(parts) > 1 and any(p.n_events == 0 for p in parts)
+    merged = device_engine.merge_slices(parts)
+    assert (merged.n_events, merged.total_kept) == (want.n_events,
+                                                    want.total_kept)
+    _equal([merged.flat], [want.flat])
+    got, ref = device_engine.host_events(res), device_engine.host_events(want)
+    assert all(np.array_equal(a, b) for a, b in zip(got, ref))
+
+
+def test_gpu_sliced_json_equals_host(tmp_path, gpu, monkeypatch):
+    """tests/test_device_engine.py:376's satellite genome, direct and -RC,
+    sliced (budget 256, 64-lane granules): the fused engine on both chains
+    and the table engine with ``--checkpoint`` write the host engine's
+    bytes, launching KO (and KP on the device chain)."""
+    from asgart_tpu_torch import device_engine
+    from asgart_tpu_torch.fused_index import INDEX_CACHE
+    from asgart_tpu_torch.kernels import launch_counts
+    from asgart_tpu_torch.pipeline import search_duplications
+    from util import write_fasta
+
+    fa = tmp_path / "g.fa"
+    write_fasta(fa, [("chr1", satellite_genome(np.random.default_rng(11)))])
+    fa = str(fa)
+    monkeypatch.setenv("ASGART_DEVICE_SLICE_LANES", "256")
+    monkeypatch.setattr(device_engine, "SLICE_GRAN", 64)
+    for rc in (False, True):
+        s = RunSettings(min_duplication_length=500, max_cardinality=500,
+                        reverse=rc, complement=rc)
+        host = json_text(search_duplications([fa], s, engine="host"))
+        for chain, kw in (("", {}), ("1", {}),
+                          ("", dict(checkpoint=str(tmp_path / f"{rc}.j")))):
+            monkeypatch.setenv("ASGART_DEVICE_CHAIN", chain)
+            INDEX_CACHE.clear()
+            before = launch_counts()
+            assert json_text(search_duplications(
+                [fa], s, engine="cuda", device=gpu, **kw)) == host
+            after = launch_counts()
+            assert after["granule_totals"] > before["granule_totals"]
+            assert (after["gather_flat"] > before["gather_flat"]) == \
+                bool(chain)
     INDEX_CACHE.clear()

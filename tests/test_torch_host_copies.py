@@ -165,6 +165,51 @@ def test_comp_code_and_b_gran():
     assert hh.B_GRAN == de.B_GRAN
 
 
+def test_slice_gran_and_budget(monkeypatch):
+    assert hh.SLICE_GRAN == de.SLICE_GRAN
+    assert _diff(inspect.getsource(de._slice_budget),
+                 inspect.getsource(hh._slice_budget)) == ((), ())
+    for env in (None, "256", "8192", str(1 << 30)):
+        if env is None:
+            monkeypatch.delenv("ASGART_DEVICE_SLICE_LANES", raising=False)
+        else:
+            monkeypatch.setenv("ASGART_DEVICE_SLICE_LANES", env)
+        assert hh._slice_budget() == de._slice_budget()
+
+
+# the lines of _plan_slices that the port drops with its B_GRAN lane cap
+# (which kept a slice's table reads inside the JAX table padding)
+PLAN_SLICES_DIFF = (
+    ("its own slice). Slices are also capped at B_GRAN lanes so their",
+     "table reads stay inside the `table_pad_for` slack. Returns",
+     "if cur_lanes and (cur_tot + t > budget",
+     "or cur_lanes + gran_lanes > B_GRAN):"),
+    ("its own slice). No lane cap: KD reads no padded table. Returns",
+     "if cur_lanes and cur_tot + t > budget:"))
+
+
+def test_plan_slices():
+    """The copy differs from the original by the lane cap alone, and
+    equals it wherever the cap does not bind (at most B_GRAN lanes in
+    all); past it the copy's slices are unions of the original's."""
+    assert _diff(inspect.getsource(de._plan_slices),
+                 inspect.getsource(hh._plan_slices)) == PLAN_SLICES_DIFF
+    rng = np.random.default_rng(8)
+    cap_granules = de.B_GRAN // de.SLICE_GRAN
+    for trial in range(200):
+        n = int(rng.integers(1, cap_granules + 1))
+        gt = rng.integers(0, 1000, n) * (rng.random(n) < 0.8)
+        gt = gt.astype(np.float32)
+        budget = int(rng.choice([0, 1, 500, 999, 1000, 5000, 10**6]))
+        assert hh._plan_slices(gt, de.SLICE_GRAN, budget) == \
+            de._plan_slices(gt, de.SLICE_GRAN, budget), (trial, budget)
+    gt = np.ones(3 * cap_granules, np.float32)
+    assert de._plan_slices(gt, de.SLICE_GRAN, 10**9) == [
+        (i * de.B_GRAN, de.B_GRAN, float(cap_granules)) for i in range(3)]
+    assert hh._plan_slices(gt, de.SLICE_GRAN, 10**9) == [
+        (0, 3 * de.B_GRAN, float(3 * cap_granules))]
+
+
 def test_bucket():
     ns = list(range(0, 5000, 7)) + [(1 << 16) - 1, 1 << 16, (1 << 16) + 1,
                                     (1 << 20) - 1, 1 << 20, (1 << 20) + 1,

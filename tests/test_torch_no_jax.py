@@ -131,7 +131,8 @@ def test_wrappers_take_kernel_path_for_gpu_tensors(monkeypatch):
     version."""
     import importlib
 
-    from asgart_tpu_torch.kernels import (_build, chain_bursts, group_bounds,
+    from asgart_tpu_torch.kernels import (_build, chain_bursts, gather_flat,
+                                          granule_totals, group_bounds,
                                           invert_fused, mj_ranges,
                                           offset_slots, pack_keys, scan_core,
                                           tie_keys, tie_refine, unpack_codes)
@@ -156,7 +157,9 @@ def test_wrappers_take_kernel_path_for_gpu_tensors(monkeypatch):
                     ("window", "offset_slots_plain"),
                     ("merge_join", "mj_ranges_plain"),
                     ("codes", "unpack_codes_plain"),
-                    ("chain", "chain_bursts_plain")):
+                    ("chain", "chain_bursts_plain"),
+                    ("slices", "granule_totals_plain"),
+                    ("slices", "gather_flat_plain")):
         monkeypatch.setattr(mod(m), name, no_plain)
 
     i32, i64 = torch.int32, torch.int64
@@ -206,3 +209,9 @@ def test_wrappers_take_kernel_path_for_gpu_tensors(monkeypatch):
                      torch.tensor([0, 2]), torch.zeros(1, dtype=i32),
                      torch.zeros(1, dtype=i32), 12, 20, 10, 120, 1000, 256,
                      64)
+    with pytest.raises(RuntimeError, match="kernel library"):
+        granule_totals(torch.zeros(5, dtype=i32), torch.ones(5, dtype=i32),
+                       torch.ones(5, dtype=torch.bool), 2)
+    with pytest.raises(RuntimeError, match="kernel library"):
+        gather_flat([torch.arange(4, dtype=i32), torch.arange(3, dtype=i32)],
+                    torch.tensor([6, 0, 3]))

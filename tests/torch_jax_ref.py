@@ -119,6 +119,52 @@ def vocab_genome(seed: int = 34, tiles: int = 1500) -> bytes:
     return b"".join(vocab[t] for t in picks)
 
 
+def satellite_genome(rng, n: int = 40000) -> bytes:
+    """tests/test_device_window.py:387's genome (built the same way inline
+    at tests/test_device_engine.py:386-397): a 40-mer satellite repeated
+    over 10 kb (a raw-match explosion), a reverse-complement copy of part
+    of it, and a plain 2 kb duplication."""
+    g = bytearray(random_dna(rng, n, b"ACGT"))
+    unit = random_dna(rng, 40, b"ACGT")
+    g[15000:25000] = (unit * 250)[:10000]
+    g[5000:9000] = revcomp(bytes(g[15000:19000]))
+    g[30000:32000] = bytes(g[2000:4000])
+    return bytes(g)
+
+
+def granule_lanes(rng, kinds, n: int, gran: int, k: int = 20,
+                  max_cardinality: int = 8):
+    """One chunk's probe lanes (lane_lo, lane_hi int32, lane_mask bool, as
+    numpy) over the identity suffix order ``sa`` (int32 numpy), for KD
+    with the constants (0, 0, 0) direct: granule g of ``gran`` lanes (the
+    last one cut at ``n``) holds lanes of ``kinds[g]``: "event" (windows
+    above the probe, at most ``max_cardinality`` wide, with a quiet lane
+    in four), "quiet" (windows at and below the probe: nothing kept),
+    "over" (more than ``max_cardinality`` kept: neither event nor quiet);
+    one lane in eight is masked out."""
+    step = k // 2
+    lo = np.zeros(n, np.int64)
+    hi = np.zeros(n, np.int64)
+    i = (np.arange(n) + 1) * step
+    for g, kind in enumerate(kinds):
+        s = slice(g * gran, min(n, (g + 1) * gran))
+        m = s.stop - s.start
+        r = rng.integers(1, 40, m)
+        w = rng.integers(1, max_cardinality + 1, m)
+        if kind == "event":
+            quiet = rng.random(m) < 0.25
+            lo[s] = np.where(quiet, np.maximum(i[s] - r, 0), i[s] + r)
+            hi[s] = np.where(quiet, i[s] + 1, i[s] + r + w)
+        elif kind == "quiet":
+            lo[s], hi[s] = np.maximum(i[s] - r, 0), i[s] + 1
+        else:  # "over"
+            lo[s], hi[s] = i[s] + r, i[s] + r + max_cardinality + w
+    mask = rng.random(n) >= 0.125
+    lo, hi = np.where(mask, lo, 0), np.where(mask, hi, 0)
+    sa = np.arange(int(hi.max()) + 1, dtype=np.int32)
+    return lo.astype(np.int32), hi.astype(np.int32), mask, sa
+
+
 def prepared(tmp_path, records, skip_masked: bool = False):
     """(chunks, strand) of a FASTA holding ``records``."""
     fa = tmp_path / "g.fa"
