@@ -5,6 +5,9 @@ of its own), with ``--engine`` choosing ``host`` or ``cuda``::
 
     python -m asgart_tpu_torch.cli.main genome.fa -R -C --engine cuda \\
         --out out.json
+
+``--hosts N`` runs the ``--shards`` windows as worker processes of this
+CLI, N at a time (``multihost.py``, as the JAX CLI does).
 """
 
 from __future__ import annotations
@@ -112,10 +115,18 @@ def _main(argv=None) -> int:
         trim=tuple(args.trim) if args.trim else None,
     )
     prof: dict = {}
-    result = search_duplications(
-        args.strands, settings, engine=args.engine,
-        checkpoint=args.checkpoint, shards=args.shards, hosts=args.hosts,
-        index_cache=args.index_cache, profile=prof)
+    if args.hosts > 1:
+        from ..multihost import search_duplications_multihost
+
+        shards = args.shards if args.shards > 1 else args.hosts
+        result = search_duplications_multihost(
+            args.strands, settings, shards=shards, hosts=args.hosts,
+            engine=args.engine)
+    else:
+        result = search_duplications(
+            args.strands, settings, engine=args.engine,
+            checkpoint=args.checkpoint, shards=args.shards,
+            index_cache=args.index_cache, profile=prof)
     if args.profile:
         print(json.dumps(prof), file=sys.stderr)
 

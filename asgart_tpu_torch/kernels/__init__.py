@@ -9,6 +9,7 @@ from .invert import invert_fused
 from .merge_join import mj_ranges
 from .pack_keys import pack_keys
 from .scan_core import scan_core
+from .seed import equal_range, gather_ranges, pack_probe_planes
 from .slices import gather_flat, granule_totals
 from .tables import invert_tables, table_ranges
 from .ties import full_round_keys, full_round_refine, tie_keys, tie_refine
@@ -17,7 +18,8 @@ from .window import offset_slots
 KERNELS = (unpack_codes, pack_keys, group_bounds, invert_fused, tie_keys,
            tie_refine, offset_slots, mj_ranges, scan_core, invert_tables,
            table_ranges, full_round_keys, full_round_refine, chain_bursts,
-           granule_totals, gather_flat)
+           granule_totals, gather_flat, equal_range, gather_ranges,
+           pack_probe_planes)
 
 
 def launch_counts() -> dict:

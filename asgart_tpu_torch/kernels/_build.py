@@ -83,6 +83,13 @@ SIGNATURES = {
     # srcs (device pointers), src_off [n_src + 1], n_src, idx, n, out,
     # stream
     "asgart_gather_flat": [_P, _P, _I32, _P, _I64, _P, _P],
+    # keys, n, bucket_starts, key_shift (-1: no buckets), probes, b, steps,
+    # lo, hi, stream
+    "asgart_equal_range": [_P, _I64, _P, _I32, _P, _I64, _I32, _P, _P, _P],
+    # lo_src, hi_src, stride, x, b, lo, hi, stream
+    "asgart_gather_ranges": [_P, _P, _I64, _P, _I64, _P, _P, _P],
+    # codes, pos, b, k, hi, lo, stream
+    "asgart_pack_probe_planes": [_P, _P, _I64, _I32, _P, _P, _P],
     # threads, arms_cap, arms_in_smem, blocks (out, host int32)
     "asgart_chain_grid": [_I32, _I32, _I32, _P],
     # ev_i, ev_z, m_off, m, m_is_i64, m_offset, burst_start, order,

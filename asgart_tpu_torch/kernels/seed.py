@@ -1,0 +1,196 @@
+"""KQ ``equal_range``, KR ``gather_ranges`` and KS ``pack_probe_planes``:
+the seed lookups of ``SearchEngine(engine="cuda")`` (``seed.py``).
+
+Kernels: ``csrc/seed.cu`` (see its header for what each replaces in the
+JAX package and how it is bounded). ``equal_range_plain``,
+``gather_ranges_plain`` and ``pack_probe_planes_plain`` are the same
+functions in plain PyTorch. Before a wrapper launches, it checks that
+every row its kernel reads lies inside its array (one ``aminmax`` over
+each index input, read on the host): a CUDA read past an array's end reads
+other memory, where the JAX programs' gathers clamp.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+LO_BITS = 30  # the JAX low key plane's width (asgart_tpu/seed.py:36)
+
+
+def _extremes(*tensors) -> list:
+    """[min, max, ...] of each non-empty tensor, with one host read."""
+    return torch.stack([v for t in tensors
+                        for v in torch.aminmax(t)]).tolist()
+
+
+def _contiguous(name: str, **tensors) -> None:
+    for arg, (t, dt) in tensors.items():
+        if t.dtype != dt or t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be a contiguous 1-D "
+                             f"{dt} tensor")
+
+
+def equal_range(keys: torch.Tensor, bucket_starts: torch.Tensor,
+                probes: torch.Tensor, steps: int, prefix_shift: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(lo, hi) int64 [B]: for each packed probe of ``probes`` (int64 [B])
+    the rows [lo, hi) of ``keys`` (int64 [N], sorted) equal to it, searched
+    in the probe's prefix bucket, rows ``bucket_starts[p]`` to
+    ``bucket_starts[p + 1]`` (int32) of ``p = probe >> (prefix_shift +
+    LO_BITS)``, or in all N rows when ``prefix_shift`` < 0, by at most
+    ``steps`` halvings on each side: the JAX ``equal_range`` on one-word
+    keys, whose ``prefix_shift`` applies to the high plane."""
+    _contiguous("equal_range", keys=(keys, torch.int64),
+                bucket_starts=(bucket_starts, torch.int32),
+                probes=(probes, torch.int64))
+    if steps < 0:
+        raise ValueError(f"equal_range: bad steps {steps}")
+    cuda = _build.on_cuda(keys, bucket_starts, probes)
+    B, N = probes.numel(), keys.numel()
+    if B == 0:
+        return (torch.empty(0, dtype=torch.int64, device=probes.device),
+                torch.empty(0, dtype=torch.int64, device=probes.device))
+    key_shift = prefix_shift + LO_BITS if prefix_shift >= 0 else -1
+    if key_shift >= 0:
+        if bucket_starts.numel() < 2:
+            raise ValueError("equal_range: no bucket table")
+        pmin, pmax, bmin, bmax = _extremes(probes, bucket_starts)
+        if pmin < 0 or (pmax >> key_shift) > bucket_starts.numel() - 2 \
+                or bmin < 0 or bmax > N:
+            raise ValueError("equal_range: a probe's bucket or a bucket "
+                             "bound lies outside its array")
+    if not cuda:
+        return equal_range_plain(keys, bucket_starts, probes, steps,
+                                 prefix_shift)
+    lo = torch.empty(B, dtype=torch.int64, device=probes.device)
+    hi = torch.empty(B, dtype=torch.int64, device=probes.device)
+    lib = _build.lib()
+    equal_range.launches += 1
+    _build.check(lib.asgart_equal_range(
+        keys.data_ptr(), N, bucket_starts.data_ptr(), key_shift,
+        probes.data_ptr(), B, steps, lo.data_ptr(), hi.data_ptr(),
+        _build.stream_of(probes)), "equal_range")
+    return lo, hi
+
+
+equal_range.launches = 0
+
+
+def equal_range_plain(keys, bucket_starts, probes, steps: int,
+                      prefix_shift: int):
+    """Plain PyTorch version of the KQ kernel (the JAX loop: a lane stops
+    moving once its interval is empty)."""
+    if prefix_shift >= 0:
+        prefix = probes >> (prefix_shift + LO_BITS)
+        lo0 = bucket_starts[prefix].long()
+        hi0 = bucket_starts[prefix + 1].long()
+    else:
+        lo0 = torch.zeros_like(probes)
+        hi0 = torch.full_like(probes, keys.numel())
+
+    def search(right: bool):
+        lo, hi = lo0, hi0
+        for _ in range(steps):
+            live = lo < hi
+            if not bool(live.any()):
+                break
+            mid = (lo + hi) >> 1
+            key = keys[torch.where(live, mid, 0)]
+            go_right = key <= probes if right else key < probes
+            lo = torch.where(live & go_right, mid + 1, lo)
+            hi = torch.where(live & ~go_right, mid, hi)
+        return lo
+
+    return search(False), search(True)
+
+
+def gather_ranges(lo_src: torch.Tensor, hi_src: torch.Tensor,
+                  x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(lo_src[x], hi_src[x]) as int64 [B]: ``lo_src`` and ``hi_src`` are
+    int32 [n] tensors of one stride (two tables, or the two columns of an
+    [n, 2] row table), ``x`` int64 [B] in [0, n)."""
+    _contiguous("gather_ranges", x=(x, torch.int64))
+    n = lo_src.numel()
+    if lo_src.dtype != torch.int32 or hi_src.dtype != torch.int32 \
+            or lo_src.dim() != 1 or hi_src.shape != lo_src.shape \
+            or hi_src.stride() != lo_src.stride() or lo_src.stride(0) < 1:
+        raise ValueError("gather_ranges: the sources must be int32 [n] "
+                         "tensors of one positive stride")
+    cuda = _build.on_cuda(lo_src, hi_src, x)
+    B = x.numel()
+    if B == 0:
+        return (torch.empty(0, dtype=torch.int64, device=x.device),
+                torch.empty(0, dtype=torch.int64, device=x.device))
+    xmin, xmax = _extremes(x)
+    if xmin < 0 or xmax >= n:
+        raise ValueError(f"gather_ranges: an index lies outside [0, {n})")
+    if not cuda:
+        return gather_ranges_plain(lo_src, hi_src, x)
+    lo = torch.empty(B, dtype=torch.int64, device=x.device)
+    hi = torch.empty(B, dtype=torch.int64, device=x.device)
+    lib = _build.lib()
+    gather_ranges.launches += 1
+    _build.check(lib.asgart_gather_ranges(
+        lo_src.data_ptr(), hi_src.data_ptr(), lo_src.stride(0),
+        x.data_ptr(), B, lo.data_ptr(), hi.data_ptr(), _build.stream_of(x)),
+        "gather_ranges")
+    return lo, hi
+
+
+gather_ranges.launches = 0
+
+
+def gather_ranges_plain(lo_src, hi_src, x):
+    """Plain PyTorch version of the KR kernel."""
+    return lo_src[x].long(), hi_src[x].long()
+
+
+def pack_probe_planes(codes: torch.Tensor, positions: torch.Tensor, k: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) int32 [B]: the k codes of ``codes`` (uint8) from each of
+    ``positions`` (int64 [B]) folded 3 bits at a time, the first max(k -
+    10, 0) into ``hi`` and the rest into ``lo``; every ``position + k``
+    must lie within ``codes`` (a needle's codes padded by k)."""
+    _contiguous("pack_probe_planes", codes=(codes, torch.uint8),
+                positions=(positions, torch.int64))
+    if not 1 <= k <= 20:
+        raise ValueError(f"pack_probe_planes: probe size {k} is outside "
+                         "1..20 (two planes of 10 3-bit codes)")
+    cuda = _build.on_cuda(codes, positions)
+    B = positions.numel()
+    if B == 0:
+        return (torch.empty(0, dtype=torch.int32, device=codes.device),
+                torch.empty(0, dtype=torch.int32, device=codes.device))
+    pmin, pmax = _extremes(positions)
+    if pmin < 0 or pmax + k > codes.numel():
+        raise ValueError("pack_probe_planes: a probe reads past the codes "
+                         f"({codes.numel()}; pad them by k = {k})")
+    if not cuda:
+        return pack_probe_planes_plain(codes, positions, k)
+    hi = torch.empty(B, dtype=torch.int32, device=codes.device)
+    lo = torch.empty(B, dtype=torch.int32, device=codes.device)
+    lib = _build.lib()
+    pack_probe_planes.launches += 1
+    _build.check(lib.asgart_pack_probe_planes(
+        codes.data_ptr(), positions.data_ptr(), B, k, hi.data_ptr(),
+        lo.data_ptr(), _build.stream_of(codes)), "pack_probe_planes")
+    return hi, lo
+
+
+pack_probe_planes.launches = 0
+
+
+def pack_probe_planes_plain(codes, positions, k: int):
+    """Plain PyTorch version of the KS kernel (asgart_tpu/seed.py:47-62)."""
+    n_hi = max(k - 10, 0)
+    hi = torch.zeros(positions.shape, dtype=torch.int32,
+                     device=positions.device)
+    lo = torch.zeros_like(hi)
+    c = codes.to(torch.int32)
+    for j in range(n_hi):
+        hi = (hi << 3) | c[positions + j]
+    for j in range(n_hi, k):
+        lo = (lo << 3) | c[positions + j]
+    return hi, lo

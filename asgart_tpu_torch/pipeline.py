@@ -6,7 +6,8 @@ Counterpart of ``asgart_tpu.pipeline.search_duplications``
 (``settings.trim``), or ``shards`` trim windows whose families are
 concatenated in window order. The host stages below (``probe_positions``
 through ``SearchEngine``, and ``_finalize_result``) are copies of the JAX
-package's, without its ``engine="tpu"`` branches;
+package's; ``SearchEngine``'s device lookups (seed.py) run under the
+engine name ``"cuda"`` on an explicit device.
 tests/test_torch_host_copies.py pins them against their originals.
 
 Device routes, in the JAX package's order (pipeline.py:567-642, :761-848),
@@ -15,15 +16,19 @@ chosen by free device memory alone:
 - a trim window: the fused build if it fits, else the merge-join window
   engine (k <= 20) if it fits;
 - the whole genome: the fused build, else the table engine
-  (table_index.py, :642's ``DeviceEngine``), else the merge-join engine
-  over one window (0, n1 - 1; k <= 20), else (k <= 20) the auto-shard
-  planner's windows;
+  (table_index.py, :642's ``DeviceEngine``), else at k = 21 the
+  ``SearchEngine`` with its position tables on the device (:880: the
+  host builds the doubled-text index, the device reads each probe's range
+  from its table; chunks one at a time, :910-911), else the merge-join
+  engine over one window (0, n1 - 1; k <= 20), else (k <= 20) the
+  auto-shard planner's windows;
 - with ``checkpoint`` (a journal of finished chunks, :721-746 and
   :888-900, written and read alike by both engines and both packages) the
   fused build, which needs the chunk set at build time, is not used
-  (:763): the whole genome takes the table engine, else the one-window
-  merge join; a trim window the merge-join engine (k <= 20); no planner
-  runs. Chunks then run one at a time, in order.
+  (:763): the whole genome takes the table engine, else (k = 21) the
+  ``SearchEngine``, else the one-window merge join; a trim window the
+  merge-join engine (k <= 20); no planner runs. Chunks then run one at a
+  time, in order.
 
 Past int32 probe addressing (a probed text of ``BIG_WINDOW_SPAN`` = 2^31
 bases or more: -R/-C runs of genomes over ~1.07 Gbp) the fused build, the
@@ -38,9 +43,10 @@ failure falls back to another engine. Where the JAX package's
 ``engine="tpu"`` quietly switches to its host engine, the port raises:
 k > 30 (:137-145), a k = 21..30 trim window beyond the fused build
 (:768-774, journaled ones included), a genome beyond the table that no S
-<= 256 holds (or, at k = 21..30, beyond the fused build and the table;
+<= 256 holds (or, at k = 22..30, beyond the fused build and the table;
 :843-848), ``--checkpoint`` beyond the table and the one-window merge join
-(:786), and no CUDA device (:869-877).
+(:786), and no CUDA device (:869-877). At k = 21 past int32 probe
+addressing it raises where the JAX run raises, in ``DevicePositionTables``.
 
 With ``ASGART_DEVICE_CHAIN`` set, every device engine chains its chunks'
 events on the device (KN, device_engine.py) in place of the host event
@@ -148,6 +154,7 @@ class SearchEngine:
     def __init__(self, strand: Strand, settings: RunSettings,
                  trim: Optional[tuple[int, int]], engine: str = "host",
                  attach_device: bool = True,
+                 device: Optional[torch.device] = None,
                  index_cache: Optional[str] = None):
         self.strand = strand
         self.settings = settings
@@ -160,19 +167,19 @@ class SearchEngine:
         if settings.probe_size > MAX_PROBE_SIZE:
             # wide probes: full SA + byte-compare equal-range (the
             # reference's own strategy for arbitrary k); host engine
-            if engine == "tpu":
+            if engine == "cuda":
                 log.warning("probe_size > %d runs on the host engine",
                             MAX_PROBE_SIZE)
             self.bidx = ByteIndex.build(
                 strand.data, settings.probe_size, trim=trim,
                 n_threads=settings.threads_count or 0)
-        elif trim is None and index_cache is not None and engine != "tpu":
+        elif trim is None and index_cache is not None and engine != "cuda":
             # one cached single-text index serves every run mode
             self.pidx = PositionIndex.build_single_cached(
                 strand.data, settings.probe_size, index_cache,
                 n_threads=settings.threads_count or 0)
         elif trim is None:
-            if engine == "tpu" or not transformed:
+            if engine == "cuda" or not transformed:
                 # table strategy: every probe is one gather (device-ready);
                 # direct runs need no appended half
                 self.pidx = PositionIndex.build(
@@ -189,6 +196,19 @@ class SearchEngine:
             self.index = GenomeIndex.build(
                 strand.data, settings.probe_size, trim=trim)
         log.debug("Index built in %.2fs", time.time() - t0)
+        self._device = None
+        if engine == "cuda" and attach_device and self.bidx is None:
+            # (wide probes run fully on the host: no device attachment)
+            if self.pidx is not None:
+                from .seed import DevicePositionTables
+                self._device = DevicePositionTables(self.pidx, device)
+            elif settings.probe_size * 3 <= 60:
+                from .seed import DeviceSeedIndex
+                self._device = DeviceSeedIndex(self.index, device)
+            else:
+                # k=21 exceeds the two-plane device packing: host lookup
+                log.warning("probe_size %d trim lookup runs on the host",
+                            settings.probe_size)
 
     def run_chunk(self, chunk: tuple[int, int]) -> list[list[ProtoSD]]:
         """Search one chunk; returns families in global coordinates with
@@ -223,6 +243,9 @@ class SearchEngine:
                                     s.threads_count or 0)
                 lo, hi = self.pidx.search_ranges(
                     pk, s.threads_count or 0)
+            elif self._device is not None:
+                x = self.pidx.probe_table_positions(start, length, is_)
+                lo, hi = self._device.gather_ranges(x)
             else:
                 lo, hi = self.pidx.probe_ranges(start, length, is_)
             sa = self.pidx.sa
@@ -231,7 +254,10 @@ class SearchEngine:
             codes = np.zeros(len(needle) + k, dtype=np.uint8)
             codes[:len(needle)] = CODE[needle]
             probe_kmers = _pack_probe_kmers(codes, is_, k)
-            lo, hi = self.index.lookup(probe_kmers)
+            if self._device is not None:
+                lo, hi = self._device.lookup(probe_kmers)
+            else:
+                lo, hi = self.index.lookup(probe_kmers)
             sa = self.index.sa
             max_match_pos = 1 << 62
 
@@ -299,12 +325,6 @@ def _finalize_result(families: list[list[ProtoSD]], strand: Strand,
         settings=settings,
         families=[[project(sd) for sd in fam] for fam in families],
     )
-
-
-def _unsupported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to the cuda engine yet (ROADMAP {item}); "
-        "use engine='host' or the asgart_tpu package")
 
 
 def _cuda_checks(settings: RunSettings) -> None:
@@ -492,7 +512,8 @@ class Journal:
 
 def _whole_route(n1: int, settings: RunSettings, device, journal: bool):
     """The whole genome's engine: (engine class, trim) with trim (0, n1 -
-    1) for the one-window merge join, or the planner's S (an int) for an
+    1) for the one-window merge join, :class:`SearchEngine` with its
+    device position tables at k = 21, or the planner's S (an int) for an
     auto-sharded run; raises when no route holds the genome (module
     docstring)."""
     k = settings.probe_size
@@ -505,6 +526,20 @@ def _whole_route(n1: int, settings: RunSettings, device, journal: bool):
             log.info("whole-genome fused build exceeds the device; using "
                      "the table engine")
         return TableEngine, None
+    if k == MAX_PROBE_SIZE:
+        if big:
+            raise NotImplementedError(
+                f"a genome beyond int32 probe addressing at probe_size {k} "
+                "has no device route: the asgart_tpu package's "
+                "engine='tpu' builds its host position index there, then "
+                "raises ValueError in DevicePositionTables (its table "
+                "passes 2^31 rows); use engine='host'")
+        # the JAX package's SearchEngine(engine="tpu") (pipeline.py:880):
+        # the doubled-text position index on the host, its range table on
+        # the device (seed.py); no fit check, as there
+        log.info("whole-genome fused build and table exceed the device at "
+                 "probe_size %d; using the device position tables", k)
+        return SearchEngine, None
     if not big and mj_fits(n1, n1, k, device, resident=n1):
         # the whole genome as the one window (0, n1 - 1): its text is
         # the genome and its '$', so the output is the whole genome's
@@ -543,7 +578,6 @@ def search_duplications(
     device: Optional[torch.device] = None,
     checkpoint: Optional[str] = None,
     shards: int = 1,
-    hosts: int = 1,
     index_cache: Optional[str] = None,
     profile: Optional[dict] = None,
 ) -> RunResult:
@@ -556,7 +590,8 @@ def search_duplications(
     (``index_cache`` applies to it only). ``settings.trim`` indexes one
     window; ``shards`` > 1 indexes that many windows in turn. A genome
     whose whole fused build does not fit the device runs on the table
-    engine, as one merge-join window, or sharded automatically (module
+    engine, at k = 21 on the ``SearchEngine`` with its device position
+    tables, as one merge-join window, or sharded automatically (module
     docstring). ``checkpoint``: the path of a journal of finished chunks,
     which a rerun with the same files and settings restores instead of
     scanning them again (on either engine). ``profile``: dict to fill
@@ -566,8 +601,6 @@ def search_duplications(
     if not (1 <= settings.probe_size <= 10000):
         raise ValueError(
             f"probe_size {settings.probe_size} is out of range (1..10000)")
-    if hosts > 1:
-        raise _unsupported("--hosts", "A11")
     if engine == "cuda":
         _cuda_checks(settings)
         device = device if device is not None else cuda_device()
@@ -592,6 +625,7 @@ def search_duplications(
         Journal(checkpoint, strands_files, settings)
 
     t0 = time.time()
+    route = SearchEngine
     if engine == "cuda":
         n1 = int(len(strand.data))
         if trim is not None:
@@ -612,6 +646,18 @@ def search_duplications(
                     trim)
                 return _search_duplications_sharded(
                     strands_files, settings, trim, "cuda", device, profile)
+    if route is SearchEngine:
+        se = SearchEngine(strand, settings, trim, engine=engine,
+                          device=device, index_cache=index_cache)
+        prof["index_s"] = round(time.time() - t0, 3)
+        t0 = time.time()
+        if journal is not None:
+            families = journal.run(to_process, se.run_chunk)
+        elif engine == "host":
+            families = _host_families(se, to_process, settings)
+        else:  # one device queue: one chunk at a time (pipeline.py:910)
+            families = [fam for c in to_process for fam in se.run_chunk(c)]
+    else:
         eng = route(strand, settings, device, **(
             {} if trim is None else {"trim": trim}))
         if journal is None or journal.todo(to_process):
@@ -625,15 +671,6 @@ def search_duplications(
             families = journal.run(
                 to_process, lambda c: raw_families_to_protosds(
                     eng.run_chunk(c), settings, c[0], c[1]))
-    else:
-        se = SearchEngine(strand, settings, trim, engine="host",
-                          index_cache=index_cache)
-        prof["index_s"] = round(time.time() - t0, 3)
-        t0 = time.time()
-        if journal is None:
-            families = _host_families(se, to_process, settings)
-        else:
-            families = journal.run(to_process, se.run_chunk)
     prof["scan_s"] = round(time.time() - t0, 3)
 
     t0 = time.time()

@@ -116,7 +116,25 @@
    rows and on the longest burst's first events, also with one arm and
    one output row (both retries) and with its arms in global scratch; the
    burst count and the longest burst printed;
-8. prints a {"kernels": [...]} line (each kernel once per path, with the
+8. the seed lookups of ``SearchEngine(engine="cuda")`` and ``--hosts``,
+   on the 128 Mbp genome, -RC, each phase's seconds printed:
+   ``seed_trim`` (:func:`run_seed_trim`): ``SearchEngine(strand,
+   settings, trim, engine="cuda")`` built directly (the entry point that
+   reaches ``DeviceSeedIndex``) on the mj_trim window at k = 20, every
+   chunk, then ``_finalize_result``, held to mj_trim's host JSON, KQ the
+   only kernel launched; KQ against its plain version and
+   ``torch.searchsorted`` and KS against its plain version and the host
+   pack, on the largest chunk; ``seed_k21`` (:func:`run_seed_k21`): the
+   whole genome at k = 21 behind a ballast that leaves too little memory
+   for the fused build and the table, so the router takes the
+   ``SearchEngine`` route with its position tables on the card: a run
+   without a journal and a journaled one, each held to the host engine's
+   JSON with KR the only kernel launched, then KR's two forms against their
+   plain versions and ``ranges[x]`` on the largest chunk's ``x``;
+   ``hosts`` (:func:`run_hosts`): the CLI with ``--shards 4 --hosts 2
+   --engine cuda`` (worker processes sharing the card), held to the shards
+   path's host JSON, with its wall and the workers' device memory;
+9. prints a {"kernels": [...]} line (each kernel once per path, with the
    path's name and k; KN's rows: its time, the plain time and the bound
    on the checked bursts, and beside them its chunk's events, bursts,
    native tests, one KN pass over the chunk and the host chain's time on
@@ -2339,6 +2357,368 @@ def run_big_whole(work: str, mbp: float, device, plain_events: int = 0
     return rows
 
 
+def search_halvings(keys, bucket_starts, probes, steps: int,
+                    prefix_shift: int) -> int:
+    """The halvings KQ makes on these inputs, both searches together (the
+    lanes still live at each step of the plain loop): its data-dependent
+    reads."""
+    import torch
+
+    from asgart_tpu_torch.kernels.seed import LO_BITS
+
+    if prefix_shift >= 0:
+        prefix = probes >> (prefix_shift + LO_BITS)
+        lo0 = bucket_starts[prefix].long()
+        hi0 = bucket_starts[prefix + 1].long()
+    else:
+        lo0 = torch.zeros_like(probes)
+        hi0 = torch.full_like(probes, keys.numel())
+    total = 0
+    for right in (False, True):
+        lo, hi = lo0, hi0
+        for _ in range(steps):
+            live = lo < hi
+            total += int(live.sum())
+            mid = (lo + hi) >> 1
+            key = keys[torch.where(live, mid, 0)]
+            go_right = key <= probes if right else key < probes
+            lo = torch.where(live & go_right, mid + 1, lo)
+            hi = torch.where(live & ~go_right, mid, hi)
+    return total
+
+
+def launched(counts: dict) -> dict:
+    return {m: v for m, v in counts.items() if v}
+
+
+def run_seed_trim(fa: str, device, trim, host: str) -> list:
+    """``seed_trim``: ``SearchEngine(strand, settings, trim,
+    engine="cuda")``, the entry point that reaches ``DeviceSeedIndex``, at
+    k = 20 -RC on the mj_trim window: every chunk in turn, then
+    ``_finalize_result``, with every launch counter set to 0 just before
+    and read just after; the JSON must be mj_trim's host JSON and KQ the
+    only kernel launched. Then, on the largest chunk's probes, KQ against
+    its plain version and two ``torch.searchsorted`` calls, and KS against
+    its plain version and the host pack (``_pack_probe_kmers`` +
+    ``split_planes``). Returns KQ's and KS's rows (KS: no launch on the
+    path, since the engine packs its probes on the host)."""
+    import numpy as np
+    import torch
+
+    from asgart_tpu_torch import kernels as kmod
+    from asgart_tpu_torch.fasta import prepare_data
+    from asgart_tpu_torch.fused_index import INDEX_CACHE
+    from asgart_tpu_torch.index import CODE
+    from asgart_tpu_torch.kernels.seed import (_extremes, equal_range_plain,
+                                               pack_probe_planes_plain)
+    from asgart_tpu_torch.pipeline import (SearchEngine, _finalize_result,
+                                           _pack_probe_kmers,
+                                           probe_positions,
+                                           transform_needle)
+    from asgart_tpu_torch.seed import (equal_range, pack_probe_planes,
+                                       split_planes)
+    from asgart_tpu_torch.structs import RunSettings
+
+    k = 20
+    s = RunSettings(probe_size=k, trim=trim, reverse=True, complement=True)
+    tag = f"seed_trim k={k}"
+    INDEX_CACHE.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    kmod.reset_launch_counts()
+    t0 = time.time()
+    trim_, chunks, strand = prepare_data([fa], s.skip_masked, s.trim)
+    se = SearchEngine(strand, s, trim_, engine="cuda")
+    t_index = time.time() - t0
+    families = [fam for c in chunks for fam in se.run_chunk(c)]
+    torch.cuda.synchronize()
+    t_scan = time.time() - t0 - t_index
+    text = json_text(_finalize_result(families, strand, s))
+    wall = time.time() - t0
+    counts = kmod.launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    dsi = se._device
+    print(f"{tag} SearchEngine(engine='cuda') on the window {trim}: "
+          f"{wall:.3f} s wall (index {t_index:.3f} s: the host GenomeIndex "
+          f"and its upload; chunks {t_scan:.3f} s), {len(chunks)} chunks; "
+          f"DeviceSeedIndex {dsi.keys.numel()} keys, prefix_bits "
+          f"{dsi.prefix_bits}, steps {dsi.steps}; peak device memory {peak} "
+          f"B; launches {json.dumps(launched(counts))}", flush=True)
+    if text != host:
+        raise AssertionError(f"{tag} JSON differs from mj_trim's host JSON "
+                             f"({len(text)} vs {len(host)} bytes)")
+    if counts["equal_range"] <= 0 or set(launched(counts)) != \
+            {"equal_range"}:
+        raise AssertionError(f"{tag}: launches {launched(counts)}, "
+                             "expected KQ alone")
+
+    rows = []
+    record = recorder(rows, "seed_trim", k)
+    start, length = max(chunks, key=lambda c: c[1])
+    needle = transform_needle(strand.data[start: start + length], True,
+                              True)
+    is_ = probe_positions(needle, k)
+    codes = np.zeros(len(needle) + k, dtype=np.uint8)
+    codes[:len(needle)] = CODE[needle]
+    t0 = time.time()
+    pk = _pack_probe_kmers(codes, is_, k)
+    want_hi, want_lo = split_planes(pk)
+    t_pack = time.time() - t0
+    B, N = len(pk), dsi.keys.numel()
+    probes = torch.from_numpy(pk).to(device)
+    args = (dsi.keys, dsi.bucket_starts, probes, dsi.steps,
+            dsi.prefix_shift)
+    kq = lambda: equal_range(*args)  # noqa: E731
+    pq = lambda: equal_range_plain(*args)  # noqa: E731
+    lq = lambda: (torch.searchsorted(dsi.keys, probes, side="left"),  # noqa: E731
+                  torch.searchsorted(dsi.keys, probes, side="right"))
+    got = kq()
+    err = max_abs_err(got, pq())
+    if max_abs_err(got, lq()) != 0:
+        raise AssertionError(f"{tag}: torch.searchsorted differs from KQ")
+    halvings = search_halvings(*args)
+    print(f"{tag} KQ's bounds check alone (aminmax of the probes and the "
+          f"buckets, one host read): "
+          f"{cuda_ms(lambda: _extremes(probes, dsi.bucket_starts)):.3f} ms",
+          flush=True)
+    record("equal_range", "seed.cu", "asgart_tpu/seed.py:73", err,
+           cuda_ms(kq), cuda_ms(pq),
+           f"{B} probes (chunk {start}+{length}) against {N} keys, "
+           f"{1 << dsi.prefix_bits} buckets, steps {dsi.steps}, "
+           f"{halvings} halvings", 8 * B + 8 * B + 16 * B + 8 * halvings,
+           6 * halvings + 4 * B, library_ms=cuda_ms(lq))
+    rows[-1]["launches"] = counts["equal_range"]
+
+    t_codes = torch.from_numpy(codes).to(device)
+    pos = torch.from_numpy(is_).to(device)
+    ks = lambda: pack_probe_planes(t_codes, pos, k)  # noqa: E731
+    ps = lambda: pack_probe_planes_plain(t_codes, pos, k)  # noqa: E731
+    got = ks()
+    err = max_abs_err(got, ps())
+    host_planes = (torch.from_numpy(want_hi).to(device),
+                   torch.from_numpy(want_lo).to(device))
+    if max_abs_err(got, host_planes) != 0:
+        raise AssertionError(f"{tag}: KS differs from the host pack")
+    print(f"{tag} host pack of the chunk's {B} probes (_pack_probe_kmers + "
+          f"split_planes): {t_pack * 1e3:.3f} ms; KS's bounds check alone "
+          f"{cuda_ms(lambda: _extremes(pos)):.3f} ms", flush=True)
+    record("pack_probe_planes", "seed.cu", "asgart_tpu/seed.py:47", err,
+           cuda_ms(ks), cuda_ms(ps), f"{B} positions of {len(codes)} codes",
+           len(codes) + 8 * B + 8 * B, 2 * k * B)
+    rows[-1]["launches"] = counts["pack_probe_planes"]
+    del se, dsi, args, probes, t_codes, pos, host_planes, got
+    torch.cuda.empty_cache()
+    return rows
+
+
+def seed_ballast(n1: int, k: int, device):
+    """A tensor on the card that leaves ``fused_index.free_bytes`` midway
+    between what the k = 21 route holds (the doubled text's range table,
+    8 B per row, and one batch's transfers) and the smaller of the fused
+    build's and the table's projections, so that the router takes the
+    ``SearchEngine`` route by memory alone."""
+    import torch
+
+    from asgart_tpu_torch.fused_index import (
+        INDEX_CACHE, PEAK_BYTES_PER_ROW, TABLE_PEAK_BYTES_PER_ROW,
+        free_bytes, key_words, projected_rows)
+    from asgart_tpu_torch.seed import DEFAULT_BATCH
+
+    n = 2 * n1 - 1
+    need = 8 * n + 40 * DEFAULT_BATCH
+    limit = min(projected_rows(n1, n1, k) * PEAK_BYTES_PER_ROW[key_words(k)],
+                n * TABLE_PEAK_BYTES_PER_ROW)
+    if need >= limit:
+        raise AssertionError(f"no free memory routes k = {k} to the position "
+                             f"tables ({need} >= {limit} B)")
+    INDEX_CACHE.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    nbytes = int(free_bytes(device) - (need + limit) // 2)
+    print(f"ballast {nbytes} B leaves {(need + limit) // 2} B free: the "
+          f"position tables' need {need} B, the fused build's and the "
+          f"table's smaller projection {limit} B", flush=True)
+    return torch.empty(nbytes, dtype=torch.uint8, device=device), nbytes
+
+
+def run_seed_k21(fa: str, n: int, device, work: str) -> list:
+    """``seed_k21``: the whole genome at k = 21 -RC through
+    ``search_duplications(engine="cuda")`` behind a ballast
+    (:func:`seed_ballast`) that leaves too little memory for the fused
+    build and the table: the JAX package's ``SearchEngine(engine="tpu")``
+    route, its range table on the card (KR). The host engine, then a run
+    without a journal and a cold journaled run, each with every launch
+    counter set to 0 just before and read just after: each JSON must be
+    the host engine's and KR the only kernel launched. Then KR's two forms
+    against their plain versions and ``ranges[x]`` on the largest chunk's
+    ``x`` (taken with the table from the journaled run). Returns KR's
+    rows."""
+    import torch
+
+    from asgart_tpu_torch import kernels as kmod
+    from asgart_tpu_torch import seed
+    from asgart_tpu_torch.kernels.seed import _extremes, gather_ranges_plain
+    from asgart_tpu_torch.pipeline import search_duplications
+    from asgart_tpu_torch.structs import RunSettings
+
+    k = 21
+    s = RunSettings(probe_size=k, reverse=True, complement=True)
+    tag = f"seed_k21 k={k}"
+    t0 = time.time()
+    host = json_text(search_duplications([fa], s, engine="host"))
+    print(f"{tag} host engine: {time.time() - t0:.3f} s wall", flush=True)
+    journal = os.path.join(work, "seed_k21.journal")
+    if os.path.exists(journal):
+        os.remove(journal)
+    gather = seed.DevicePositionTables.gather_ranges
+    largest = {}
+
+    def spy(self, x):  # the journaled run's largest x, and its table
+        if len(x) > len(largest.get("x", ())):
+            largest.update(x=x.copy(), ranges=self.ranges)
+        return gather(self, x)
+
+    ballast, nb = seed_ballast(n + 1, k, device)
+    runs = {}
+    try:
+        for tag2, ck in (("cold", None), ("journaled", journal)):
+            if ck is not None:
+                seed.DevicePositionTables.gather_ranges = spy
+            torch.cuda.reset_peak_memory_stats(device)
+            kmod.reset_launch_counts()
+            prof: dict = {}
+            t0 = time.time()
+            res = search_duplications([fa], s, engine="cuda", device=device,
+                                      checkpoint=ck, profile=prof)
+            torch.cuda.synchronize()
+            runs[tag2] = (time.time() - t0, json_text(res), prof,
+                          kmod.launch_counts(),
+                          torch.cuda.max_memory_allocated(device) - nb)
+    finally:
+        seed.DevicePositionTables.gather_ranges = gather
+        del ballast
+    for tag2, (t, text, prof, counts, peak) in runs.items():
+        print(f"{tag} cuda {tag2}: {t:.3f} s wall, {n / 1e6 / t:.2f} Mbp/s, "
+              f"phases {json.dumps(prof)}, peak device memory {peak} B "
+              f"(ballast excluded), launches {json.dumps(launched(counts))}",
+              flush=True)
+        if text != host:
+            raise AssertionError(f"{tag} cuda {tag2} JSON differs from the "
+                                 f"host engine's ({len(text)} vs "
+                                 f"{len(host)} bytes)")
+        if counts["gather_ranges"] <= 0 or set(launched(counts)) != \
+                {"gather_ranges"}:
+            raise AssertionError(f"{tag} {tag2}: launches "
+                                 f"{launched(counts)}, expected KR alone")
+
+    rows = []
+    x = torch.from_numpy(largest.pop("x")).to(device)
+    ranges = largest.pop("ranges")
+    B, nr = x.numel(), ranges.shape[0]
+    pos_lo, pos_hi = ranges[:, 0].contiguous(), ranges[:, 1].contiguous()
+    print(f"{tag} KR's bounds check alone (aminmax of x, one host read): "
+          f"{cuda_ms(lambda: _extremes(x)):.3f} ms", flush=True)
+    for form, src, gather_fn, lib in (
+            ("rows", (ranges[:, 0], ranges[:, 1]),
+             lambda: seed._gather_range_rows(ranges, x),
+             lambda: ranges[x]),
+            ("planar", (pos_lo, pos_hi),
+             lambda: seed._gather_tables(pos_lo, pos_hi, x),
+             lambda: (pos_lo[x], pos_hi[x]))):
+        got = gather_fn()
+        err = max_abs_err(got, gather_ranges_plain(*src, x))
+        want = lib()
+        if form == "rows":
+            want = (want[:, 0], want[:, 1])
+        if max_abs_err(got, want) != 0:
+            raise AssertionError(f"{tag}: indexing differs from KR "
+                                 f"({form})")
+        record = recorder(rows, "seed_k21" if form == "rows"
+                          else "seed_k21 planar", k)
+        record("gather_ranges", "seed.cu", "asgart_tpu/seed.py:125"
+               if form == "rows" else "asgart_tpu/seed.py:120", err,
+               cuda_ms(gather_fn), cuda_ms(lambda: gather_ranges_plain(
+                   *src, x)), f"{B} indices into {nr} rows ({form})",
+               32 * B, 2 * B, library_ms=cuda_ms(lib))
+        rows[-1]["launches"] = runs["cold"][3]["gather_ranges"]
+    del x, ranges, pos_lo, pos_hi, got, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_hosts(fa: str, device, work: str, host: str) -> None:
+    """``hosts``: the CLI with ``--shards 4 --hosts 2 --engine cuda``: the
+    four windows as worker processes of the port's CLI, two at a time on
+    this one card (each sizes its route from the free memory it finds at
+    its start); the JSON must be the shards path's host JSON. Prints the
+    wall and the workers' device memory: each new process's peak as
+    ``nvidia-smi`` lists it, and the card's peak use above what it held
+    before the workers started, sampled every 0.2 s."""
+    import threading
+
+    import torch
+
+    from asgart_tpu_torch.cli.main import main as cli_main
+    from asgart_tpu_torch.fused_index import INDEX_CACHE
+
+    tag = "hosts k=20"
+    INDEX_CACHE.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = os.path.join(work, "hosts.json")
+
+    def apps() -> dict:
+        r = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,"
+                            "used_memory", "--format=csv,noheader,nounits"],
+                           capture_output=True, text=True, timeout=60)
+        fields = ([f.strip() for f in line.split(",")]
+                  for line in r.stdout.splitlines())
+        return {int(f[0]): int(f[1]) for f in fields
+                if len(f) == 2 and f[0].isdigit() and f[1].isdigit()}
+
+    before = apps()
+    free, total = torch.cuda.mem_get_info(device)
+    base = total - free
+    seen: dict = {}
+    peak = [0]
+    stop = threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            for pid, mib in apps().items():
+                if pid not in before:
+                    seen[pid] = max(seen.get(pid, 0), mib)
+            f, _ = torch.cuda.mem_get_info(device)
+            peak[0] = max(peak[0], total - f - base)
+            stop.wait(0.2)
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    t0 = time.time()
+    try:
+        rc = cli_main([fa, "-R", "-C", "--shards", str(SHARDS), "--hosts",
+                       "2", "--engine", "cuda", "--out", out])
+    finally:
+        stop.set()
+        sampler.join()
+    wall = time.time() - t0
+    with open(out) as fh:
+        text = fh.read() if rc == 0 else ""
+    per_pid = json.dumps(seen) if seen else "none listed (nvidia-smi " \
+        "shows no process of this container)"
+    print(f"{tag} --shards {SHARDS} --hosts 2 --engine cuda (CLI): {wall:.3f}"
+          f" s wall, rc {rc}; each worker's peak (nvidia-smi, MiB by pid): "
+          f"{per_pid}; the card's peak above its use before the workers "
+          f"(two workers at a time) {peak[0]} B", flush=True)
+    if rc != 0:
+        raise AssertionError(f"{tag}: the CLI exited {rc}")
+    if text != host:
+        raise AssertionError(f"{tag} JSON differs from the shards path's "
+                             f"host JSON ({len(text)} vs {len(host)} bytes)")
+    if peak[0] <= 0:
+        raise AssertionError(f"{tag}: no worker held device memory")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mbp", type=float, default=128.0,
@@ -2438,6 +2818,17 @@ def main(argv=None) -> int:
     rows += run_mj_path(fa, n, device, "big_shards",
                         RunSettings(probe_size=20, **rc), shards=SHARDS,
                         host=shard_host, big=True)[0]
+    # the seed lookups of SearchEngine(engine="cuda"): a trim window's
+    # DeviceSeedIndex (KQ; KS on its largest chunk), held to mj_trim's host
+    # JSON; the k = 21 route's position tables (KR); then --hosts on this
+    # card, held to the shards path's host JSON
+    for name, phase in (
+            ("seed_trim", lambda: run_seed_trim(fa, device, trim, mj_host)),
+            ("seed_k21", lambda: run_seed_k21(fa, n, device, work)),
+            ("hosts", lambda: run_hosts(fa, device, work, shard_host))):
+        t0 = time.time()
+        rows += phase() or []
+        print(f"{name}: phase {time.time() - t0:.1f} s", flush=True)
     # --checkpoint on the table engine: one-word and two-word keys, then a
     # repeat-dense genome whose first tied count passes the default
     # tied_cap (full rounds)

@@ -8,9 +8,12 @@ small ``tied_cap``, KM, KD on its lanes), and the port's JSON on the GPU
 against the host engine (whole genome, trim windows and ``shards``, on the
 fused build, on the table engine with and without ``--checkpoint``, on
 the merge-join engine with its route chosen by free memory alone, and past
-int32 addressing), and the sliced dispatch of a repeat-heavy chunk (KO
+int32 addressing), the sliced dispatch of a repeat-heavy chunk (KO
 and KP against their plain versions, a sliced scan against one unsliced
-KD launch, and the JSON of sliced runs on both chains and journaled). The
+KD launch, and the JSON of sliced runs on both chains and journaled), and
+the seed lookups (KQ, KR and KS against their plain versions, with empty
+inputs, no buckets and wide buckets; ``SearchEngine(engine="cuda")`` and
+the k = 21 route against the host engine). The
 kernels have no CPU mode, so without a CUDA GPU these tests skip. On a
 machine with a GPU (and without jax, which tests/conftest.py imports),
 run them with::
@@ -39,6 +42,9 @@ TABLE_KERNELS = ("invert_tables", "table_ranges", "full_round_keys",
                  "full_round_refine")
 CHAIN_KERNELS = ("chain_bursts",)
 SLICE_KERNELS = ("granule_totals", "gather_flat")
+# the seed lookups, which only SearchEngine(engine="cuda") launches (and KS
+# no pipeline)
+SEED_KERNELS = ("equal_range", "gather_ranges", "pack_probe_planes")
 
 
 @pytest.fixture
@@ -133,7 +139,7 @@ def test_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse, complement, k):
     assert all(after[name] > before[name] for name in after
                if name not in ("offset_slots", "mj_ranges", "unpack_codes",
                                *TABLE_KERNELS, *CHAIN_KERNELS,
-                               *SLICE_KERNELS))
+                               *SLICE_KERNELS, *SEED_KERNELS))
     if reverse == complement:
         assert n_events > 0
 
@@ -221,7 +227,7 @@ def test_window_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse,
     assert all(after[name] > before[name] for name in after
                if name not in ("scan_core", "mj_ranges", "unpack_codes",
                                *TABLE_KERNELS, *CHAIN_KERNELS,
-                               *SLICE_KERNELS))
+                               *SLICE_KERNELS, *SEED_KERNELS))
 
 
 @pytest.mark.parametrize("k", [20, 25])
@@ -317,7 +323,7 @@ def test_mj_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse, complement,
     assert all(after[name] > before[name] for name in after
                if name not in ("scan_core", "unpack_codes", "offset_slots",
                                *TABLE_KERNELS, *CHAIN_KERNELS,
-                               *SLICE_KERNELS))
+                               *SLICE_KERNELS, *SEED_KERNELS))
 
 
 @pytest.mark.parametrize("k", [20, 8])
@@ -497,7 +503,7 @@ def test_big_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse, complement,
     assert all(after[name] > before[name] for name in after
                if name not in ("offset_slots", "unpack_codes",
                                *TABLE_KERNELS, *CHAIN_KERNELS,
-                               *SLICE_KERNELS))
+                               *SLICE_KERNELS, *SEED_KERNELS))
     if reverse == complement:
         assert n_events > 0
 
@@ -933,3 +939,103 @@ def test_gpu_sliced_json_equals_host(tmp_path, gpu, monkeypatch):
             assert (after["gather_flat"] > before["gather_flat"]) == \
                 bool(chain)
     INDEX_CACHE.clear()
+
+
+def test_seed_kernels_equal_plain_on_gpu(gpu):
+    """KQ on tests/test_seed.py's cases (k = 20, 12 and 8: no buckets),
+    the poly-A text (buckets wider than the depth) and depths too small to
+    converge; KR in both forms; KS at k = 20, 12, 8 and 1; each also on
+    an empty input, which launches nothing."""
+    from asgart_tpu_torch import seed
+    from asgart_tpu_torch.index import GenomeIndex
+    from asgart_tpu_torch.kernels import launch_counts
+    from asgart_tpu_torch.kernels.seed import (equal_range_plain,
+                                               gather_ranges_plain,
+                                               pack_probe_planes_plain)
+    from asgart_tpu_torch.pipeline import _pack_probe_kmers, probe_positions
+    from util import random_dna
+
+    rng = np.random.default_rng(41)
+    texts = [(random_dna(np.random.default_rng(s), n, b"ACGTN") + b"$", k)
+             for s, n, k in ((0, 3000, 20), (1, 5000, 12), (2, 2000, 8))]
+    texts.append((b"A" * 500 + random_dna(rng, 1000, b"AC") + b"A" * 300
+                  + b"$", 10))
+    before = launch_counts()
+    launches = 0
+    for text, k in texts:
+        arr = np.frombuffer(text, dtype=np.uint8)
+        idx = GenomeIndex.build(arr, k)
+        dsi = seed.DeviceSeedIndex(idx, gpu)
+        is_ = probe_positions(arr[:-1], k)
+        codes = np.zeros(len(arr) + k, dtype=np.uint8)
+        codes[:len(arr) - 1] = CODE[arr[:-1]]
+        pk = np.concatenate([_pack_probe_kmers(codes, is_, k),
+                             rng.integers(0, 1 << (3 * k), 500)])
+        probes = torch.from_numpy(pk).to(gpu)
+        for steps in (dsi.steps, 2, 1):
+            args = (dsi.keys, dsi.bucket_starts, probes, steps,
+                    dsi.prefix_shift)
+            _equal(seed.equal_range(*args), equal_range_plain(*args))
+            launches += 1
+        got = dsi.lookup(pk)
+        want = idx.lookup(pk)
+        assert all(np.array_equal(a, b) for a, b in zip(got, want))
+        launches += 1
+        args = (dsi.keys, dsi.bucket_starts, probes[:0], dsi.steps,
+                dsi.prefix_shift)
+        assert all(t.numel() == 0 for t in seed.equal_range(*args))
+        for kk in sorted({k, 1}):
+            pos = torch.from_numpy(is_).to(gpu)
+            t_codes = torch.from_numpy(codes).to(gpu)
+            _equal(seed.pack_probe_planes(t_codes, pos, kk),
+                   pack_probe_planes_plain(t_codes, pos, kk))
+            launches += 1
+        assert all(t.numel() == 0 for t in
+                   seed.pack_probe_planes(t_codes, pos[:0], k))
+    ranges = torch.from_numpy(rng.integers(-2**31, 2**31, (7000, 2))
+                              .astype(np.int32)).to(gpu)
+    x = torch.from_numpy(rng.integers(0, 7000, 50000)).to(gpu)
+    planes = (ranges[:, 0].contiguous(), ranges[:, 1].contiguous())
+    for src in ((ranges[:, 0], ranges[:, 1]), planes):
+        _equal(seed.gather_ranges(*src, x), gather_ranges_plain(*src, x))
+        assert all(t.numel() == 0 for t in seed.gather_ranges(*src, x[:0]))
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert after["gather_ranges"] == before["gather_ranges"] + 2
+    assert after["equal_range"] + after["pack_probe_planes"] == \
+        before["equal_range"] + before["pack_probe_planes"] + launches
+
+
+@pytest.mark.parametrize("rc", [False, True])
+def test_gpu_seed_routes_equal_host(tmp_path, gpu, monkeypatch, rc):
+    """``SearchEngine(engine="cuda")`` on a trim window at k = 20 (KQ) and
+    the whole genome at k = 21 (KR) chunk by chunk against the host
+    engine; then the k = 21 route of ``search_duplications``, beyond the
+    fused build and the table, journaled or not, writing the host
+    engine's bytes."""
+    from asgart_tpu_torch import pipeline
+    from asgart_tpu_torch.kernels import launch_counts
+    from asgart_tpu_torch.pipeline import SearchEngine, search_duplications
+
+    fa, _, _ = prepared(tmp_path, [("chr1", chunked_genome())])
+    for k, trim, kernel in ((20, (12000, 52000), "equal_range"),
+                            (21, None, "gather_ranges")):
+        s = RunSettings(probe_size=k, trim=trim, reverse=rc, complement=rc)
+        _, chunks, strand = pipeline.prepare_data([fa], False, trim)
+        before = launch_counts()[kernel]
+        se = SearchEngine(strand, s, trim, engine="cuda", device=gpu)
+        host = SearchEngine(strand, s, trim, engine="host")
+        for c in chunks:
+            assert [[vars(sd) for sd in f] for f in se.run_chunk(c)] == \
+                [[vars(sd) for sd in f] for f in host.run_chunk(c)]
+        assert launch_counts()[kernel] > before
+    s = RunSettings(probe_size=21, reverse=rc, complement=rc)
+    want = json_text(search_duplications([fa], s, engine="host"))
+    monkeypatch.setattr(pipeline, "fits", lambda *a, **kw: False)
+    monkeypatch.setattr(pipeline, "table_fits", lambda *a, **kw: False)
+    for ck in (None, str(tmp_path / f"{rc}.j")):
+        before = launch_counts()["gather_ranges"]
+        assert json_text(search_duplications([fa], s, engine="cuda",
+                                             device=gpu,
+                                             checkpoint=ck)) == want
+        assert launch_counts()["gather_ranges"] > before

@@ -1,7 +1,8 @@
 """Each host module and function the port copies out of the JAX package
 equals its original: the whole modules (asgart_tpu_torch/{structs, utils,
-json_io, exporters, fasta, index, postprocess}.py, native/ and its C++
-source) as text once their import lines are normalised, the pipeline's
+json_io, exporters, fasta, index, postprocess, multihost}.py, native/ and
+its C++ source) as text once their import lines are normalised, the
+pipeline's
 host stages, the CLI parser and the benchmark's synthetic genome
 (asgart_tpu_torch/synthetic.py) function by function, and the helpers of
 asgart_tpu_torch/host_helpers.py by value. The few lines that must
@@ -39,6 +40,14 @@ WHOLE_FILES = {
     "index.py": ((), ()),
     "postprocess.py": ((), ()),
     "native/src/asgart_native.cpp": ((), ()),
+    # the workers run the port's CLI; the docstring names the reference's
+    # source without the path it had on the machine the original was
+    # written on
+    "multihost.py": (
+        (_original_line("multihost.py", "src/structs.rs:114-141"),
+         'argv = [sys.executable, "-m", "asgart_tpu.cli.main",'),
+        ("``asgart-slice`` (the reference's ``src/structs.rs:114-141`` +",
+         'argv = [sys.executable, "-m", "asgart_tpu_torch.cli.main",')),
     # the library is built into the checkout's build/ directory, through
     # a temporary file renamed into place (concurrent first imports); and
     # the docstring line naming the machine it was tuned on is reworded
@@ -59,29 +68,23 @@ WHOLE_FILES = {
          'os.replace(tmp, _LIB)')),
 }
 
-# SearchEngine without its engine="tpu" device attachment (seed.py)
-SEARCH_ENGINE_REMOVED = (
-    "self._device = None",
-    'if engine == "tpu" and attach_device and self.bidx is None:',
-    "# (wide probes run fully on the host: no device attachment)",
-    "if self.pidx is not None:",
-    "from .seed import DevicePositionTables",
-    "self._device = DevicePositionTables(self.pidx)",
-    "elif settings.probe_size * 3 <= 60:",
-    "from .seed import DeviceSeedIndex",
-    "self._device = DeviceSeedIndex(self.index)",
-    "else:",
-    "# k=21 exceeds the two-plane device packing: host lookup",
-    'log.warning("probe_size %d trim lookup runs on the host",',
-    "settings.probe_size)",
-    "elif self._device is not None:",
-    "x = self.pidx.probe_table_positions(start, length, is_)",
-    "lo, hi = self._device.gather_ranges(x)",
-    "if self._device is not None:",
-    "lo, hi = self._device.lookup(probe_kmers)",
-    "else:",
-    "lo, hi = self.index.lookup(probe_kmers)",  # dedented below
-)
+# SearchEngine with its device attachment (seed.py) under the engine name
+# "cuda" and on an explicit device: (lines only in the original, lines only
+# in the copy)
+SEARCH_ENGINE_DIFF = (
+    ('if engine == "tpu":',
+     'elif trim is None and index_cache is not None and engine != "tpu":',
+     'if engine == "tpu" or not transformed:',
+     'if engine == "tpu" and attach_device and self.bidx is None:',
+     "self._device = DevicePositionTables(self.pidx)",
+     "self._device = DeviceSeedIndex(self.index)"),
+    ("device: Optional[torch.device] = None,",
+     'if engine == "cuda":',
+     'elif trim is None and index_cache is not None and engine != "cuda":',
+     'if engine == "cuda" or not transformed:',
+     'if engine == "cuda" and attach_device and self.bidx is None:',
+     "self._device = DevicePositionTables(self.pidx, device)",
+     "self._device = DeviceSeedIndex(self.index, device)"))
 
 
 def _normalise(text: str) -> str:
@@ -119,10 +122,7 @@ def test_pipeline_host_stage_copy_equals_original(name):
     from asgart_tpu import pipeline as jax_pipeline
     from asgart_tpu_torch import pipeline
 
-    want = ((), ())
-    if name == "SearchEngine":
-        want = (SEARCH_ENGINE_REMOVED,
-                ("lo, hi = self.index.lookup(probe_kmers)",))
+    want = SEARCH_ENGINE_DIFF if name == "SearchEngine" else ((), ())
     assert _diff(inspect.getsource(getattr(jax_pipeline, name)),
                  inspect.getsource(getattr(pipeline, name))) == want
 

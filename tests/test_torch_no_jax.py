@@ -131,10 +131,12 @@ def test_wrappers_take_kernel_path_for_gpu_tensors(monkeypatch):
     version."""
     import importlib
 
-    from asgart_tpu_torch.kernels import (_build, chain_bursts, gather_flat,
+    from asgart_tpu_torch.kernels import (_build, chain_bursts, equal_range,
+                                          gather_flat, gather_ranges,
                                           granule_totals, group_bounds,
                                           invert_fused, mj_ranges,
-                                          offset_slots, pack_keys, scan_core,
+                                          offset_slots, pack_keys,
+                                          pack_probe_planes, scan_core,
                                           tie_keys, tie_refine, unpack_codes)
 
     def mod(name):  # the module, not the wrapper of the same name
@@ -159,7 +161,10 @@ def test_wrappers_take_kernel_path_for_gpu_tensors(monkeypatch):
                     ("codes", "unpack_codes_plain"),
                     ("chain", "chain_bursts_plain"),
                     ("slices", "granule_totals_plain"),
-                    ("slices", "gather_flat_plain")):
+                    ("slices", "gather_flat_plain"),
+                    ("seed", "equal_range_plain"),
+                    ("seed", "gather_ranges_plain"),
+                    ("seed", "pack_probe_planes_plain")):
         monkeypatch.setattr(mod(m), name, no_plain)
 
     i32, i64 = torch.int32, torch.int64
@@ -215,3 +220,16 @@ def test_wrappers_take_kernel_path_for_gpu_tensors(monkeypatch):
     with pytest.raises(RuntimeError, match="kernel library"):
         gather_flat([torch.arange(4, dtype=i32), torch.arange(3, dtype=i32)],
                     torch.tensor([6, 0, 3]))
+    with pytest.raises(RuntimeError, match="kernel library"):
+        equal_range(torch.arange(8, dtype=i64),
+                    torch.tensor([0, 4, 8], dtype=i32),
+                    torch.tensor([3, 1 << 30]), 4, 0)
+    with pytest.raises(RuntimeError, match="kernel library"):
+        equal_range(torch.arange(8, dtype=i64), torch.zeros(0, dtype=i32),
+                    torch.tensor([3]), 4, -1)
+    with pytest.raises(RuntimeError, match="kernel library"):
+        gather_ranges(torch.arange(6, dtype=i32), torch.arange(6, dtype=i32),
+                      torch.tensor([5, 0]))
+    with pytest.raises(RuntimeError, match="kernel library"):
+        pack_probe_planes(torch.ones(30, dtype=torch.uint8),
+                          torch.tensor([0, 10]), 20)

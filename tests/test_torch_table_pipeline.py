@@ -359,6 +359,21 @@ def test_refusals_where_jax_runs_its_host_engine(tmp_path, monkeypatch):
                     "host engine")
     port_raises(k25, "with --checkpoint .* runs on the host engine",
                 checkpoint=str(tmp_path / "b"))
+    # a k = 22..30 genome beyond the fused build and the table, journaled
+    # or not: the JAX SearchEngine builds its ByteIndex on the host
+    # (:137-145, :880); at k = 21 it takes its device position tables,
+    # which the port runs too (tests/test_torch_seed.py)
+    k22 = RunSettings(probe_size=22)
+    wide = [(jde, "fused_applicable", no), (jdi, "device_index_fits", no)]
+    jax_tpu_is_host(k22, patch=wide)
+    jax_tpu_is_host(k22, patch=wide[1:], checkpoint=str(tmp_path / "e"))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(pipeline, "fits", no)
+        mp.setattr(pipeline, "table_fits", no)
+        port_raises(k22, "beyond one device's fused build and table at "
+                    "probe_size 22 runs on the host engine")
+        port_raises(k22, "--checkpoint with a genome beyond .* host engine",
+                    checkpoint=str(tmp_path / "f"))
     # a genome beyond every device route and any S <= 256 (:843-848)
     s = RunSettings(reverse=True, complement=True)
     beyond = [(jde, "fused_applicable", no),
