@@ -7,7 +7,14 @@ of its own), with ``--engine`` choosing ``host`` or ``cuda``::
         --out out.json
 
 ``--hosts N`` runs the ``--shards`` windows as worker processes of this
-CLI, N at a time (``multihost.py``, as the JAX CLI does).
+CLI, N at a time (``multihost.py``, as the JAX CLI does). Under
+``torchrun`` (``WORLD_SIZE`` > 1 in the environment) with ``--engine
+cuda`` each process is one rank of an NCCL group on ``cuda:LOCAL_RANK``
+(``distributed.py``): the counterpart of one JAX process that sees every
+device. Every rank computes the result; rank 0 alone writes ``--out``::
+
+    torchrun --nproc-per-node 4 -m asgart_tpu_torch.cli.main genome.fa \\
+        -R -C --engine cuda --out out.json
 """
 
 from __future__ import annotations
@@ -85,6 +92,41 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def settings_from_args(args) -> RunSettings:
+    """The run's settings from the parsed flags."""
+    return RunSettings(
+        probe_size=args.probe_size,
+        max_gap_size=args.gap_size + args.probe_size,  # asgart.rs:681
+        min_duplication_length=args.min_length,
+        max_cardinality=args.max_cardinality,
+        reverse=args.reverse,
+        complement=args.complement,
+        skip_masked=args.skip_masked,
+        compute_score=args.compute_score,
+        threads_count=args.threads or os.cpu_count() or 1,
+        trim=tuple(args.trim) if args.trim else None,
+    )
+
+
+def _search_as_rank(args, settings, prof):
+    """The search as one rank of a ``torchrun`` group (``WORLD_SIZE`` > 1
+    in the environment): NCCL, with ``cuda:LOCAL_RANK`` as this rank's
+    device."""
+    from .. import distributed
+    from ..device import cuda_device
+
+    device = cuda_device(int(os.environ.get("LOCAL_RANK", "0")))
+    distributed.init(int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]),
+                     device, "env://", "nccl")
+    try:
+        return search_duplications(
+            args.strands, settings, engine="cuda", device=device,
+            checkpoint=args.checkpoint, shards=args.shards,
+            index_cache=args.index_cache, profile=prof)
+    finally:
+        distributed.dist.destroy_process_group()
+
+
 def main(argv=None) -> int:
     try:
         return _main(argv)
@@ -102,26 +144,21 @@ def _main(argv=None) -> int:
         build_parser().print_help()
         return 1
 
-    settings = RunSettings(
-        probe_size=args.probe_size,
-        max_gap_size=args.gap_size + args.probe_size,  # asgart.rs:681
-        min_duplication_length=args.min_length,
-        max_cardinality=args.max_cardinality,
-        reverse=args.reverse,
-        complement=args.complement,
-        skip_masked=args.skip_masked,
-        compute_score=args.compute_score,
-        threads_count=args.threads or os.cpu_count() or 1,
-        trim=tuple(args.trim) if args.trim else None,
-    )
+    settings = settings_from_args(args)
     prof: dict = {}
+    ranks = int(os.environ.get("WORLD_SIZE", "1"))
     if args.hosts > 1:
+        if ranks > 1:
+            raise ValueError("--hosts starts its own worker processes; run "
+                             "it without torchrun")
         from ..multihost import search_duplications_multihost
 
         shards = args.shards if args.shards > 1 else args.hosts
         result = search_duplications_multihost(
             args.strands, settings, shards=shards, hosts=args.hosts,
             engine=args.engine)
+    elif ranks > 1 and args.engine == "cuda":
+        result = _search_as_rank(args, settings, prof)
     else:
         result = search_duplications(
             args.strands, settings, engine=args.engine,
@@ -129,6 +166,8 @@ def _main(argv=None) -> int:
             index_cache=args.index_cache, profile=prof)
     if args.profile:
         print(json.dumps(prof), file=sys.stderr)
+    if int(os.environ.get("RANK", "0")) != 0 and ranks > 1:
+        return 0  # every rank holds the result; rank 0 writes it
 
     if args.out is None:
         radix = "-".join(pathlib.Path(n).stem for n in args.strands)

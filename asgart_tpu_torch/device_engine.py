@@ -1,6 +1,6 @@
-"""The device engines on one device: the fused engine (the whole genome or
-one trim window), the table engine (the whole genome, chunk by chunk) and
-the merge-join window engine.
+"""The device engines: the fused engine (the whole genome or one trim
+window), the table engine (the whole genome, chunk by chunk), the
+merge-join window engine and its rank-sharded form.
 
 Counterpart of ``FusedEngine`` (asgart_tpu/device_engine.py:2157) for the
 one-device route (k = 2..30), with its ``trim`` window build, and of both
@@ -44,8 +44,17 @@ outputs exactly, so neither the slices' ``ev_scale`` retries nor the
 the JAX gather of a slice's raw windows (KD never holds them); the slice
 planner's B_GRAN lane cap and ``_fixed_slice_width``'s aligned power-of-two
 slices, which exist for the JAX table padding and static shapes (any
-partition into consecutive slices merges to the same stream); and
-``_sharded_sliced_scan`` (the mesh, A11).
+partition into consecutive slices merges to the same stream).
+
+On a process group of ranks (``distributed.py``; the JAX mesh engines,
+K17): the table engine's probe-axis scan, each rank scanning its own
+lanes of every chunk (``_sharded_scan`` and ``_sharded_scan_group``, :987
+and :1019; ``_sharded_sliced_scan``, :1054, as each rank's own sliced
+scan) before every rank merges all ranks' streams; and
+:class:`ShardedWindowEngine` (:3245), one trim window's index cut into
+the ranks' shards, whose stage 1 and match gather are summed over the
+ranks (``_sharded_window_ranges_fn`` and ``_sharded_window_core_fn``,
+:3134 and :3169; KT ``gather_owned``).
 """
 
 from __future__ import annotations
@@ -55,17 +64,20 @@ import os
 import numpy as np
 import torch
 
-from . import native
+from . import distributed, native
 from .chain import chain_events_tensors, config_for, events_from_flat
 from .codes import upload_codes
-from .fused_index import INDEX_CACHE, FusedIndex, IndexCache
-from .host_helpers import (SLICE_GRAN, _merge_shard_events, _plan_slices,
-                           _slice_budget)
-from .kernels import (gather_flat, granule_totals, mj_ranges, pack_keys,
-                      scan_core, table_ranges)
+from .fused_index import (INDEX_CACHE, FusedIndex, IndexCache, free_bytes,
+                          mj_fits)
+from .host_helpers import (SLICE_GRAN, _bucket, _merge_shard_events,
+                           _plan_slices, _slice_budget)
+from .kernels import (gather_flat, gather_owned, granule_totals, mj_ranges,
+                      pack_keys, scan_core, table_ranges)
 from .kernels.scan_core import ScanResult, fused_bases
+from .kernels.sharded import csr_offsets
 from .table_index import DeviceIndex
-from .window_index import DeviceWindowIndex, ProbeKeyCache, WindowRanges
+from .window_index import (DeviceWindowIndex, ProbeKeyCache,
+                           ShardedWindowIndex, WindowRanges)
 
 
 def chunk_specs(chunks, settings) -> tuple:
@@ -203,10 +215,56 @@ class TableEngine:
         return device_phase(self, chunks)
 
     def scan_results(self, chunks):
-        """KD's result for each chunk, in order (:func:`scan_lanes`)."""
+        """KD's result for each chunk, in order (:func:`scan_lanes`). Under
+        a process group of D > 1 ranks, the probe-axis scan (the JAX
+        ``DeviceEngine`` on a mesh, device_engine.py:1198-1240 and
+        ``_sharded_scan``, :987): every rank holds the whole table, scans
+        its own lanes of each chunk (:func:`probe_lanes`; a repeat-heavy
+        rank's lanes sliced as on one device), and every rank merges all
+        ranks' results (:func:`gather_ranks`)."""
         ranges = self.ranges(chunks)
-        return scan_lanes(self.settings, ranges, self.index.sa, chunks,
-                          fused_bases)
+        D = distributed.world()
+        if D == 1:
+            return scan_lanes(self.settings, ranges, self.index.sa, chunks,
+                              fused_bases)
+        r = distributed.rank()
+        return gather_ranks(scan_lanes(
+            self.settings, ranges, self.index.sa, chunks, fused_bases,
+            part=lambda nc: probe_lanes(nc, r, D)))
+
+
+def probe_lanes(n_lanes: int, r: int, D: int) -> tuple[int, int]:
+    """The lanes [a, b) of a chunk's ``n_lanes`` that rank ``r`` of ``D``
+    scans: [r·b_local, (r + 1)·b_local) within the chunk, with
+    ``_chunk_geometry``'s b_local (device_engine.py:1224-1239: the bucket
+    of the lane count rounded up to a multiple of D, over D). The last
+    ranks may get no lane."""
+    b_pad = _bucket(n_lanes)
+    b_pad += -b_pad % D
+    b_local = b_pad // D
+    return min(n_lanes, r * b_local), min(n_lanes, (r + 1) * b_local)
+
+
+def gather_ranks(results):
+    """Each chunk's result of :func:`scan_lanes` over this rank's lanes
+    (None, a ``ScanResult``, or a :class:`Sliced`, merged first), shared
+    with every rank (``distributed.all_gather_var``) and merged in rank
+    order by :func:`merge_slices`: the ranks' lanes are consecutive probe
+    slices, so the merge is the JAX ``_merge_shard_events`` (:1082) over
+    the mesh's shards. Every rank ends with the whole chunk's result."""
+    for res in results:
+        if res is None:
+            yield None
+            continue
+        if isinstance(res, Sliced):
+            res = merge_slices(list(res))
+        flats = distributed.all_gather_var(res.flat)
+        meta = distributed.all_gather_var(torch.tensor(
+            [res.n_events, res.total_kept], dtype=torch.int64,
+            device=res.flat.device))
+        del res
+        yield merge_slices([ScanResult(f, int(m[0]), int(m[1]))
+                            for f, m in zip(flats, meta)])
 
 
 class DeviceWindowEngine:
@@ -288,12 +346,18 @@ class DeviceWindowEngine:
                       self.probe_cache.get_or_pack(
                           (s.probe_size, s.reverse, s.complement, specs,
                            str(self.device)), pack))
-        lane_lo, lane_hi, totals = mj_ranges(idx.key, pkey, mask, lane_off)
+        lane_lo, lane_hi, totals = self.join(idx.key, pkey, mask, lane_off)
         offs = {(cs, cl): (off, int(t)) for (cs, cl, _), off, t in
                 zip(specs, lane_off, totals.tolist())}
         idx.stage1 = WindowRanges(lane_lo=lane_lo, lane_hi=lane_hi,
                                   lane_mask=mask, specs=specs, offs=offs)
         return idx.stage1
+
+    @staticmethod
+    def join(key, pkey, mask, lane_off):
+        """KH: (lane_lo, lane_hi, per-chunk totals) of the probe keys in
+        the sorted window keys ``key``."""
+        return mj_ranges(key, pkey, mask, lane_off)
 
     def run_chunks(self, chunks) -> list:
         """Raw families (native-engine format, chunk-relative left
@@ -316,6 +380,93 @@ class DeviceWindowEngine:
         ws, W = self.trim[0], self.index.W
         return scan_lanes(self.settings, ranges, self.index.sa, chunks,
                           lambda cs, cl: rebased_bases(cs, cl, ws, W))
+
+
+class ShardedWindowEngine(DeviceWindowEngine):
+    """Rank-sharded merge-join engine over one trim window (k = 2..20): the
+    JAX ``ShardedWindowEngine`` (asgart_tpu/device_engine.py:3245) on a
+    process group, one rank a shard. Each rank holds a
+    :class:`ShardedWindowIndex`, rows [r·Wl, (r + 1)·Wl) of the window's
+    sorted keys and suffix order, built on its device (the whole window's
+    merge-join build, then cut) or, with ``ASGART_RSH_HOST_BUILD=1`` or
+    when the window's build does not fit (``mj_fits``; :3283-3292), by
+    ``host_window_arrays`` on the host.
+
+    Stage 1 (``_sharded_window_ranges_fn``, :3134): KA's probe-only pack
+    of every chunk's probes, as on one device, then KH against the rank's
+    keys and an ``all_reduce`` of lane_lo, lane_hi and the chunk totals.
+    A shard's KH counts its own rows below and at each probe key, so the
+    sum over the shards is the global equal range (the ``psum`` at
+    :3156-3157).
+
+    Stage 2 (``_sharded_window_core_fn``, :3169): per chunk, or per slice
+    of a repeat-heavy chunk, KT ``gather_owned`` writes every masked
+    lane's window into a flat CSR buffer, this rank's rows from its shard
+    and 0 elsewhere; an ``all_reduce`` sums the ranks' buffers (the
+    ``psum`` of ``sa_gather``, :3180-3188). Every row of [0, W) has one
+    owner and no lane's window passes W (the shards hold no padded row;
+    the JAX INT32_MAX padding keys, :3303-3313, never equal a probe), so
+    the sum is each row's window position, exact without the JAX ``+1 /
+    -1``. KD then scans lanes [off, off + count) over the buffer with
+    :func:`rebased_bases`, the same filters on the same match values as
+    the one-device engine. Every rank ends with the same results and
+    chains them itself, as the JAX workers do (distributed.py:12-14).
+    Without a process group the one rank holds the whole window."""
+
+    def ensure_index(self, chunks=None) -> ShardedWindowIndex:
+        if self.index is None:
+            s = self.settings
+            ws, we = self.trim
+            env = os.environ.get("ASGART_RSH_HOST_BUILD")
+            if env is not None:
+                host_build = env == "1"
+            else:  # the device build holds the whole window at once
+                # (this rank's own choice: the build has no collective,
+                # and both builds give the same shard)
+                n1 = int(len(self.strand.data))
+                host_build = not mj_fits(n1, we - ws + 1, s.probe_size,
+                                         free_bytes(self.device),
+                                         resident=n1)
+            args = (s.probe_size, self.trim, s.reverse, s.complement,
+                    self.device, distributed.rank(), distributed.world(),
+                    host_build)
+
+            def build():
+                return ShardedWindowIndex.build(
+                    self.strand.data, *args,
+                    None if host_build else self._codes())
+
+            self.index = build() if self.cache is None else \
+                self.cache.get_or_build("sharded", self.strand.data,
+                                        tuple(map(str, args)), build)
+        return self.index
+
+    @staticmethod
+    def join(key, pkey, mask, lane_off):
+        """KH against this rank's keys, summed over the ranks."""
+        lane_lo, lane_hi, totals = mj_ranges(key, pkey, mask, lane_off)
+        return (distributed.psum(lane_lo), distributed.psum(lane_hi),
+                distributed.psum(totals))
+
+    def scan_results(self, chunks):
+        """KD's result for each chunk, in order (:func:`scan_lanes` with
+        :meth:`gather` as the suffix order)."""
+        ranges = self.stage1(chunks)
+        ws, W = self.trim[0], self.index.W
+        return scan_lanes(self.settings, ranges, None, chunks,
+                          lambda cs, cl: rebased_bases(cs, cl, ws, W),
+                          gather=self.gather)
+
+    def gather(self, lane_lo, lane_hi, lane_mask):
+        """(lane_lo', lane_hi', src) for KD: the lanes' windows gathered
+        into one flat buffer ``src`` (KT on this rank's rows, summed over
+        the ranks), each lane's window [lane_lo', lane_hi') of it."""
+        off, total = csr_offsets(lane_lo, lane_hi, lane_mask)
+        idx = self.index
+        flat = distributed.psum(gather_owned(
+            lane_lo, lane_hi, lane_mask, off, total, idx.sa, idx.row0))
+        end = off + torch.where(lane_mask, lane_hi - lane_lo, 0)
+        return off.to(torch.int32), end.to(torch.int32), flat
 
 
 def rebased_bases(chunk_start: int, chunk_len: int, ws: int, W: int
@@ -391,7 +542,8 @@ def slice_plan(lane_lo: torch.Tensor, lane_hi: torch.Tensor,
             _plan_slices(gt, SLICE_GRAN, budget)]
 
 
-def scan_lanes(settings, lanes, sa: torch.Tensor, chunks, bases):
+def scan_lanes(settings, lanes, sa: torch.Tensor | None, chunks, bases,
+               gather=None, part=None):
     """KD over each chunk's lane slice of ``lanes`` (a :class:`FusedIndex`
     or a :class:`WindowRanges`: lane_lo, lane_hi, lane_mask, specs, offs)
     against the suffix order ``sa``, with the filter constants
@@ -399,7 +551,11 @@ def scan_lanes(settings, lanes, sa: torch.Tensor, chunks, bases):
     before the next chunk's scan, None (too short to probe), the chunk's
     ``ScanResult``, or a :class:`Sliced` when the chunk's exact raw total
     reaches the slice budget (``ASGART_DEVICE_SLICE_LANES``, read at each
-    call); ``scan_lanes.sliced`` counts those chunks.
+    call); ``scan_lanes.sliced`` counts those chunks. ``gather(lane_lo,
+    lane_hi, lane_mask)``, when given, returns what KD reads in place of
+    the lanes and ``sa`` (the rank-sharded engine's gathered windows);
+    ``part(n_lanes)`` = (a, b) restricts each chunk to its lanes [a, b)
+    (a probe-axis rank's), whose raw total then decides the slicing.
 
     The JAX engines slice when the capacity bucket of the total passes the
     budget; past B_GRAN the buckets are powers of two, so at the default
@@ -415,16 +571,23 @@ def scan_lanes(settings, lanes, sa: torch.Tensor, chunks, bases):
             yield None
             continue
         off, total = lanes.offs[chunk]
-        nc = n_lanes[chunk]
-        lo, hi, mask = (t[off: off + nc] for t in
+        a, b = (0, n_lanes[chunk]) if part is None else \
+            part(n_lanes[chunk])
+        nc = b - a
+        lo, hi, mask = (t[off + a: off + b] for t in
                         (lanes.lane_lo, lanes.lane_hi, lanes.lane_mask))
+        if part is not None:
+            total = int(torch.where(mask, hi - lo, 0).sum())
         consts = bases(*chunk)
 
-        def scan(lane0, n, lo=lo, hi=hi, mask=mask, consts=consts):
+        def scan(lane0, n, lo=lo, hi=hi, mask=mask, consts=consts, a=a):
+            sl = (lo[lane0: lane0 + n], hi[lane0: lane0 + n],
+                  mask[lane0: lane0 + n])
+            lo_s, hi_s, src = (*sl[:2], sa) if gather is None else \
+                gather(*sl)
             # j0: the slice's lane offset within the chunk
-            return scan_core(lo[lane0: lane0 + n], hi[lane0: lane0 + n],
-                             mask[lane0: lane0 + n], sa, *consts,
-                             s.max_cardinality, lane0, s.probe_size,
+            return scan_core(lo_s, hi_s, sl[2], src, *consts,
+                             s.max_cardinality, a + lane0, s.probe_size,
                              s.reverse)
 
         if total < budget:

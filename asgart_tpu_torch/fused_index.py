@@ -176,25 +176,25 @@ def mj_window_fits_bytes(n1: int, W: int, k: int, free: float,
     return k <= MJ_MAX_K and W < (1 << 30) and peak + resident <= free
 
 
-def mj_fits(n1: int, W: int, k: int, device: torch.device,
-            resident: int = 0, keys_held: bool = False) -> bool:
+def mj_fits(n1: int, W: int, k: int, free: float, resident: int = 0,
+            keys_held: bool = False) -> bool:
     """:func:`fits` for the merge-join window engine:
-    :func:`mj_window_fits_bytes` against :func:`free_bytes`. Its index
+    :func:`mj_window_fits_bytes` against ``free`` device bytes. Its index
     keeps window positions, so the probed text has no int32 bound; W <
     2^30 is the bytes check's own (asgart_tpu/device_engine.py:2432)."""
-    return mj_window_fits_bytes(n1, W, k, free_bytes(device), resident,
-                                keys_held)
+    return mj_window_fits_bytes(n1, W, k, free, resident, keys_held)
 
 
-def fits(n1: int, W: int, k: int, doubled: bool, device: torch.device,
+def fits(n1: int, W: int, k: int, doubled: bool, free: float,
          resident: int = 0) -> bool:
-    """Whether a fused build of W direct rows fits ``device``: the probed
-    text within int32 addressing, and :func:`window_fits_bytes` against
-    :func:`free_bytes`. The whole genome (W = n1) frees its codes before
-    the sort's peak (``resident`` 0); trim windows keep the genome's n1
-    code bytes resident across a sharded run's windows."""
+    """Whether a fused build of W direct rows fits ``free`` device bytes
+    (:func:`free_bytes`, or the least of it over a group's ranks): the
+    probed text within int32 addressing, and :func:`window_fits_bytes`.
+    The whole genome (W = n1) frees its codes before the sort's peak
+    (``resident`` 0); trim windows keep the genome's n1 code bytes
+    resident across a sharded run's windows."""
     return probe_span(n1, doubled) < (1 << 31) and window_fits_bytes(
-        n1, W, k, free_bytes(device), resident)
+        n1, W, k, free, resident)
 
 
 def table_fits_bytes(n1: int, k: int, doubled: bool, free: float,
@@ -208,10 +208,10 @@ def table_fits_bytes(n1: int, k: int, doubled: bool, free: float,
         n * TABLE_PEAK_BYTES_PER_ROW + resident <= free
 
 
-def table_fits(n1: int, k: int, doubled: bool, device: torch.device,
+def table_fits(n1: int, k: int, doubled: bool, free: float,
                resident: int = 0) -> bool:
-    """:func:`table_fits_bytes` against :func:`free_bytes`."""
-    return table_fits_bytes(n1, k, doubled, free_bytes(device), resident)
+    """:func:`table_fits_bytes` against ``free`` device bytes."""
+    return table_fits_bytes(n1, k, doubled, free, resident)
 
 
 @dataclass

@@ -1,7 +1,8 @@
 """Host-only helpers whose originals live in JAX-importing modules.
 
 ``asgart_tpu.device_index`` and ``asgart_tpu.device_engine`` import jax at
-module level, so the port cannot import these from there. Each is a copy
+module level (``asgart_tpu.pipeline`` inside its functions), so the port
+cannot import these from there. Each is a copy
 of its original, named in its docstring or in the comment above it;
 tests/test_torch_host_copies.py pins every copy against its original.
 """
@@ -124,3 +125,62 @@ def _plan_slices(gran_totals, gran_lanes: int, budget: int):
     if cur_lanes:
         slices.append((cur0, cur_lanes, cur_tot))
     return slices
+
+
+def host_window_arrays(strand_data: np.ndarray, k: int, ws: int,
+                       we: int, n_threads: int = 0):
+    """(key_hi, key_lo, run_lo, sa_rel, W) for one trim window, built on
+    the HOST — the build path for windows larger than one HBM (the
+    device build's sorts need the whole window in one memory; the host
+    has RAM). Bit-equal to `device_index.window_arrays_from_codes` (the
+    sorted-key order of equal k-mers IS the suffix order, which both
+    builders produce exactly; pinned by tests/test_rank_sharded.py)."""
+    from .index import CODE
+    from .native import suffix_array
+
+    w_text = we - ws
+    W = w_text + 1
+    sub = np.empty(W, dtype=np.uint8)
+    sub[:w_text] = strand_data[ws:we]
+    sub[w_text] = ord("$")
+    sa = suffix_array(sub).astype(np.int32)
+    codes = np.zeros(W + k, dtype=np.uint8)
+    codes[:W] = CODE[sub]
+    codes[W - 1] = 0  # '$' rank
+    from .kernels.pack_keys import LO_SYMS
+
+    n_hi = max(k - LO_SYMS, 0)
+    key_hi = np.zeros(W, dtype=np.int64)
+    key_lo = np.zeros(W, dtype=np.int64)
+    for j in range(n_hi):
+        key_hi = (key_hi << 3) | codes[sa + j]
+    for j in range(n_hi, k):
+        key_lo = (key_lo << 3) | codes[sa + j]
+    key_hi = key_hi.astype(np.int32)
+    key_lo = key_lo.astype(np.int32)
+    iota = np.arange(W, dtype=np.int32)
+    neq = np.empty(W, dtype=bool)
+    neq[0] = True
+    neq[1:] = (key_hi[1:] != key_hi[:-1]) | (key_lo[1:] != key_lo[:-1])
+    run_lo = np.maximum.accumulate(np.where(neq, iota, 0))
+    return key_hi, key_lo, run_lo, sa, W
+
+
+def rank_sharded_window_applies(n1: int, W: int, doubled: bool,
+                                n_dev: int | None = None,
+                                k: int = 20, *, free: float) -> bool:
+    """Whether a trim window should be served by the rank-sharded
+    engine: forced via ``ASGART_RANK_SHARDED=1``, or the window exceeds
+    a single device (rows or HBM) while a multi-device mesh can hold it
+    at ~12 B/row per shard plus bounded scan transients."""
+    from .distributed import world
+    from .fused_index import mj_fits
+
+    if os.environ.get("ASGART_RANK_SHARDED") == "1":
+        return True
+    if n_dev is None:
+        n_dev = world()
+    if n_dev < 2 or mj_fits(n1, W, k, free, resident=n1):
+        return False
+    per_shard = 12 * (-(-W // n_dev)) + (1 << 28)
+    return per_shard <= free

@@ -10,6 +10,7 @@ from .merge_join import mj_ranges
 from .pack_keys import pack_keys
 from .scan_core import scan_core
 from .seed import equal_range, gather_ranges, pack_probe_planes
+from .sharded import gather_owned
 from .slices import gather_flat, granule_totals
 from .tables import invert_tables, table_ranges
 from .ties import full_round_keys, full_round_refine, tie_keys, tie_refine
@@ -19,7 +20,7 @@ KERNELS = (unpack_codes, pack_keys, group_bounds, invert_fused, tie_keys,
            tie_refine, offset_slots, mj_ranges, scan_core, invert_tables,
            table_ranges, full_round_keys, full_round_refine, chain_bursts,
            granule_totals, gather_flat, equal_range, gather_ranges,
-           pack_probe_planes)
+           pack_probe_planes, gather_owned)
 
 
 def launch_counts() -> dict:

@@ -90,6 +90,9 @@ SIGNATURES = {
     "asgart_gather_ranges": [_P, _P, _I64, _P, _I64, _P, _P, _P],
     # codes, pos, b, k, hi, lo, stream
     "asgart_pack_probe_planes": [_P, _P, _I64, _I32, _P, _P, _P],
+    # lane_lo, lane_hi, lane_mask, off, n, sa_local, row0, n_local, flat,
+    # stream
+    "asgart_gather_owned": [_P, _P, _P, _P, _I64, _P, _I64, _I64, _P, _P],
     # threads, arms_cap, arms_in_smem, blocks (out, host int32)
     "asgart_chain_grid": [_I32, _I32, _I32, _P],
     # ev_i, ev_z, m_off, m, m_is_i64, m_offset, burst_start, order,

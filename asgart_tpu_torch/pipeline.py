@@ -52,6 +52,23 @@ With ``ASGART_DEVICE_CHAIN`` set, every device engine chains its chunks'
 events on the device (KN, device_engine.py) in place of the host event
 chain; a sharded run then chains each window on this thread, and its tail
 thread only post-processes.
+
+A trim window takes the rank-sharded window engine
+(``ShardedWindowEngine``) after the fused build and before the merge-join
+engine where ``rank_sharded_window_applies`` (``ASGART_RANK_SHARDED=1``
+forces it at any world size; otherwise a window beyond one device's merge
+join that the ranks' shards hold), as the JAX adapter checks it
+(:571-629); so does the whole genome's one-window route. Under a process
+group (``distributed.py``) ``n_dev`` is the world size, as the JAX package
+takes ``len(jax.devices())``; the route reads free memory once, the least
+over the ranks (one ``all_min`` in :func:`search_duplications`), so every
+rank takes the same route. With more than one rank no fused build
+runs (device_engine.py:2119), the whole genome takes the table engine's
+probe-axis scan when the table fits, and every route with no form on
+ranks raises ``NotImplementedError`` naming the JAX engine: ``--shards``
+(the JAX ``MeshWindowEngine``, ROADMAP queue 2), a window or one-window
+genome on the merge-join engine, the k = 21 ``SearchEngine``, the
+planner and ``--checkpoint``.
 """
 
 from __future__ import annotations
@@ -70,13 +87,15 @@ import torch
 from . import native, postprocess
 from .codes import upload_codes
 from .device import cuda_device
-from .device_engine import (DeviceWindowEngine, FusedEngine, TableEngine,
-                            families)
+from .device_engine import (DeviceWindowEngine, FusedEngine,
+                            ShardedWindowEngine, TableEngine, families)
+from .distributed import all_min, world
 from .fasta import Strand, prepare_data
 from .fused_index import (INDEX_CACHE, MAX_K, MJ_MAX_K, fits, free_bytes,
                           mj_fits, mj_window_fits_bytes, probe_span,
                           table_fits,
                           window_fits_bytes)
+from .host_helpers import rank_sharded_window_applies
 from .index import CODE, MAX_PROBE_SIZE, ByteIndex, GenomeIndex, PositionIndex
 from .structs import ProtoSD, RunResult, RunSettings, SD, StrandResult
 from .utils import complemented
@@ -371,22 +390,43 @@ def _too_large(n1: int, settings: RunSettings, what: str):
         "use more --shards or engine='host'")
 
 
+def _no_mesh_form(what: str, engine: str) -> NotImplementedError:
+    """The refusal of a route that has no form on a process group of more
+    than one rank."""
+    return NotImplementedError(
+        f"{what} under a process group of {world()} ranks: the asgart_tpu "
+        f"package runs it on {engine}, which asgart_tpu_torch has not "
+        "ported to ranks (ROADMAP queue 2, K17, and A11); the cuda engine "
+        "runs the table engine's probe-axis scan and the rank-sharded "
+        "window engine under a group; run this with one rank")
+
+
 def _window_route(n1: int, W: int, settings: RunSettings, device,
                   resident: int, keys_held: bool = False,
-                  chunk_len: int = 0, journal: bool = False):
-    """The engine class of a W-row trim window: :class:`FusedEngine` if
-    its build fits (``resident`` bytes held beside it), the probed text is
-    within int32 addressing and no ``journal`` is kept, else
-    :class:`DeviceWindowEngine` if the merge-join engine fits
+                  chunk_len: int = 0, journal: bool = False,
+                  free: Optional[float] = None):
+    """The engine class of a W-row trim window, from ``free`` device bytes
+    (the least over a group's ranks, as :func:`search_duplications`
+    agrees it; ``device``'s :func:`free_bytes` when None, as in a sharded
+    run, which has one rank): :class:`FusedEngine` if its build fits
+    (``resident`` bytes held beside it), the probed text is within int32
+    addressing, no ``journal`` is kept and there is one rank,
+    else :class:`ShardedWindowEngine` where
+    ``rank_sharded_window_applies`` (``ASGART_RANK_SHARDED=1``, or a
+    window beyond one device's merge join that the ranks' shards hold),
+    else :class:`DeviceWindowEngine` if the merge-join engine fits
     (``keys_held``: a sharded run's probe keys stay cached beside each
-    later window's build). Past int32 addressing the merge-join engine
-    takes only chunks under 2^30 bases (``chunk_len``: the longest), as
+    later window's build). Past int32 addressing the merge-join engines
+    take only chunks under 2^30 bases (``chunk_len``: the longest), as
     the JAX ``BigWindowEngine`` does. Raises when no route holds the
-    window."""
+    window, and under a process group of more than one rank where the
+    route is not the rank-sharded engine."""
     k = settings.probe_size
     big = _big(n1, settings)
-    if not big and not journal and fits(n1, W, k, _doubled(settings),
-                                        device, resident):
+    free = free_bytes(device) if free is None else free
+    mesh = world() > 1  # no fused build on a mesh (device_engine.py:2119)
+    if not mesh and not big and not journal and \
+            fits(n1, W, k, _doubled(settings), free, resident):
         return FusedEngine
     if k > MJ_MAX_K:
         if big:
@@ -404,7 +444,13 @@ def _window_route(n1: int, W: int, settings: RunSettings, device,
             "beyond int32 probe addressing has no device route: the "
             "asgart_tpu package's big-window engine needs chunks under "
             "2^30 bases; use engine='host'")
-    if mj_fits(n1, W, k, device, resident, keys_held):
+    if rank_sharded_window_applies(n1, W, _doubled(settings), k=k,
+                                   free=free):
+        return ShardedWindowEngine
+    if mesh:
+        raise _no_mesh_form(f"a {W}-row trim window", "one device "
+                            "(DeviceWindowEngine, no mesh form)")
+    if mj_fits(n1, W, k, free, resident, keys_held):
         return DeviceWindowEngine
     raise _too_large(n1, settings, f"a {W}-row trim window")
 
@@ -510,22 +556,31 @@ class Journal:
         return families
 
 
-def _whole_route(n1: int, settings: RunSettings, device, journal: bool):
-    """The whole genome's engine: (engine class, trim) with trim (0, n1 -
-    1) for the one-window merge join, :class:`SearchEngine` with its
-    device position tables at k = 21, or the planner's S (an int) for an
+def _whole_route(n1: int, settings: RunSettings, device, journal: bool,
+                 free: Optional[float] = None):
+    """The whole genome's engine, from ``free`` device bytes (as in
+    :func:`_window_route`): (engine class, trim) with trim (0, n1 - 1)
+    for the one-window merge join, :class:`SearchEngine` with its device
+    position tables at k = 21, or the planner's S (an int) for an
     auto-sharded run; raises when no route holds the genome (module
     docstring)."""
     k = settings.probe_size
     doubled = _doubled(settings)
     big = _big(n1, settings)
-    if not big and not journal and fits(n1, n1, k, doubled, device):
+    free = free_bytes(device) if free is None else free
+    mesh = world() > 1  # no fused build on a mesh (device_engine.py:2119)
+    if not mesh and not big and not journal and \
+            fits(n1, n1, k, doubled, free):
         return FusedEngine, None
-    if not big and table_fits(n1, k, doubled, device):
+    if not big and table_fits(n1, k, doubled, free):
         if not journal:
             log.info("whole-genome fused build exceeds the device; using "
                      "the table engine")
         return TableEngine, None
+    if k == MAX_PROBE_SIZE and mesh:
+        raise _no_mesh_form("a whole genome at probe_size 21 beyond the "
+                            "table", "its SearchEngine with device "
+                            "position tables (one device)")
     if k == MAX_PROBE_SIZE:
         if big:
             raise NotImplementedError(
@@ -540,10 +595,20 @@ def _whole_route(n1: int, settings: RunSettings, device, journal: bool):
         log.info("whole-genome fused build and table exceed the device at "
                  "probe_size %d; using the device position tables", k)
         return SearchEngine, None
-    if not big and mj_fits(n1, n1, k, device, resident=n1):
-        # the whole genome as the one window (0, n1 - 1): its text is
-        # the genome and its '$', so the output is the whole genome's
-        # (pipeline.py:591-604); the settings stay untrimmed
+    # the whole genome as the one window (0, n1 - 1): its text is the
+    # genome and its '$', so the output is the whole genome's
+    # (pipeline.py:591-604); the settings stay untrimmed; rank-sharded
+    # where that applies, as the JAX adapter checks it there (:620-629)
+    if not big and k <= MJ_MAX_K and rank_sharded_window_applies(
+            n1, n1, doubled, k=k, free=free):
+        log.info("whole-genome table exceeds the device; using the "
+                 "one-window rank-sharded engine")
+        return ShardedWindowEngine, (0, n1 - 1)
+    if not big and mj_fits(n1, n1, k, free, resident=n1):
+        if mesh:
+            raise _no_mesh_form("a whole genome beyond the table",
+                                "one device (the one-window "
+                                "DeviceWindowEngine, no mesh form)")
         log.info("whole-genome table exceeds the device; using the "
                  "one-window merge-join device engine")
         return DeviceWindowEngine, (0, n1 - 1)
@@ -553,7 +618,11 @@ def _whole_route(n1: int, settings: RunSettings, device, journal: bool):
             "one-window merge join runs on the host engine in the "
             "asgart_tpu package (a journaled run is not auto-sharded); "
             "use engine='host'")
-    S = plan_shards(n1, k, doubled, free_bytes(device))
+    if mesh:
+        raise _no_mesh_form("an auto-sharded genome", "the windows x "
+                            "probes MeshWindowEngine, or one device a "
+                            "window")
+    S = plan_shards(n1, k, doubled, free)
     if S is None:
         raise _too_large(n1, settings, "a genome, in any number of "
                          f"windows up to {MAX_SHARDS},")
@@ -604,9 +673,21 @@ def search_duplications(
     if engine == "cuda":
         _cuda_checks(settings)
         device = device if device is not None else cuda_device()
+        if checkpoint is not None and world() > 1:
+            raise NotImplementedError(
+                f"--checkpoint under a process group of {world()} ranks "
+                "(one journal, every rank a writer) is not ported to ranks "
+                "(ROADMAP A11); run a journaled search with one rank")
     if shards > 1:
         if settings.trim is not None:
             raise ValueError("--shards cannot be combined with --trim")
+        if engine == "cuda" and world() > 1:
+            D = world()
+            raise _no_mesh_form(
+                f"--shards {shards}",
+                "the windows x probes MeshWindowEngine" if D % shards == 0
+                else "its windows one after another, each on one device "
+                "or rank-sharded")
         if checkpoint is not None:
             log.warning("--checkpoint is not supported with --shards; "
                         "windows restart from scratch on failure")
@@ -628,14 +709,19 @@ def search_duplications(
     route = SearchEngine
     if engine == "cuda":
         n1 = int(len(strand.data))
+        # the route's one collective: every rank routes from the group's
+        # least free memory (ranks that share a card see each other's
+        # allocations), so all take the same route and meet in the same
+        # collectives
+        free = all_min(free_bytes(device))
         if trim is not None:
             route = _window_route(n1, trim[1] - trim[0] + 1, settings,
                                   device, resident=n1,
                                   chunk_len=_longest(to_process),
-                                  journal=journal is not None)
+                                  journal=journal is not None, free=free)
         else:
             route, trim = _whole_route(n1, settings, device,
-                                       journal is not None)
+                                       journal is not None, free)
             if route is None:  # the planner's number of windows
                 log.warning(
                     "genome too large for a one-HBM device index; "

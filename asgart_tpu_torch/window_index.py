@@ -24,6 +24,9 @@ sorted keys (KH ``mj_ranges``), so the sorted key (8 B/row) and ``sa``
 (4 B/row) stay resident. The key is one int64 word (k <= 20, flag bit 0),
 the fused build's one-word key; wider probes have no merge-join route, as
 in the JAX package (its window engines are two-plane).
+
+``ShardedWindowIndex`` is one rank's shard of such an index: a contiguous
+run of its rows (the rank-sharded window engine, device_engine.py).
 """
 
 from __future__ import annotations
@@ -136,3 +139,78 @@ class ProbeKeyCache:
             self._keys = pack()
             self._key = key
         return self._keys
+
+
+@dataclass
+class ShardedWindowIndex:
+    """One rank's shard of a trim window's merge-join index: rows [row0,
+    row0 + n_local) of the window's sorted keys and suffix order, row0 =
+    r·Wl with Wl = ceil(W / D) (D ranks), as device d of the JAX
+    ``ShardedWindowEngine`` holds rows [d·Wl, (d + 1)·Wl) of its stacked
+    shards (asgart_tpu/device_engine.py:3295-3313). No padding: the last
+    shards are shorter, and a rank owns no row when r·Wl >= W."""
+
+    key: torch.Tensor        # int64 [n_local] sorted keys (flag bit 0)
+    sa: torch.Tensor         # int32 [n_local] window positions
+    W: int                   # window rows, its '$' included
+    Wl: int                  # rows a shard holds at most
+    r: int                   # this rank
+    D: int                   # ranks
+    k: int
+    first_len: int           # genome + '$' length
+    win_start: int
+    win_end: int
+    reverse: bool
+    complement: bool
+    # the last stage 1 (after its all_reduce), kept as on DeviceWindowIndex
+    stage1: WindowRanges | None = None
+
+    @property
+    def row0(self) -> int:
+        return min(self.W, self.r * self.Wl)
+
+    def nbytes(self) -> int:
+        held = self.key.numel() * 8 + self.sa.numel() * 4
+        return held + (self.stage1.nbytes() if self.stage1 else 0)
+
+    @classmethod
+    def build(cls, strand_data: np.ndarray, k: int, trim: tuple,
+              reverse: bool, complement: bool, device: torch.device,
+              r: int, D: int, host_build: bool,
+              codes: torch.Tensor | None = None) -> "ShardedWindowIndex":
+        """Rank ``r``'s shard of the index of ``strand[ws:we] + '$'``. On
+        the device (``codes``: the strand's codes on ``device``), the whole
+        window is built as :meth:`DeviceWindowIndex.build` builds it, then
+        cut to the shard and the rest freed; with ``host_build``, by
+        ``host_window_arrays`` on the host (its two key planes packed into
+        the one-word key), and only the shard is uploaded."""
+        from .host_helpers import host_window_arrays
+
+        if not 2 <= k <= MJ_MAX_K:
+            raise ValueError(f"rank-sharded window index supports "
+                             f"probe_size 2..{MJ_MAX_K}")
+        ws, we = int(trim[0]), int(trim[1])
+        n1 = int(len(strand_data))
+        if not 0 <= ws < we <= n1 - 1:
+            raise ValueError(f"bad trim window {trim}")
+        if not 0 <= r < D:
+            raise ValueError(f"bad rank {r} of {D}")
+        W = we - ws + 1
+        Wl = -(-W // D)
+        a, b = min(W, r * Wl), min(W, (r + 1) * Wl)
+        if host_build:
+            key_hi, key_lo, _, sa, _ = host_window_arrays(strand_data, k,
+                                                          ws, we)
+            key = (key_hi[a:b].astype(np.int64) << 31) \
+                | (key_lo[a:b].astype(np.int64) << 1)
+            key = torch.from_numpy(key).to(device)
+            sa = torch.from_numpy(np.ascontiguousarray(sa[a:b])).to(device)
+        else:
+            if codes is None:
+                codes = upload_codes(strand_data, device)
+            skey, sa_all = window_arrays_from_codes(codes, k, W, ws)
+            key, sa = skey[a:b].clone(), sa_all[a:b].clone()
+            del skey, sa_all
+        return cls(key=key, sa=sa, W=W, Wl=Wl, r=r, D=D, k=k, first_len=n1,
+                   win_start=ws, win_end=we, reverse=reverse,
+                   complement=complement)

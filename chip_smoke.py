@@ -134,7 +134,25 @@
    ``hosts`` (:func:`run_hosts`): the CLI with ``--shards 4 --hosts 2
    --engine cuda`` (worker processes sharing the card), held to the shards
    path's host JSON, with its wall and the workers' device memory;
-9. prints a {"kernels": [...]} line (each kernel once per path, with the
+9. the mesh engines on ``torch.distributed`` (``asgart_tpu_torch
+   .distributed``), each phase's seconds printed: ``rank_trim``
+   (:func:`run_rank_trim`): a one-rank NCCL group in this process and
+   ``ASGART_RANK_SHARDED=1`` behind :func:`mj_ballast`, so that the router
+   takes ``ShardedWindowEngine`` on the mj_trim window, cold and warm, held
+   to mj_trim's host JSON with KA, KH, KT and KD launched, every
+   ``all_reduce`` printed, and KT against its plain version on the largest
+   chunk; ``rank_trim4`` (:func:`run_rank_trim4`): ``distributed.dryrun``
+   with four gloo ranks sharing the card, the same window built on the
+   host (``ASGART_RSH_HOST_BUILD=1``), the four JSONs identical and
+   mj_trim's host JSON, each rank's launches, peak and collectives, then
+   KT against its plain version on each of the four ranks' shards
+   (:func:`kt_check`); and
+   ``probe_mesh2`` (:func:`run_probe_mesh2`): two gloo ranks sharing the
+   card on the whole genome at k = 20 (the table engine's probe-axis
+   scan), held to the whole path's host JSON with KM and KD launched on
+   each rank, each rank's lanes and every ``all_gather`` printed; then
+   :func:`nccl_shared_card` prints how NCCL treats two ranks on one card;
+10. prints a {"kernels": [...]} line (each kernel once per path, with the
    path's name and k; KN's rows: its time, the plain time and the bound
    on the checked bursts, and beside them its chunk's events, bursts,
    native tests, one KN pass over the chunk and the host chain's time on
@@ -2719,6 +2737,290 @@ def run_hosts(fa: str, device, work: str, host: str) -> None:
         raise AssertionError(f"{tag}: no worker held device memory")
 
 
+RANK_KERNELS = ("pack_keys", "mj_ranges", "gather_owned", "scan_core")
+PROBE_KERNELS = ("table_ranges", "scan_core")
+
+
+def kt_check(fa: str, settings, device, D: int) -> list:
+    """KT ``gather_owned`` against its plain version on each of ``D``
+    ranks' shards of the window, on the largest chunk's lanes (by raw
+    total) with the global bounds of a one-rank stage 1 (the bounds every
+    rank holds after stage 1's ``all_reduce``); both timed, with the bound
+    of the bytes the function needs: lo, hi and mask of every lane (9 B),
+    the offset of every lane that has entries (8 B), 4 B per buffer entry
+    written and 4 B per owned entry read; two operations per entry. With
+    D = 1 the shard is the index the run left in the cache (a hit:
+    nothing is rebuilt, and stage 1 is the one kept on the index); with D
+    > 1 rank r's shard is ``ShardedWindowIndex.build(..., r, D)`` on the
+    card (the whole window, then cut: the rows the host build gives rank
+    r, bit for bit). Returns one result a rank."""
+    import torch
+
+    from asgart_tpu_torch.codes import upload_codes
+    from asgart_tpu_torch.device_engine import ShardedWindowEngine
+    from asgart_tpu_torch.fasta import prepare_data
+    from asgart_tpu_torch.kernels import gather_owned
+    from asgart_tpu_torch.kernels.sharded import (csr_offsets,
+                                                  gather_owned_plain)
+    from asgart_tpu_torch.window_index import ShardedWindowIndex
+
+    s = settings
+    trim, chunks, strand = prepare_data([fa], s.skip_masked, s.trim)
+    eng = ShardedWindowEngine(strand, s, device, trim)
+    idx = eng.ensure_index()
+    ranges = eng.stage1(chunks)
+    n_lanes = {(cs, cl): nc for cs, cl, nc in ranges.specs}
+    chunk = max(n_lanes, key=lambda c: ranges.offs[c][1])
+    off0, _ = ranges.offs[chunk]
+    lanes = [t[off0: off0 + n_lanes[chunk]] for t in
+             (ranges.lane_lo, ranges.lane_hi, ranges.lane_mask)]
+    off, total = csr_offsets(*lanes)
+    lo, hi = (t.to(torch.int64) for t in lanes[:2])
+    live = int(((hi > lo) & lanes[2]).sum())  # lanes with entries
+    codes = None if D == 1 else upload_codes(strand.data, device)
+    checks = []
+    for r in range(D):
+        shard = idx if D == 1 else ShardedWindowIndex.build(
+            strand.data, s.probe_size, trim, s.reverse, s.complement,
+            device, r, D, False, codes)
+        args = (*lanes, off, total, shard.sa, shard.row0)
+        got = gather_owned(*args)
+        want = gather_owned_plain(*args)
+        torch.cuda.synchronize()
+        span = (hi.clamp(max=shard.row0 + shard.sa.numel())
+                - lo.clamp(min=shard.row0)).clamp(min=0)
+        owned = int(torch.where(lanes[2], span, 0).sum())
+        checks.append({
+            "chunk": list(chunk), "lanes": n_lanes[chunk], "live": live,
+            "total": total, "owned": owned,
+            "rows": [shard.row0, shard.sa.numel()],
+            "max_abs_err": max_abs_err([got], [want]),
+            "ms": cuda_ms(lambda: gather_owned(*args)),
+            "plain_ms": cuda_ms(lambda: gather_owned_plain(*args)),
+            "nbytes": 9 * n_lanes[chunk] + 8 * live + 4 * total
+            + 4 * owned, "ops": 2 * total})
+        del shard, args, got, want
+    return checks
+
+
+def kt_row(record, check: dict, tag: str) -> None:
+    """A KT row from :func:`kt_check`'s result."""
+    record("gather_owned", "sharded.cu",
+           "asgart_tpu/device_engine.py:3180 (sa_gather of "
+           "_sharded_window_core_fn)", check["max_abs_err"], check["ms"],
+           check["plain_ms"],
+           f"{tag}: {check['lanes']} lanes ({check['live']} with entries), "
+           f"{check['total']} entries, {check['owned']} owned (rows "
+           f"{check['rows'][0]}.."
+           f"+{check['rows'][1]})", check["nbytes"], check["ops"])
+
+
+def collective_summary(stats) -> str:
+    """Each collective's bytes and milliseconds, in order."""
+    return ", ".join(f"{op} {b} B {ms:.3f} ms" for op, b, ms in stats)
+
+
+def run_rank_trim(fa: str, n: int, device, trim, host: str) -> list:
+    """``rank_trim``: a one-rank NCCL group on the card, and
+    ``ASGART_RANK_SHARDED=1`` behind :func:`mj_ballast` (no fused build
+    fits), so that the router takes ``ShardedWindowEngine`` on the mj_trim
+    window (k = 20, -RC; built on the card, as the merge join fits): a
+    cold run and a warm one (an index cache hit: no KA, no KH), with every
+    launch counter set to 0 just before and read just after; the JSON must
+    be mj_trim's host JSON and KA, KH, KT and KD launched; every
+    ``all_reduce`` (stage 1's three, then one per chunk) printed; then KT
+    against its plain version on the largest chunk."""
+    import torch
+
+    from asgart_tpu_torch import distributed
+    from asgart_tpu_torch import kernels as kmod
+    from asgart_tpu_torch.fused_index import INDEX_CACHE
+    from asgart_tpu_torch.pipeline import search_duplications
+    from asgart_tpu_torch.structs import RunSettings
+
+    s = RunSettings(probe_size=20, trim=trim, reverse=True, complement=True)
+    tag = "rank_trim k=20"
+    distributed.init(0, 1, device, f"tcp://127.0.0.1:{free_port()}",
+                     "nccl")
+    os.environ["ASGART_RANK_SHARDED"] = "1"
+    ballast, nb = mj_ballast(n + 1, trim[1] - trim[0] + 1, 20, False, device)
+    try:
+        rows = []
+        runs = {}
+        torch.cuda.reset_peak_memory_stats(device)
+        kmod.reset_launch_counts()
+        for tag2 in ("cold", "warm"):
+            before = kmod.launch_counts()
+            del distributed.stats[:]
+            t0 = time.time()
+            res = search_duplications([fa], s, engine="cuda", device=device)
+            torch.cuda.synchronize()
+            t = time.time() - t0
+            after = kmod.launch_counts()
+            runs[tag2] = (t, json_text(res), launched(
+                {m: after[m] - before[m] for m in after}),
+                list(distributed.stats))
+        counts = kmod.launch_counts()
+        peak = torch.cuda.max_memory_allocated(device) - nb
+        check, = kt_check(fa, s, device, 1)
+    finally:
+        del ballast
+        os.environ.pop("ASGART_RANK_SHARDED")
+        distributed.dist.destroy_process_group()
+    for tag2, (t, text, c, st) in runs.items():
+        print(f"{tag} cuda {tag2}: {t:.3f} s wall, launches {json.dumps(c)}"
+              f"; backend nccl, 1 rank: {collective_summary(st)}")
+        if text != host:
+            raise AssertionError(f"{tag} {tag2} JSON differs from mj_trim's "
+                                 f"host JSON ({len(text)} vs {len(host)} "
+                                 "bytes)")
+    print(f"{tag} peak device memory {peak} B (ballast excluded)",
+          flush=True)
+    for name in RANK_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"{tag} main path")
+    if runs["warm"][2].get("pack_keys") or runs["warm"][2].get("mj_ranges"):
+        raise AssertionError(f"{tag} warm run (a cache hit) launched KA or "
+                             "KH")
+    kt_row(recorder(rows, "rank_trim", 20), check, "largest chunk, 1 rank")
+    rows[-1]["launches"] = counts["gather_owned"]
+    INDEX_CACHE.clear()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def rank_reports(tag: str, reports: list, kernels) -> None:
+    """Prints each rank's report (walls, launches, peak, collectives) and
+    fails when a kernel of the path was not launched on a rank."""
+    for rep in reports:
+        c = launched(rep["launches"])
+        lanes = f", {rep['lanes']} lanes" if "lanes" in rep else ""
+        print(f"{tag} rank {rep['rank']} of {rep['world']} ({rep['backend']} "
+              f"on {rep['device']}{lanes}): group set-up "
+              f"{rep['init_s']:.3f} s, search {rep['search_s']:.3f} s "
+              f"(phases {json.dumps(rep['profile'])}), peak "
+              f"device memory {rep['peak_bytes']} B, launches "
+              f"{json.dumps(c)}; {collective_summary(rep['collectives'])}",
+              flush=True)
+        for name in kernels:
+            if not c.get(name):
+                raise AssertionError(f"kernel {name} was not launched on "
+                                     f"{tag} rank {rep['rank']}")
+
+
+def run_rank_trim4(fa: str, trim, host: str) -> list:
+    """``rank_trim4``: ``distributed.dryrun`` with 4 gloo ranks sharing the
+    card (NCCL refuses two ranks on one GPU) on the mj_trim window with
+    ``ASGART_RANK_SHARDED=1`` and the host build
+    (``ASGART_RSH_HOST_BUILD=1``): the four JSONs must be identical and
+    mj_trim's host JSON, and KA, KH, KT and KD launched on every rank; then,
+    in this process once the ranks have ended, KT against its plain version
+    on each of the four ranks' shards (:func:`kt_check`)."""
+    import torch
+
+    from asgart_tpu_torch import distributed
+    from asgart_tpu_torch.fused_index import INDEX_CACHE
+    from asgart_tpu_torch.structs import RunSettings
+
+    INDEX_CACHE.clear()
+    torch.cuda.empty_cache()
+    s = RunSettings(probe_size=20, trim=trim, reverse=True, complement=True)
+    tag = "rank_trim4 k=20"
+    t0 = time.time()
+    _, reports = distributed.dryrun(
+        4, "cuda:0", fa=fa, settings=s, host=host,
+        env={"ASGART_RSH_HOST_BUILD": "1"}, timeout=600)
+    print(f"{tag}: 4 ranks, JSON identical and mj_trim's host JSON, "
+          f"{time.time() - t0:.3f} s wall", flush=True)
+    rank_reports(tag, reports, RANK_KERNELS)
+    checks = kt_check(fa, s, torch.device("cuda", 0), 4)
+    rows = []
+    for rep, check in zip(reports, checks):
+        kt_row(recorder(rows, f"rank_trim4 rank {rep['rank']}", 20),
+               check, f"largest chunk, rank {rep['rank']} of 4")
+        rows[-1]["launches"] = rep["launches"]["gather_owned"]
+    INDEX_CACHE.clear()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_probe_mesh2(fa: str, host: str) -> None:
+    """``probe_mesh2``: ``distributed.dryrun`` with 2 gloo ranks sharing the
+    card on the whole genome, k = 20, -RC: under a group the router takes
+    no fused build, so the table engine's probe-axis scan; both JSONs must
+    be the whole k = 20 path's host JSON, and KM and KD launched on each
+    rank; each rank's lanes and every ``all_gather`` printed."""
+    import torch
+
+    from asgart_tpu_torch import distributed
+    from asgart_tpu_torch.fused_index import INDEX_CACHE
+    from asgart_tpu_torch.structs import RunSettings
+
+    INDEX_CACHE.clear()
+    torch.cuda.empty_cache()
+    tag = "probe_mesh2 k=20"
+    t0 = time.time()
+    _, reports = distributed.dryrun(
+        2, "cuda:0", fa=fa, settings=RunSettings(probe_size=20, reverse=True,
+                                                 complement=True),
+        host=host, timeout=600)
+    print(f"{tag}: 2 ranks, JSON identical and the whole path's host JSON, "
+          f"{time.time() - t0:.3f} s wall", flush=True)
+    rank_reports(tag, reports, PROBE_KERNELS)
+
+
+NCCL_PAIR = r"""
+import sys, datetime, torch, torch.distributed as dist
+dist.init_process_group("nccl", init_method="tcp://127.0.0.1:" + sys.argv[2],
+                        rank=int(sys.argv[1]), world_size=2,
+                        timeout=datetime.timedelta(seconds=60))
+torch.cuda.set_device(0)
+t = torch.ones(4, device="cuda:0")
+dist.all_reduce(t)
+torch.cuda.synchronize()
+print("accepted", t.tolist())
+dist.destroy_process_group()
+"""
+
+
+def nccl_shared_card() -> None:
+    """Two NCCL ranks on ``cuda:0`` (what ``distributed.dryrun`` avoids by
+    taking gloo for ranks that share a card): prints whether NCCL refused
+    them, and how."""
+    port = str(free_port())
+    procs = [subprocess.Popen([sys.executable, "-c", NCCL_PAIR, str(r), port],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=120)[0])
+    except subprocess.TimeoutExpired:
+        outs.append("timed out after 120 s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+    text = "\n".join(outs)
+    lines = [ln.strip() for ln in text.splitlines() if "Duplicate GPU" in ln]
+    verdict = (f"refused: {lines[0]}" if lines else
+               "accepted" if all(p.returncode == 0 for p in procs) else
+               f"failed otherwise: {text[-500:]!r}")
+    print(f"nccl_shared_card: two NCCL ranks on cuda:0 {verdict} (rc "
+          f"{[p.returncode for p in procs]})", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mbp", type=float, default=128.0,
@@ -2785,6 +3087,7 @@ def main(argv=None) -> int:
                                         RunSettings(probe_size=k, **rc))
         rows += path_rows
         if k == 20:
+            whole_host = path_host
             rows += run_device_chain_whole(fa, device, path_host,
                                            args.plain_events)
             rows += run_whole_sliced(fa, device, path_host)
@@ -2825,7 +3128,14 @@ def main(argv=None) -> int:
     for name, phase in (
             ("seed_trim", lambda: run_seed_trim(fa, device, trim, mj_host)),
             ("seed_k21", lambda: run_seed_k21(fa, n, device, work)),
-            ("hosts", lambda: run_hosts(fa, device, work, shard_host))):
+            ("hosts", lambda: run_hosts(fa, device, work, shard_host)),
+            # the mesh engines on torch.distributed: one NCCL rank, then
+            # gloo ranks sharing this card (NCCL refuses that)
+            ("rank_trim", lambda: run_rank_trim(fa, n, device, trim,
+                                                mj_host)),
+            ("rank_trim4", lambda: run_rank_trim4(fa, trim, mj_host)),
+            ("probe_mesh2", lambda: run_probe_mesh2(fa, whole_host)),
+            ("nccl_shared_card", nccl_shared_card)):
         t0 = time.time()
         rows += phase() or []
         print(f"{name}: phase {time.time() - t0:.1f} s", flush=True)

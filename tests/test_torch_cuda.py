@@ -13,7 +13,9 @@ and KP against their plain versions, a sliced scan against one unsliced
 KD launch, and the JSON of sliced runs on both chains and journaled), and
 the seed lookups (KQ, KR and KS against their plain versions, with empty
 inputs, no buckets and wide buckets; ``SearchEngine(engine="cuda")`` and
-the k = 21 route against the host engine). The
+the k = 21 route against the host engine), and the rank-sharded window
+engine on one rank (KT against its plain version on every shard, and its
+JSON against the host engine). The
 kernels have no CPU mode, so without a CUDA GPU these tests skip. On a
 machine with a GPU (and without jax, which tests/conftest.py imports),
 run them with::
@@ -45,6 +47,8 @@ SLICE_KERNELS = ("granule_totals", "gather_flat")
 # the seed lookups, which only SearchEngine(engine="cuda") launches (and KS
 # no pipeline)
 SEED_KERNELS = ("equal_range", "gather_ranges", "pack_probe_planes")
+# KT, which only the rank-sharded window engine launches
+SHARD_KERNELS = ("gather_owned",)
 
 
 @pytest.fixture
@@ -139,7 +143,8 @@ def test_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse, complement, k):
     assert all(after[name] > before[name] for name in after
                if name not in ("offset_slots", "mj_ranges", "unpack_codes",
                                *TABLE_KERNELS, *CHAIN_KERNELS,
-                               *SLICE_KERNELS, *SEED_KERNELS))
+                               *SLICE_KERNELS, *SEED_KERNELS,
+                               *SHARD_KERNELS))
     if reverse == complement:
         assert n_events > 0
 
@@ -227,7 +232,8 @@ def test_window_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse,
     assert all(after[name] > before[name] for name in after
                if name not in ("scan_core", "mj_ranges", "unpack_codes",
                                *TABLE_KERNELS, *CHAIN_KERNELS,
-                               *SLICE_KERNELS, *SEED_KERNELS))
+                               *SLICE_KERNELS, *SEED_KERNELS,
+                               *SHARD_KERNELS))
 
 
 @pytest.mark.parametrize("k", [20, 25])
@@ -323,7 +329,8 @@ def test_mj_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse, complement,
     assert all(after[name] > before[name] for name in after
                if name not in ("scan_core", "unpack_codes", "offset_slots",
                                *TABLE_KERNELS, *CHAIN_KERNELS,
-                               *SLICE_KERNELS, *SEED_KERNELS))
+                               *SLICE_KERNELS, *SEED_KERNELS,
+                               *SHARD_KERNELS))
 
 
 @pytest.mark.parametrize("k", [20, 8])
@@ -503,7 +510,8 @@ def test_big_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse, complement,
     assert all(after[name] > before[name] for name in after
                if name not in ("offset_slots", "unpack_codes",
                                *TABLE_KERNELS, *CHAIN_KERNELS,
-                               *SLICE_KERNELS, *SEED_KERNELS))
+                               *SLICE_KERNELS, *SEED_KERNELS,
+                               *SHARD_KERNELS))
     if reverse == complement:
         assert n_events > 0
 
@@ -1039,3 +1047,70 @@ def test_gpu_seed_routes_equal_host(tmp_path, gpu, monkeypatch, rc):
                                              device=gpu,
                                              checkpoint=ck)) == want
         assert launch_counts()["gather_ranges"] > before
+
+
+@pytest.mark.parametrize("W,n_ranks", [(100003, 4), (100003, 8), (5, 8)])
+def test_gather_owned_equals_plain_on_gpu(gpu, W, n_ranks):
+    """KT on every rank's shard against its plain version: random windows
+    of a W-row order (lanes that end at a shard boundary, span three
+    shards, are empty or masked), every shard including those that own no
+    row (W = 5 over 8 ranks); the shards' buffers sum to the windows. An
+    empty buffer launches nothing."""
+    from asgart_tpu_torch.kernels import gather_owned, launch_counts
+    from asgart_tpu_torch.kernels.sharded import (csr_offsets,
+                                                  gather_owned_plain)
+
+    rng = np.random.default_rng(W + n_ranks)
+    Wl = -(-W // n_ranks)
+    n = 20000
+    lo = rng.integers(0, W, n)
+    hi = np.minimum(W, lo + rng.integers(0, 3 * Wl if W > 5 else 3, n))
+    if W > 5:  # end at a shard's end, span three shards, span all
+        lo[:3] = [Wl - 3, Wl - 2, 0]
+        hi[:3] = [Wl, 3 * Wl + 1, W]
+    mask = rng.random(n) >= 0.1
+    lo, hi = np.where(mask, lo, 0), np.where(mask, hi, 0)
+    sa = rng.permutation(W).astype(np.int32)
+    t = [torch.from_numpy(a).to(gpu) for a in
+         (lo.astype(np.int32), hi.astype(np.int32), mask)]
+    off, total = csr_offsets(*t)
+    before = launch_counts()["gather_owned"]
+    summed = torch.zeros(total, dtype=torch.int64, device=gpu)
+    for r in range(n_ranks):
+        a, b = min(W, r * Wl), min(W, (r + 1) * Wl)
+        shard = torch.from_numpy(sa[a:b].copy()).to(gpu)
+        got = gather_owned(*t, off, total, shard, a)
+        _equal([got], [gather_owned_plain(*t, off, total, shard, a)])
+        summed += got
+    torch.cuda.synchronize()
+    want = np.concatenate([sa[x:y] for x, y, m in zip(lo, hi, mask) if m])
+    assert np.array_equal(summed.cpu().numpy(), want)
+    assert launch_counts()["gather_owned"] == before + n_ranks
+    empty = gather_owned(*(x[:0] for x in t), off[:0], 0, shard, 0)
+    assert empty.numel() == 0
+    assert launch_counts()["gather_owned"] == before + n_ranks
+
+
+def test_gpu_rank_sharded_json_equals_host(tmp_path, gpu, monkeypatch):
+    """``ASGART_RANK_SHARDED=1`` on one rank (the fused build refused): the
+    rank-sharded engine, built on the card and on the host, writes the
+    host engine's bytes through KA, KH, KT and KD."""
+    from asgart_tpu_torch import pipeline
+    from asgart_tpu_torch.fused_index import INDEX_CACHE
+    from asgart_tpu_torch.kernels import launch_counts
+    from asgart_tpu_torch.pipeline import search_duplications
+
+    fa, _, _ = prepared(tmp_path, [("chr1", chunked_genome())])
+    s = RunSettings(reverse=True, complement=True, trim=(9000, 47000))
+    want = json_text(search_duplications([fa], s, engine="host"))
+    monkeypatch.setattr(pipeline, "fits", lambda *a, **kw: False)
+    monkeypatch.setenv("ASGART_RANK_SHARDED", "1")
+    for hb in ("0", "1"):
+        monkeypatch.setenv("ASGART_RSH_HOST_BUILD", hb)
+        INDEX_CACHE.clear()
+        before = launch_counts()
+        assert json_text(search_duplications([fa], s, engine="cuda",
+                                             device=gpu)) == want
+        after = launch_counts()
+        for name in ("pack_keys", "mj_ranges", "gather_owned", "scan_core"):
+            assert after[name] > before[name], (hb, name)

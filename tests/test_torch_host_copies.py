@@ -257,3 +257,68 @@ def test_merge_shard_events():
         else:
             assert np.array_equal(got[0], want[0])
             assert np.array_equal(got[1], want[1])
+
+
+def test_host_window_arrays():
+    """The copy differs from the original by where LO_SYMS comes from, and
+    gives its arrays on windows of two alphabets."""
+    assert _diff(inspect.getsource(de.host_window_arrays),
+                 inspect.getsource(hh.host_window_arrays)) == (
+        ("from .device_index import LO_SYMS",),
+        ("from .kernels.pack_keys import LO_SYMS",))
+    rng = np.random.default_rng(9)
+    for alphabet in (b"ACGT", b"ACGTN"):
+        data = np.frombuffer(bytes(rng.choice(np.frombuffer(
+            alphabet, np.uint8), 3000)) + b"$", np.uint8)
+        for k, (ws, we) in ((20, (0, 3000)), (8, (250, 2900)),
+                            (20, (100, 110))):
+            for a, b in zip(de.host_window_arrays(data, k, ws, we),
+                            hh.host_window_arrays(data, k, ws, we)):
+                assert np.array_equal(a, b) and np.asarray(a).dtype == \
+                    np.asarray(b).dtype
+
+
+# rank_sharded_window_applies: the ranks of the process group for the JAX
+# devices, and the port's merge-join fit against the free memory the
+# router passes for the JAX window fit and HBM budget
+RSH_DIFF = (
+    ("k: int = 20) -> bool:",
+     "import jax",
+     "",
+     "from .device_index import device_window_fits, hbm_budget_bytes",
+     "try:",
+     "n_dev = len(jax.devices())",
+     "except RuntimeError:",
+     "return False",
+     "if n_dev < 2 or device_window_fits(n1, W, doubled, k=k):",
+     "return per_shard <= hbm_budget_bytes()"),
+    ("k: int = 20, *, free: float) -> bool:",
+     "from .distributed import world",
+     "from .fused_index import mj_fits",
+     "n_dev = world()",
+     "if n_dev < 2 or mj_fits(n1, W, k, free, resident=n1):",
+     "return per_shard <= free"))
+
+
+def test_rank_sharded_window_applies(monkeypatch):
+    import torch
+
+    from asgart_tpu import pipeline as jax_pipeline
+
+    assert _diff(inspect.getsource(jax_pipeline.rank_sharded_window_applies),
+                 inspect.getsource(hh.rank_sharded_window_applies)
+                 ) == RSH_DIFF
+    from asgart_tpu_torch.fused_index import free_bytes
+
+    free = free_bytes(torch.device("cpu"))
+    args = (10**6, 10**5, True)
+    monkeypatch.setenv("ASGART_RANK_SHARDED", "1")
+    assert hh.rank_sharded_window_applies(*args, free=free)
+    assert jax_pipeline.rank_sharded_window_applies(*args)
+    monkeypatch.delenv("ASGART_RANK_SHARDED")
+    for n_dev in (None, 1):  # one rank, one JAX device
+        assert not hh.rank_sharded_window_applies(*args, n_dev=n_dev,
+                                                  free=free)
+    assert not jax_pipeline.rank_sharded_window_applies(*args, n_dev=1)
+    # two ranks: unbounded CPU memory holds the window's merge join
+    assert not hh.rank_sharded_window_applies(*args, n_dev=2, free=free)

@@ -132,8 +132,9 @@ def test_wrappers_take_kernel_path_for_gpu_tensors(monkeypatch):
     import importlib
 
     from asgart_tpu_torch.kernels import (_build, chain_bursts, equal_range,
-                                          gather_flat, gather_ranges,
-                                          granule_totals, group_bounds,
+                                          gather_flat, gather_owned,
+                                          gather_ranges, granule_totals,
+                                          group_bounds,
                                           invert_fused, mj_ranges,
                                           offset_slots, pack_keys,
                                           pack_probe_planes, scan_core,
@@ -164,7 +165,8 @@ def test_wrappers_take_kernel_path_for_gpu_tensors(monkeypatch):
                     ("slices", "gather_flat_plain"),
                     ("seed", "equal_range_plain"),
                     ("seed", "gather_ranges_plain"),
-                    ("seed", "pack_probe_planes_plain")):
+                    ("seed", "pack_probe_planes_plain"),
+                    ("sharded", "gather_owned_plain")):
         monkeypatch.setattr(mod(m), name, no_plain)
 
     i32, i64 = torch.int32, torch.int64
@@ -233,3 +235,8 @@ def test_wrappers_take_kernel_path_for_gpu_tensors(monkeypatch):
     with pytest.raises(RuntimeError, match="kernel library"):
         pack_probe_planes(torch.ones(30, dtype=torch.uint8),
                           torch.tensor([0, 10]), 20)
+    with pytest.raises(RuntimeError, match="kernel library"):
+        gather_owned(torch.tensor([0, 2], dtype=i32),
+                     torch.tensor([2, 5], dtype=i32),
+                     torch.ones(2, dtype=torch.bool),
+                     torch.tensor([0, 2]), 5, torch.arange(3, dtype=i32), 1)

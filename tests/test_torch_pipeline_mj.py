@@ -157,20 +157,20 @@ def test_natural_route(tmp_path, monkeypatch):
     monkeypatch.setattr(DeviceWindowIndex, "build", classmethod(spy))
     table = (2 * n1 - 1) * TABLE_PEAK_BYTES_PER_ROW
     assert _mj_need(n1, n1, 20) < table < _free_between(n1, n1, 20)
-    monkeypatch.setattr(fused_index, "free_bytes",
+    monkeypatch.setattr(pipeline, "free_bytes",
                         lambda device: _free_between(n1, n1, 20))
     assert _port(fa, s) == _jax(fa, s)
     assert built == []  # the table engine
-    monkeypatch.setattr(fused_index, "free_bytes",
+    monkeypatch.setattr(pipeline, "free_bytes",
                         lambda device: (_mj_need(n1, n1, 20) + table) / 2)
     assert _port(fa, s) == _jax(fa, s)
     assert built == [(0, n1 - 1)]
     trim = RunSettings(reverse=True, complement=True, trim=(5000, 70000))
-    monkeypatch.setattr(fused_index, "free_bytes",
+    monkeypatch.setattr(pipeline, "free_bytes",
                         lambda device: _free_between(n1, 65001, 20))
     assert _port(fa, trim) == _jax(fa, trim)
     assert built[-1] == (5000, 70000)
-    monkeypatch.setattr(fused_index, "free_bytes",
+    monkeypatch.setattr(pipeline, "free_bytes",
                         lambda device: _free_between(n1, 45001, 20,
                                                      keys_held=True))
     assert _port(fa, s, shards=2) == _jax(fa, s, shards=2)

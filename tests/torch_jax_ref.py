@@ -269,3 +269,15 @@ def key_planes(words):
               (w1 & (2**31 - 1)).astype(np.int32),
               (w0 >> 1).astype(np.int32))
     return planes, (w0 & 1).astype(bool)
+
+
+def dist_genome() -> tuple[bytes, tuple[int, int]]:
+    """asgart_tpu/distributed.py's genome (70 kb, seed 77: a direct pair
+    inside the trim window, a reverse-complement pair) and its window."""
+    rng = np.random.default_rng(77)
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    g = bytearray(rng.choice(acgt, 70000).tobytes())
+    g[40000:43000] = g[6000:9000]
+    comp = bytes.maketrans(b"ACGT", b"TGCA")
+    g[55000:57500] = bytes(g[20000:22500]).translate(comp)[::-1]
+    return bytes(g), (1000, 65000)
