@@ -1,6 +1,6 @@
 """The device engines: the fused engine (the whole genome or one trim
 window), the table engine (the whole genome, chunk by chunk), the
-merge-join window engine and its rank-sharded form.
+merge-join window engine and its rank-sharded and mesh forms.
 
 Counterpart of ``FusedEngine`` (asgart_tpu/device_engine.py:2157) for the
 one-device route (k = 2..30), with its ``trim`` window build, and of both
@@ -50,11 +50,15 @@ On a process group of ranks (``distributed.py``; the JAX mesh engines,
 K17): the table engine's probe-axis scan, each rank scanning its own
 lanes of every chunk (``_sharded_scan`` and ``_sharded_scan_group``, :987
 and :1019; ``_sharded_sliced_scan``, :1054, as each rank's own sliced
-scan) before every rank merges all ranks' streams; and
+scan) before every rank merges all ranks' streams;
 :class:`ShardedWindowEngine` (:3245), one trim window's index cut into
 the ranks' shards, whose stage 1 and match gather are summed over the
 ranks (``_sharded_window_ranges_fn`` and ``_sharded_window_core_fn``,
-:3134 and :3169; KT ``gather_owned``).
+:3134 and :3169; KT ``gather_owned``); and :class:`MeshWindowEngine`
+(:2903), ``--shards`` windows on a windows x probes layout of the ranks,
+each rank one window's index and one probe slice of every chunk
+(``_mesh_window_ranges``, ``_mesh_ranges_batch``,
+``_mesh_window_core_off`` and ``_mesh_window_core``, :2788-2877).
 """
 
 from __future__ import annotations
@@ -68,7 +72,7 @@ from . import distributed, native
 from .chain import chain_events_tensors, config_for, events_from_flat
 from .codes import upload_codes
 from .fused_index import (INDEX_CACHE, FusedIndex, IndexCache, free_bytes,
-                          mj_fits)
+                          mj_fits, probe_span)
 from .host_helpers import (SLICE_GRAN, _bucket, _merge_shard_events,
                            _plan_slices, _slice_budget)
 from .kernels import (gather_flat, gather_owned, granule_totals, mj_ranges,
@@ -245,13 +249,12 @@ def probe_lanes(n_lanes: int, r: int, D: int) -> tuple[int, int]:
     return min(n_lanes, r * b_local), min(n_lanes, (r + 1) * b_local)
 
 
-def gather_ranks(results):
+def gather_cells(results):
     """Each chunk's result of :func:`scan_lanes` over this rank's lanes
     (None, a ``ScanResult``, or a :class:`Sliced`, merged first), shared
-    with every rank (``distributed.all_gather_var``) and merged in rank
-    order by :func:`merge_slices`: the ranks' lanes are consecutive probe
-    slices, so the merge is the JAX ``_merge_shard_events`` (:1082) over
-    the mesh's shards. Every rank ends with the whole chunk's result."""
+    with every rank (``distributed.all_gather_var``): None (too short to
+    probe, on every rank alike), or every rank's ``ScanResult`` in rank
+    order."""
     for res in results:
         if res is None:
             yield None
@@ -263,8 +266,17 @@ def gather_ranks(results):
             [res.n_events, res.total_kept], dtype=torch.int64,
             device=res.flat.device))
         del res
-        yield merge_slices([ScanResult(f, int(m[0]), int(m[1]))
-                            for f, m in zip(flats, meta)])
+        yield [ScanResult(f, int(m[0]), int(m[1]))
+               for f, m in zip(flats, meta)]
+
+
+def gather_ranks(results):
+    """:func:`gather_cells`, each chunk's results merged in rank order by
+    :func:`merge_slices`: the ranks' lanes are consecutive probe slices,
+    so the merge is the JAX ``_merge_shard_events`` (:1082) over the
+    mesh's shards. Every rank ends with the whole chunk's result."""
+    for cells in gather_cells(results):
+        yield None if cells is None else merge_slices(cells)
 
 
 class DeviceWindowEngine:
@@ -374,12 +386,82 @@ class DeviceWindowEngine:
         """The device phase (:func:`device_phase`), in chunk order."""
         return device_phase(self, chunks)
 
-    def scan_results(self, chunks):
-        """KD's result for each chunk, in order (:func:`scan_lanes`)."""
+    def scan_results(self, chunks, part=None):
+        """KD's result for each chunk, in order (:func:`scan_lanes`; ``part``
+        as there)."""
         ranges = self.stage1(chunks)
         ws, W = self.trim[0], self.index.W
         return scan_lanes(self.settings, ranges, self.index.sa, chunks,
-                          lambda cs, cl: rebased_bases(cs, cl, ws, W))
+                          lambda cs, cl: rebased_bases(cs, cl, ws, W),
+                          part=part)
+
+
+class MeshWindowEngine(DeviceWindowEngine):
+    """The windows x probes mesh engine (the JAX ``MeshWindowEngine``,
+    asgart_tpu/device_engine.py:2903) on a process group: D ranks form S
+    windows of P = D / S ranks each, and rank r is cell (w, p) = (r // P,
+    r % P), as device r of the JAX (S, P) mesh (asgart_tpu/pipeline.py:
+    414-415). ``r`` and ``D`` default to this process's rank and world;
+    the tests pass them to compute any cell in one process.
+
+    Each rank builds only window w's :class:`DeviceWindowIndex` (merge
+    join, window positions; the JAX engine pads every window to a common
+    width with INT32_MAX keys only to stack them on its mesh, :2952-2971,
+    and those keys never match a probe). Stage 1 is
+    :meth:`DeviceWindowEngine.stage1`: KA's probe-only pack and KH over
+    every chunk's lanes in one pass, which is ``_mesh_ranges_batch``
+    (:2817) and, for one live chunk, ``_mesh_window_ranges`` (:2788). Cell
+    (w, p) owns lanes :func:`probe_lanes` (n, p, P) of a chunk of n lanes
+    (the JAX ``_geometry``, :2976-2991, lane origin p·b_local), and KD
+    scans them with :func:`rebased_bases` (``_mesh_window_core_off``,
+    :2847, and ``_mesh_window_core``, :2877; KD sizes its outputs exactly,
+    so there is no cap and no retry; a repeat-heavy cell's lanes are
+    sliced as on one device). Per chunk one world-wide ``all_gather_var``
+    shares every cell's result (:func:`gather_cells`); every rank merges
+    each window's P cells in p order with the aging carry
+    (:func:`merge_slices`, the JAX ``_chain_cells``, :3091-3115) and
+    chains every window itself, so every rank holds the whole result."""
+
+    def __init__(self, strand, settings, device: torch.device, windows,
+                 r: int | None = None, D: int | None = None,
+                 cache: IndexCache | None = None,
+                 codes: torch.Tensor | None = None):
+        self.windows = [(int(a), int(b)) for a, b in windows]
+        r = distributed.rank() if r is None else r
+        D = distributed.world() if D is None else D
+        S = len(self.windows)
+        if not 0 < S <= D or D % S or not 0 <= r < D:
+            raise ValueError(f"rank {r} of {D} forms no cell of a mesh of "
+                             f"{S} windows")
+        n1 = int(len(strand.data))
+        if probe_span(n1, settings.reverse or settings.complement) \
+                >= 1 << 31:
+            # as the JAX engine refuses it (:2934-2936)
+            raise ValueError("genome too large for int32 probe addressing")
+        self.S, self.P = S, D // S
+        self.w, self.p = divmod(r, self.P)
+        super().__init__(strand, settings, device, self.windows[self.w],
+                         cache=cache, codes=codes)
+
+    def part(self, n_lanes: int) -> tuple[int, int]:
+        """This cell's lanes [a, b) of a chunk's ``n_lanes``."""
+        return probe_lanes(n_lanes, self.p, self.P)
+
+    def scan_windows(self, chunks) -> list:
+        """The device phase of every window (:func:`device_phase`'s entries,
+        each window's matches shifted by its start): [w][chunk]. Per chunk
+        every cell's result (:meth:`scan_results` over :meth:`part`) is
+        gathered, and each window's P cells are merged in p order."""
+        finish = finisher(self.settings)
+        S, P = self.S, self.P
+        out = [[] for _ in self.windows]
+        for cells in gather_cells(self.scan_results(chunks, part=self.part)):
+            for w, (ws, _) in enumerate(self.windows):
+                out[w].append(None if cells is None else finish(
+                    cells[w] if P == 1 else
+                    merge_slices(cells[w * P: (w + 1) * P]), ws))
+            del cells
+        return out
 
 
 class ShardedWindowEngine(DeviceWindowEngine):
@@ -490,6 +572,15 @@ def device_chain() -> bool:
     return bool(os.environ.get("ASGART_DEVICE_CHAIN"))
 
 
+def finisher(settings):
+    """``finish(res, m_offset)``: a chunk's entry of :func:`device_phase`
+    from its KD result ``res``."""
+    if device_chain():
+        return lambda res, m_offset: chain_on_device(res, settings,
+                                                     m_offset)
+    return lambda res, m_offset: host_events(res)
+
+
 def device_phase(eng, chunks) -> list:
     """The device phase of the engine ``eng`` over ``chunks``, one entry a
     chunk, in order, for :func:`families`: with :func:`device_chain`, the
@@ -497,11 +588,10 @@ def device_phase(eng, chunks) -> list:
     after its scan (:func:`chain_on_device`), so one chunk's events are on
     the card at a time; else its merged events on the host, (ev int32 [3,
     n], m int32, z_trail) or None (no event), for the host chain."""
-    finish = (lambda res: chain_on_device(res, eng.settings, eng.m_offset)
-              ) if device_chain() else host_events
+    finish = finisher(eng.settings)
     out = []
     for res in eng.scan_results(chunks):
-        out.append(finish(res))
+        out.append(finish(res, eng.m_offset))
         del res  # let go before the next chunk's scan
     return out
 

@@ -6,11 +6,14 @@ is D processes, one per rank, each with one explicit device, joined by a
 process group: the rank-sharded window engine
 (``device_engine.ShardedWindowEngine``) keeps one shard of the window's
 index on each rank and sums the ranks' partial results with
-:func:`psum`, and the table engine's probe-axis scan
+:func:`psum`; the table engine's probe-axis scan
 (``device_engine.TableEngine``) scans each rank's own probe lanes and
-shares the results with :func:`all_gather_var`. Every rank ends with the
-same results, so each chains and writes its own copy, as the JAX workers
-of asgart_tpu/distributed.py do.
+shares the results with :func:`all_gather_var`; and the windows x probes
+mesh engine (``device_engine.MeshWindowEngine``) gives each rank one
+``--shards`` window and one probe slice, and shares every cell's result
+the same way. Every rank ends with the same results, so each chains and
+writes its own copy, as the JAX workers of asgart_tpu/distributed.py do;
+a journal (``--checkpoint``) has one writer, rank 0.
 
 Without a process group the world is one rank, :func:`psum` is the
 identity and :func:`all_min` returns its argument: the meaning of a
@@ -28,7 +31,8 @@ Run a worker (the port's CLI flags after ``--``)::
 
 Run the dryrun: :func:`dryrun` (``dryrun(4, "cpu", fa, settings)``: four
 gloo ranks on the CPU; ``dryrun(4, "cuda:0", fa, settings)``: four ranks
-sharing one GPU, also on gloo).
+sharing one GPU, also on gloo; ``dryrun(4, "cpu", fa, settings,
+shards=2)``: the windows x probes mesh of 2 windows x 2 ranks).
 """
 
 from __future__ import annotations
@@ -120,6 +124,12 @@ def all_min(x: float) -> float:
     return float(t.item())
 
 
+def agree(x: float) -> bool:
+    """Whether every rank passed the same ``x`` (exact in float64); True
+    without a group. Every rank gets the same answer."""
+    return all_min(x) == -all_min(-x)
+
+
 def all_gather_var(t: torch.Tensor) -> list:
     """Every rank's 1-D tensor ``t`` (lengths may differ), in rank order,
     on ``t``'s device: the lengths first, then the tensors padded to the
@@ -143,9 +153,10 @@ def all_gather_var(t: torch.Tensor) -> list:
 # --- the rank worker and the dryrun --------------------------------------
 
 
-def cli_args(fa: str, settings, out: str) -> list[str]:
+def cli_args(fa: str, settings, out: str, shards: int = 1,
+             checkpoint: str | None = None) -> list[str]:
     """The port's CLI flags for ``settings`` on the FASTA ``fa``, writing
-    ``out``."""
+    ``out``, with ``--shards`` and ``--checkpoint`` where given."""
     s = settings
     args = [fa, "--probe-size", str(s.probe_size),
             "--gap-size", str(s.max_gap_size - s.probe_size),
@@ -153,6 +164,10 @@ def cli_args(fa: str, settings, out: str) -> list[str]:
             "--max-cardinality", str(s.max_cardinality), "--out", out]
     if s.trim is not None:
         args += ["--trim", str(s.trim[0]), str(s.trim[1])]
+    if shards > 1:
+        args += ["--shards", str(shards)]
+    if checkpoint is not None:
+        args += ["--checkpoint", checkpoint]
     for flag, on in (("-R", s.reverse), ("-C", s.complement),
                      ("-S", s.skip_masked), ("--compute-score",
                                              s.compute_score)):
@@ -203,14 +218,15 @@ def _worker(argv: list[str]) -> None:
         t0 = time.time()
         prof: dict = {}
         res = search_duplications(cli.strands, settings, engine="cuda",
-                                  device=device, profile=prof)
+                                  device=device, checkpoint=cli.checkpoint,
+                                  shards=cli.shards, profile=prof)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
             report["peak_bytes"] = torch.cuda.max_memory_allocated(device)
         report.update(search_s=time.time() - t0, profile=prof,
                       launches=kernels.launch_counts(),
                       collectives=list(stats))
-        if settings.trim is None:
+        if settings.trim is None and cli.shards == 1:
             from .fasta import prepare_data
 
             _, chunks, _ = prepare_data(cli.strands, settings.skip_masked,
@@ -232,19 +248,22 @@ def _free_port() -> int:
 
 def dryrun(n_ranks: int, device: str, fa: str, settings,
            host: str | None = None, env: dict | None = None,
-           timeout: float = 900.0) -> tuple[str, list]:
+           timeout: float = 900.0, shards: int = 1,
+           checkpoint: str | None = None) -> tuple[str, list]:
     """Spawn ``n_ranks`` worker processes, every one on ``device`` (the
     backend is gloo when several ranks share it, NCCL for one rank on a
-    GPU), run the search of the FASTA ``fa`` with ``settings`` on each
-    under the group, require the ranks' JSON to be identical and equal to
-    the host engine's (``host``: its JSON text, computed here when None).
-    A trim window runs the rank-sharded window engine
-    (``ASGART_RANK_SHARDED=1``, with the host build,
-    ``ASGART_RSH_HOST_BUILD=1``, unless ``env`` says otherwise); ``env``
-    overlays the workers' environment. Every wait ends after ``timeout``
-    seconds: then every rank is killed and the dryrun raises. Returns the
-    JSON text and each rank's report (its launches, collectives, peak
-    device memory, walls and phase profile)."""
+    GPU), run the search of the FASTA ``fa`` with ``settings`` (and
+    ``--shards``, ``--checkpoint``: the journal's path, one file for every
+    rank) on each under the group, require the ranks' JSON to be identical
+    and equal to the host engine's (``host``: its JSON text, computed here
+    when None, with the same ``shards``). A trim window runs the
+    rank-sharded window engine (``ASGART_RANK_SHARDED=1``, with the host
+    build, ``ASGART_RSH_HOST_BUILD=1``, unless ``env`` says otherwise);
+    ``env`` overlays the workers' environment. Every wait ends after
+    ``timeout`` seconds: then every rank is killed and the dryrun raises.
+    Returns the JSON text and each rank's report (its launches,
+    collectives, peak device memory, walls and phase profile; a mesh
+    rank's profile holds its cell under "mesh")."""
     import dataclasses
     import io
 
@@ -273,7 +292,7 @@ def dryrun(n_ranks: int, device: str, fa: str, settings,
                 [sys.executable, "-m", "asgart_tpu_torch.distributed",
                  "--rank", str(r), "--world", str(n_ranks), "--port",
                  str(port), "--device", device, "--backend", backend, "--",
-                 *cli_args(fa, settings, out)],
+                 *cli_args(fa, settings, out, shards, checkpoint)],
                 env=wenv, cwd=pkg_root, stdout=log,
                 stderr=subprocess.STDOUT))
         try:
@@ -310,7 +329,8 @@ def dryrun(n_ranks: int, device: str, fa: str, settings,
         if host is None:
             buf = io.StringIO()
             JSONExporter().save(search_duplications(
-                [fa], dataclasses.replace(settings), engine="host"), buf)
+                [fa], dataclasses.replace(settings), engine="host",
+                shards=shards), buf)
             host = buf.getvalue()
         if texts[0] != host:
             raise AssertionError(f"the ranks' JSON differs from the host "

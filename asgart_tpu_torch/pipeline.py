@@ -2,7 +2,8 @@
 
 Counterpart of ``asgart_tpu.pipeline.search_duplications``
 (asgart_tpu/pipeline.py:674-944) and ``_search_duplications_sharded``
-(:358-525) on one device: the whole genome, one trim window
+(:358-525) on one device, or on the ranks of a process group
+(``distributed.py``): the whole genome, one trim window
 (``settings.trim``), or ``shards`` trim windows whose families are
 concatenated in window order. The host stages below (``probe_positions``
 through ``SearchEngine``, and ``_finalize_result``) are copies of the JAX
@@ -61,19 +62,31 @@ join that the ranks' shards hold), as the JAX adapter checks it
 (:571-629); so does the whole genome's one-window route. Under a process
 group (``distributed.py``) ``n_dev`` is the world size, as the JAX package
 takes ``len(jax.devices())``; the route reads free memory once, the least
-over the ranks (one ``all_min`` in :func:`search_duplications`), so every
-rank takes the same route. With more than one rank no fused build
-runs (device_engine.py:2119), the whole genome takes the table engine's
-probe-axis scan when the table fits, and every route with no form on
-ranks raises ``NotImplementedError`` naming the JAX engine: ``--shards``
-(the JAX ``MeshWindowEngine``, ROADMAP queue 2), a window or one-window
-genome on the merge-join engine, the k = 21 ``SearchEngine``, the
-planner and ``--checkpoint``.
+over the ranks (one ``all_min`` a search, or a sharded run), so every
+rank takes the same route. With more than one rank no fused build runs
+(device_engine.py:2119), and every route has a form on the ranks, each
+rank ending with the whole result:
+
+- the whole genome: the table engine's probe-axis scan (each rank its
+  lanes of every chunk, gathered), journaled or not;
+- ``--shards S`` and the planner's windows, k <= 20: the windows x probes
+  ``MeshWindowEngine`` where the ranks tile the windows (D >= S, S
+  dividing D; :408-409, :func:`window_layout`), else the windows one
+  after another, each on every rank;
+- a trim window, the one-window whole genome and each window of a
+  sequential sharded run: the rank-sharded engine where it applies, else
+  the merge-join engine, which every rank runs on its own device, as the
+  JAX adapter runs it on one device of its mesh (:552-640);
+- the k = 21 ``SearchEngine``: every rank runs it on its own device;
+- ``--checkpoint``: every rank reads the journal and runs every chunk;
+  rank 0 alone writes it (:class:`Journal`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import hashlib
 import json
 import logging
 import os
@@ -87,8 +100,10 @@ import torch
 from . import native, postprocess
 from .codes import upload_codes
 from .device import cuda_device
+from . import distributed
 from .device_engine import (DeviceWindowEngine, FusedEngine,
-                            ShardedWindowEngine, TableEngine, families)
+                            MeshWindowEngine, ShardedWindowEngine,
+                            TableEngine, chunk_specs, families)
 from .distributed import all_min, world
 from .fasta import Strand, prepare_data
 from .fused_index import (INDEX_CACHE, MAX_K, MJ_MAX_K, fits, free_bytes,
@@ -390,17 +405,6 @@ def _too_large(n1: int, settings: RunSettings, what: str):
         "use more --shards or engine='host'")
 
 
-def _no_mesh_form(what: str, engine: str) -> NotImplementedError:
-    """The refusal of a route that has no form on a process group of more
-    than one rank."""
-    return NotImplementedError(
-        f"{what} under a process group of {world()} ranks: the asgart_tpu "
-        f"package runs it on {engine}, which asgart_tpu_torch has not "
-        "ported to ranks (ROADMAP queue 2, K17, and A11); the cuda engine "
-        "runs the table engine's probe-axis scan and the rank-sharded "
-        "window engine under a group; run this with one rank")
-
-
 def _window_route(n1: int, W: int, settings: RunSettings, device,
                   resident: int, keys_held: bool = False,
                   chunk_len: int = 0, journal: bool = False,
@@ -419,8 +423,8 @@ def _window_route(n1: int, W: int, settings: RunSettings, device,
     later window's build). Past int32 addressing the merge-join engines
     take only chunks under 2^30 bases (``chunk_len``: the longest), as
     the JAX ``BigWindowEngine`` does. Raises when no route holds the
-    window, and under a process group of more than one rank where the
-    route is not the rank-sharded engine."""
+    window. Under a process group of more than one rank every rank runs
+    the route it returns, the merge-join engine on its own device."""
     k = settings.probe_size
     big = _big(n1, settings)
     free = free_bytes(device) if free is None else free
@@ -447,9 +451,6 @@ def _window_route(n1: int, W: int, settings: RunSettings, device,
     if rank_sharded_window_applies(n1, W, _doubled(settings), k=k,
                                    free=free):
         return ShardedWindowEngine
-    if mesh:
-        raise _no_mesh_form(f"a {W}-row trim window", "one device "
-                            "(DeviceWindowEngine, no mesh form)")
     if mj_fits(n1, W, k, free, resident, keys_held):
         return DeviceWindowEngine
     raise _too_large(n1, settings, f"a {W}-row trim window")
@@ -464,15 +465,29 @@ def plan_windows(total_len: int, shards: int) -> list:
     return [w for w in windows if w[0] < w[1]]
 
 
-def plan_shards(n1: int, k: int, doubled: bool, free: float
-                ) -> Optional[int]:
+def window_layout(n_dev: int, n_windows: int) -> tuple[str, int, int]:
+    """How ``n_dev`` ranks run a sharded run's ``n_windows`` windows
+    (non-empty, :func:`plan_windows`) at k <= 20, as the JAX package
+    decides it (pipeline.py:408-409): ("mesh", S, P), the windows x probes
+    mesh of S = n_windows windows and P = n_dev / S ranks each, when
+    ``n_dev > 1``, ``n_dev >= n_windows`` and ``n_windows`` divides
+    ``n_dev``; else ("sequential", n_windows, 1), the windows one after
+    another, each on every rank."""
+    if n_dev > 1 and n_dev >= n_windows and n_dev % n_windows == 0:
+        return "mesh", n_windows, n_dev // n_windows
+    return "sequential", n_windows, 1
+
+
+def plan_shards(n1: int, k: int, doubled: bool, free: float,
+                fused: bool = True) -> Optional[int]:
     """The auto-shard planner (pipeline.py:786-842 without its join-single
     refinement, which only bounds the JAX co-sort): the smallest S in
     2..256 whose windows fit ``free`` device bytes next to the n1
-    resident code bytes, in a fused build or in the merge-join engine
-    (its probe keys held across the windows; past int32 probe addressing
-    only the merge-join engine, :796-810), or None (no S fits). None at
-    k > 20: there the JAX package keeps whole-genome semantics, since its
+    resident code bytes, in a fused build (unless not ``fused``: no fused
+    build runs under a process group) or in the merge-join engine (its
+    probe keys held across the windows; past int32 probe addressing only
+    the merge-join engine, :796-810), or None (no S fits). None at k >
+    20: there the JAX package keeps whole-genome semantics, since its
     planner runs only where its merge-join engines do (:768-778)."""
     if k > MJ_MAX_K:
         return None
@@ -480,7 +495,8 @@ def plan_shards(n1: int, k: int, doubled: bool, free: float
     total_len = n1 - 1
     for S in range(2, MAX_SHARDS + 1):
         W = (total_len + S - 1) // S + 1
-        if (not big and window_fits_bytes(n1, W, k, free, resident=n1)) \
+        if (fused and not big
+                and window_fits_bytes(n1, W, k, free, resident=n1)) \
                 or mj_window_fits_bytes(n1, W, k, free, resident=n1,
                                         keys_held=True):
             return S
@@ -526,6 +542,16 @@ class Journal:
                 log.warning("checkpoint mismatch; starting fresh")
         self.path = path
         self.header = header
+        # every rank must restore the same chunks, or the ranks' collectives
+        # pair different chunks (a node-local path, a stale read); this
+        # collective also keeps rank 0 from writing before every rank read
+        digest = hashlib.sha256(json.dumps(
+            [[list(c), self.done[c]] for c in sorted(self.done)],
+            sort_keys=True).encode()).digest()
+        if not distributed.agree(float(int.from_bytes(digest[:6], "big"))):
+            raise RuntimeError(
+                f"the ranks read different checkpoint journals at {path}; "
+                "every rank must read the same file")
 
     def todo(self, chunks) -> list:
         """The chunks without a record."""
@@ -534,12 +560,18 @@ class Journal:
     def run(self, chunks, run_chunk) -> list:
         """Every chunk's families (ProtoSDs) in chunk order: restored from
         its record, or ``run_chunk(chunk)`` and recorded; one chunk at a
-        time."""
+        time. Under a process group every rank read the same journal
+        (checked when it was read), so all restore the same chunks and run
+        the others together; rank 0 alone writes."""
         families = []
-        with open(self.path, "a" if self.done else "w") as fh:
-            if not self.done:
-                fh.write(json.dumps(self.header) + "\n")
-                fh.flush()
+        with contextlib.ExitStack() as stack:
+            fh = None
+            if distributed.rank() == 0:
+                fh = stack.enter_context(
+                    open(self.path, "a" if self.done else "w"))
+                if not self.done:
+                    fh.write(json.dumps(self.header) + "\n")
+                    fh.flush()
             for chunk in chunks:
                 rec = self.done.get(tuple(chunk))
                 if rec is not None:
@@ -547,11 +579,12 @@ class Journal:
                                     for fam in rec)
                     continue
                 fams = run_chunk(chunk)
-                fh.write(json.dumps({
-                    "chunk": list(chunk),
-                    "families": [[vars(sd) for sd in fam]
-                                 for fam in fams]}) + "\n")
-                fh.flush()
+                if fh is not None:
+                    fh.write(json.dumps({
+                        "chunk": list(chunk),
+                        "families": [[vars(sd) for sd in fam]
+                                     for fam in fams]}) + "\n")
+                    fh.flush()
                 families.extend(fams)
         return families
 
@@ -577,10 +610,6 @@ def _whole_route(n1: int, settings: RunSettings, device, journal: bool,
             log.info("whole-genome fused build exceeds the device; using "
                      "the table engine")
         return TableEngine, None
-    if k == MAX_PROBE_SIZE and mesh:
-        raise _no_mesh_form("a whole genome at probe_size 21 beyond the "
-                            "table", "its SearchEngine with device "
-                            "position tables (one device)")
     if k == MAX_PROBE_SIZE:
         if big:
             raise NotImplementedError(
@@ -605,10 +634,6 @@ def _whole_route(n1: int, settings: RunSettings, device, journal: bool,
                  "one-window rank-sharded engine")
         return ShardedWindowEngine, (0, n1 - 1)
     if not big and mj_fits(n1, n1, k, free, resident=n1):
-        if mesh:
-            raise _no_mesh_form("a whole genome beyond the table",
-                                "one device (the one-window "
-                                "DeviceWindowEngine, no mesh form)")
         log.info("whole-genome table exceeds the device; using the "
                  "one-window merge-join device engine")
         return DeviceWindowEngine, (0, n1 - 1)
@@ -618,11 +643,7 @@ def _whole_route(n1: int, settings: RunSettings, device, journal: bool,
             "one-window merge join runs on the host engine in the "
             "asgart_tpu package (a journaled run is not auto-sharded); "
             "use engine='host'")
-    if mesh:
-        raise _no_mesh_form("an auto-sharded genome", "the windows x "
-                            "probes MeshWindowEngine, or one device a "
-                            "window")
-    S = plan_shards(n1, k, doubled, free)
+    S = plan_shards(n1, k, doubled, free, not mesh)
     if S is None:
         raise _too_large(n1, settings, "a genome, in any number of "
                          f"windows up to {MAX_SHARDS},")
@@ -664,7 +685,9 @@ def search_duplications(
     docstring). ``checkpoint``: the path of a journal of finished chunks,
     which a rerun with the same files and settings restores instead of
     scanning them again (on either engine). ``profile``: dict to fill
-    with phase timings."""
+    with phase timings. Under a process group of ranks (``distributed``)
+    every rank calls this with the same arguments and its own device,
+    and each returns the whole result (module docstring)."""
     if engine not in ENGINES:
         raise ValueError(f"engine must be one of {ENGINES}")
     if not (1 <= settings.probe_size <= 10000):
@@ -673,21 +696,9 @@ def search_duplications(
     if engine == "cuda":
         _cuda_checks(settings)
         device = device if device is not None else cuda_device()
-        if checkpoint is not None and world() > 1:
-            raise NotImplementedError(
-                f"--checkpoint under a process group of {world()} ranks "
-                "(one journal, every rank a writer) is not ported to ranks "
-                "(ROADMAP A11); run a journaled search with one rank")
     if shards > 1:
         if settings.trim is not None:
             raise ValueError("--shards cannot be combined with --trim")
-        if engine == "cuda" and world() > 1:
-            D = world()
-            raise _no_mesh_form(
-                f"--shards {shards}",
-                "the windows x probes MeshWindowEngine" if D % shards == 0
-                else "its windows one after another, each on one device "
-                "or rank-sharded")
         if checkpoint is not None:
             log.warning("--checkpoint is not supported with --shards; "
                         "windows restart from scratch on failure")
@@ -775,9 +786,10 @@ def _search_duplications_sharded(strands_files, settings, shards, engine,
     the whole genome is probed against it, and the per-window families
     are concatenated in window order, byte-equal to the reference's
     sequential ``--trim`` runs merged (asgart.rs:142-148,433-463).
-    Host windows run on a thread pool; device windows in turn, each one's
-    host tail overlapping the next one's device phase
-    (:func:`_run_cuda_windows`)."""
+    Host windows run on a thread pool; device windows on the ranks'
+    windows x probes mesh where :func:`window_layout` gives one
+    (:func:`_run_mesh_windows`), else in turn, each one's host tail
+    overlapping the next one's device phase (:func:`_run_cuda_windows`)."""
     prof = profile if profile is not None else {}
     t0 = time.time()
     _, to_process, strand = prepare_data(
@@ -786,7 +798,11 @@ def _search_duplications_sharded(strands_files, settings, shards, engine,
     prof["prepare_s"] = round(time.time() - t0, 3)
 
     t0 = time.time()
-    if engine == "cuda":
+    if engine == "cuda" and settings.probe_size <= MJ_MAX_K \
+            and window_layout(world(), len(windows))[0] == "mesh":
+        results = _run_mesh_windows(windows, to_process, strand, settings,
+                                    device, prof)
+    elif engine == "cuda":
         results = _run_cuda_windows(windows, to_process, strand, settings,
                                     device)
     else:
@@ -840,7 +856,8 @@ def _run_cuda_windows(windows, to_process, strand, settings, device
     n1 = int(len(strand.data))
     ws, we = windows[0]
     route = _window_route(n1, we - ws + 1, settings, device, resident=n1,
-                          keys_held=True, chunk_len=_longest(to_process))
+                          keys_held=True, chunk_len=_longest(to_process),
+                          free=all_min(free_bytes(device)))
     codes = upload_codes(strand.data, device)  # once for every window
     extra = {}
     if route is DeviceWindowEngine:  # the probe keys, packed once
@@ -856,3 +873,35 @@ def _run_cuda_windows(windows, to_process, strand, settings, device
                                         strand, s, eng.m_offset))
             del eng  # and its index, before the next window's build
     return [t.result() for t in tails]
+
+
+def _run_mesh_windows(windows, to_process, strand, settings, device,
+                      prof: dict) -> list:
+    """The windows of a sharded run on the ranks' windows x probes mesh
+    (pipeline.py:393-434): this rank builds its window's merge-join index
+    and scans its probe slice of every chunk (:class:`MeshWindowEngine`);
+    every rank then holds every window's events and finalizes each window
+    alone, with the user's untrimmed settings (:422-429). Raises on every
+    rank when one rank's merge join cannot hold the largest window in the
+    group's least free memory (the JAX engine would run out of memory
+    there), and past int32 probe addressing, as the JAX engine does.
+    ``prof["mesh"]``: this rank's cell, its window and its lanes of each
+    chunk."""
+    INDEX_CACHE.clear()
+    n1 = int(len(strand.data))
+    eng = MeshWindowEngine(strand, settings, device, windows)
+    W = max(we - ws + 1 for ws, we in windows)
+    if not mj_fits(n1, W, settings.probe_size,
+                   all_min(free_bytes(device)), resident=n1):
+        raise _too_large(n1, settings, f"a {W}-row window of a "
+                         f"{eng.S} x {eng.P} mesh")
+    prof["mesh"] = {"S": eng.S, "P": eng.P, "w": eng.w, "p": eng.p,
+                    "window": list(eng.trim), "lanes": [
+                        b - a for (_, _, nc) in chunk_specs(to_process,
+                                                            settings)
+                        for a, b in [eng.part(nc)]]}
+    eng.ensure_index()
+    events = eng.scan_windows(to_process)
+    del eng  # and its index, before the windows' host tails
+    return [_window_tail(ev, to_process, strand, settings, ws)
+            for ev, (ws, _) in zip(events, windows)]

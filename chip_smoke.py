@@ -151,6 +151,18 @@
    card on the whole genome at k = 20 (the table engine's probe-axis
    scan), held to the whole path's host JSON with KM and KD launched on
    each rank, each rank's lanes and every ``all_gather`` printed; then
+   ``mesh_shards`` (:func:`run_mesh_shards`): 8 gloo ranks sharing the
+   card at ``--shards 4`` (the windows x probes mesh (4, 2)), held to the
+   shards path's host JSON with KA, KH, KD and KP launched on every rank,
+   each rank's cell, window, lanes per chunk, collectives, peak and wall
+   printed, then KA, KH, each cell's KD of window 2 and KP's merge of
+   those cells against their plain versions (:func:`mesh_checks`);
+   ``seq_shards3``
+   (:func:`run_seq_shards3`): 3 gloo ranks at ``--shards 4``, the windows
+   one after another on every rank, held to the same JSON;
+   ``group_journal2`` (:func:`run_group_journal2`): 2 gloo ranks on the
+   whole genome with ``--checkpoint`` (rank 0 writes), cold and resumed
+   from the first chunk's record, held to the whole path's host JSON; then
    :func:`nccl_shared_card` prints how NCCL treats two ranks on one card;
 10. prints a {"kernels": [...]} line (each kernel once per path, with the
    path's name and k; KN's rows: its time, the plain time and the bound
@@ -523,11 +535,13 @@ def kg_check(record, sa, ws: int) -> None:
 
 
 def kd_check(record, settings, specs, lane_off, lane_lo, lane_hi, lane_mask,
-             sa, bases=None, chunk=None) -> None:
+             sa, bases=None, chunk=None, part=None,
+             replaces: str | None = None) -> None:
     """KD on one chunk's lanes (``chunk``, an index of ``specs``; the
     largest by default), as the engines call it: with the filter
     constants ``bases(chunk_start, chunk_len)``, the fused ones by
-    default."""
+    default; ``part(n_lanes)`` = (a, b): only lanes [a, b) of the chunk,
+    with j0 = a (a mesh cell's). Returns KD's result."""
     import torch
 
     from asgart_tpu_torch.kernels import scan_core
@@ -538,10 +552,12 @@ def kd_check(record, settings, specs, lane_off, lane_lo, lane_hi, lane_mask,
     c = max(range(len(specs)), key=lambda i: specs[i][2]) \
         if chunk is None else chunk
     cs, cl, nc = specs[c]
-    lanes = slice(lane_off[c], lane_off[c] + nc)
+    a, b = (0, nc) if part is None else part(nc)
+    nc = b - a
+    lanes = slice(lane_off[c] + a, lane_off[c] + b)
     consts = (bases or fused_bases)(cs, cl)
     args = (lane_lo[lanes], lane_hi[lanes], lane_mask[lanes], sa, *consts,
-            s.max_cardinality, 0, s.probe_size, s.reverse)
+            s.max_cardinality, a, s.probe_size, s.reverse)
     kd = lambda: scan_core(*args)  # noqa: E731
     pd = lambda: scan_core_plain(*args)  # noqa: E731
     got, want = kd(), pd()
@@ -552,12 +568,14 @@ def kd_check(record, settings, specs, lane_off, lane_lo, lane_hi, lane_mask,
     err = max_abs_err((got.flat,), (want.flat,))
     reads = int(torch.where(lane_mask[lanes], lane_hi[lanes] - lane_lo[lanes],
                             0).sum())  # the sa entries this data needs
-    record("scan_core", "scan_core.cu",
+    record("scan_core", "scan_core.cu", replaces or (
            "asgart_tpu/device_engine.py:249" if bases is None else
-           "asgart_tpu/device_engine.py:665 (via :249)", err, cuda_ms(kd),
-           cuda_ms(pd), f"chunk ({cs}, {cl}): {nc} lanes, constants "
-           f"{consts}, {got.n_events} events, {got.total_kept} matches",
+           "asgart_tpu/device_engine.py:665 (via :249)"), err, cuda_ms(kd),
+           cuda_ms(pd), f"chunk ({cs}, {cl}): {nc} lanes from lane {a}, "
+           f"constants {consts}, {got.n_events} events, {got.total_kept} "
+           "matches",
            9 * nc + 4 * reads + 4 * got.flat.numel(), 8 * reads + 20 * nc)
+    return got
 
 
 def sliced_checks(record, tag: str, settings, chunk, lanes, sa,
@@ -2739,6 +2757,9 @@ def run_hosts(fa: str, device, work: str, host: str) -> None:
 
 RANK_KERNELS = ("pack_keys", "mj_ranges", "gather_owned", "scan_core")
 PROBE_KERNELS = ("table_ranges", "scan_core")
+WINDOW_KERNELS = ("pack_keys", "mj_ranges", "scan_core")
+MESH_KERNELS = WINDOW_KERNELS + ("gather_flat",)  # KP: the probe-axis merge
+MESH_RANKS = 8  # mesh_shards: 8 ranks at --shards 4, the (4, 2) mesh
 
 
 def kt_check(fa: str, settings, device, D: int) -> list:
@@ -2978,6 +2999,225 @@ def run_probe_mesh2(fa: str, host: str) -> None:
     rank_reports(tag, reports, PROBE_KERNELS)
 
 
+def mesh_checks(fa: str, settings, device, w: int, P: int,
+                reports: list) -> list:
+    """The kernels of mesh_shards' cells (w, 0..P-1) against their plain
+    versions, in this process once the ranks have ended, at the shapes each
+    rank gave them (``MeshWindowEngine`` made for each cell's rank, its
+    window built on the card): KA's probe-only pack of every chunk's lanes
+    and KH against window w's keys (what every rank of window w runs), then
+    KD on each cell's lanes of the largest chunk, with j0 at the cell's
+    first lane and the rebased constants; then KP, which merges those P
+    cells' results in p order as every rank does after the gather
+    (``merge_slices``), against its plain version and ``torch.take``. Each
+    row's launches are the launches of the rank of that cell (for KA, KH
+    and KP, cell (w, 0)) on the main path."""
+    import torch
+
+    from asgart_tpu_torch.device_engine import (MeshWindowEngine,
+                                                chunk_specs, merged_index,
+                                                probe_lanes, rebased_bases)
+    from asgart_tpu_torch.fasta import prepare_data
+    from asgart_tpu_torch.kernels import gather_flat, mj_ranges, pack_keys
+    from asgart_tpu_torch.kernels.merge_join import mj_ranges_plain
+    from asgart_tpu_torch.kernels.slices import gather_flat_plain
+    from asgart_tpu_torch.kernels.pack_keys import (chunk_tables,
+                                                    pack_keys_plain)
+    from asgart_tpu_torch.pipeline import plan_windows
+
+    s = settings
+    k, rc = s.probe_size, (s.reverse, s.complement)
+    _, chunks, strand = prepare_data([fa], s.skip_masked, None)
+    n1 = len(strand.data)
+    windows = plan_windows(n1 - 1, SHARDS)
+    eng = MeshWindowEngine(strand, s, device, windows, r=w * P,
+                           D=SHARDS * P, cache=None)
+    idx = eng.ensure_index()
+    ws, W = eng.trim[0], idx.W
+    specs = chunk_specs(chunks, s)
+    tabs = chunk_tables(specs, n1, k, *rc)
+    lane_off = tabs[0]
+    total = lane_off[-1]
+    codes = eng._codes()
+    rows = []
+    record = recorder(rows, "mesh_shards", k)
+    r0 = reports[w * P]["launches"]
+
+    kap = lambda: pack_keys(codes, specs, k, *rc, 0, total)  # noqa: E731
+    pap = lambda: pack_keys_plain(codes, *tabs, k, *rc, 0, total)  # noqa: E731
+    (pkey,), pmask = kap()
+    want_key, want_mask = pap()
+    err = max_abs_err((pkey, pmask), (*want_key, want_mask))
+    del want_key, want_mask
+    record("pack_keys", "pack_keys.cu", "asgart_tpu/device_engine.py:2817 "
+           "(_mesh_ranges_batch's _pack_batch_probe_keys :904; :2788 one "
+           "chunk)", err, cuda_ms(kap), cuda_ms(pap),
+           f"cell ({w}, 0): {total} probe keys, probe-only", n1 + 9 * total,
+           total * (4 * k + 8))
+    rows[-1]["launches"] = r0["pack_keys"]
+
+    kh = lambda: mj_ranges(idx.key, pkey, pmask, lane_off)  # noqa: E731
+    ph = lambda: mj_ranges_plain(idx.key, pkey, pmask, lane_off)  # noqa: E731
+    lane_lo, lane_hi, totals = kh()
+    err = max_abs_err((lane_lo, lane_hi, totals), ph())
+    sk, pk = idx.key >> 1, pkey >> 1
+    ends = torch.tensor(lane_off[1:], device=device) - 1
+
+    def lh():  # the two searchsorted calls and the masked sums
+        lo = torch.searchsorted(sk, pk, side="left")
+        hi = torch.searchsorted(sk, pk, side="right")
+        return torch.where(pmask, hi - lo, 0).cumsum(0)[ends]
+
+    n_masked = int(pmask.sum())
+    record("mj_ranges", "merge_join.cu", "asgart_tpu/device_engine.py:2817 "
+           "(_mesh_ranges_batch's _mj_tail :788; :2788 one chunk)", err,
+           cuda_ms(kh), cuda_ms(ph), f"cell ({w}, 0): {total} lanes "
+           f"({n_masked} masked in) against W={W}",
+           8 * total + 9 * total + 8 * W, n_masked * 4 * max(1, W.bit_length()),
+           library_ms=cuda_ms(lh))
+    rows[-1]["launches"] = r0["mj_ranges"]
+    del sk, pk, pkey
+
+    parts = []
+    for p in range(P):  # cell (w, p)'s lanes, as its rank's part()
+        parts.append(kd_check(
+            record, s, specs, lane_off, lane_lo, lane_hi, pmask, idx.sa,
+            lambda cs, cl: rebased_bases(cs, cl, ws, W),
+            part=lambda nc, p=p: probe_lanes(nc, p, P),
+            replaces="asgart_tpu/device_engine.py:2847 "
+            "(_mesh_window_core_off; :2877 _mesh_window_core)"))
+        rows[-1]["launches"] = reports[w * P + p]["launches"]["scan_core"]
+        rows[-1]["path"] = f"mesh_shards cell ({w}, {p})"
+
+    # KP on the P cells' results of the largest chunk, in p order
+    idx_m = merged_index(parts)
+    srcs = [c.flat for c in parts]
+    kp = lambda: gather_flat(srcs, idx_m)  # noqa: E731
+    pp = lambda: gather_flat_plain(srcs, idx_m)  # noqa: E731
+    err = max_abs_err((kp(),), (pp(),))
+    src = torch.cat(srcs)
+    lib = lambda: torch.take(src, idx_m)  # noqa: E731
+    if not torch.equal(lib(), kp()):
+        raise AssertionError("torch.take differs from KP on mesh_shards")
+    m = idx_m.numel()
+    record("gather_flat", "slices.cu", "asgart_tpu/device_engine.py:3091 "
+           "(_chain_cells' _merge_shard_events :1082; :1112 _gather_flat)",
+           err, cuda_ms(kp), cuda_ms(pp), f"window {w}'s {P} cells of the "
+           f"largest chunk: {m} entries from {src.numel()} int32",
+           12 * m + 4 * src.numel(), m, library_ms=cuda_ms(lib))
+    rows[-1]["launches"] = r0["gather_flat"]
+    rows[-1]["path"] = f"mesh_shards window {w}"
+    del eng, idx, codes, parts, srcs, src, idx_m
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_mesh_shards(fa: str, host: str) -> list:
+    """``mesh_shards``: ``distributed.dryrun`` with 8 gloo ranks sharing the
+    card at ``--shards 4`` (k = 20, -RC): the windows x probes mesh (4, 2),
+    the shape the JAX package takes for ``--shards 4`` on 8 devices. The
+    eight JSONs must be identical and the shards path's host JSON, and
+    KA, KH, KD and KP launched on every rank; each rank's cell, window and
+    lanes per chunk, its collectives, peak and wall are printed; then
+    :func:`mesh_checks` on window 2's cells."""
+    import torch
+
+    from asgart_tpu_torch import distributed
+    from asgart_tpu_torch.fused_index import INDEX_CACHE
+    from asgart_tpu_torch.structs import RunSettings
+
+    INDEX_CACHE.clear()
+    torch.cuda.empty_cache()
+    s = RunSettings(probe_size=20, reverse=True, complement=True)
+    tag = "mesh_shards k=20"
+    t0 = time.time()
+    _, reports = distributed.dryrun(MESH_RANKS, "cuda:0", fa=fa, settings=s,
+                                    host=host, timeout=600, shards=SHARDS)
+    print(f"{tag}: {MESH_RANKS} ranks at --shards {SHARDS}, JSON identical "
+          f"and the shards path's host JSON, {time.time() - t0:.3f} s wall",
+          flush=True)
+    rank_reports(tag, reports, MESH_KERNELS)
+    P = MESH_RANKS // SHARDS
+    for r, rep in enumerate(reports):
+        cell = rep["profile"]["mesh"]
+        if (cell["S"], cell["P"], cell["w"], cell["p"]) != \
+                (SHARDS, P, r // P, r % P):
+            raise AssertionError(f"{tag} rank {r} ran cell {cell}")
+    return mesh_checks(fa, s, torch.device("cuda", 0), SHARDS // 2, P,
+                       reports)
+
+
+def run_seq_shards3(fa: str, host: str) -> None:
+    """``seq_shards3``: ``distributed.dryrun`` with 3 gloo ranks sharing the
+    card at ``--shards 4`` (k = 20, -RC): 4 windows do not tile 3 ranks,
+    so the windows run one after another, each on every rank's merge-join
+    engine (no fused build under a group); the three JSONs must be the
+    shards path's host JSON, and KA, KH and KD launched on every rank."""
+    import torch
+
+    from asgart_tpu_torch import distributed
+    from asgart_tpu_torch.fused_index import INDEX_CACHE
+    from asgart_tpu_torch.structs import RunSettings
+
+    INDEX_CACHE.clear()
+    torch.cuda.empty_cache()
+    tag = "seq_shards3 k=20"
+    t0 = time.time()
+    _, reports = distributed.dryrun(
+        3, "cuda:0", fa=fa, settings=RunSettings(probe_size=20, reverse=True,
+                                                 complement=True),
+        host=host, timeout=600, shards=SHARDS)
+    print(f"{tag}: 3 ranks at --shards {SHARDS}, the windows in turn, JSON "
+          f"identical and the shards path's host JSON, "
+          f"{time.time() - t0:.3f} s wall", flush=True)
+    rank_reports(tag, reports, WINDOW_KERNELS)
+    if any("mesh" in rep["profile"] for rep in reports):
+        raise AssertionError(f"{tag} ran the mesh engine")
+
+
+def run_group_journal2(fa: str, work: str, host: str) -> None:
+    """``group_journal2``: ``distributed.dryrun`` with 2 gloo ranks sharing
+    the card on the whole genome (k = 20, -RC) with ``--checkpoint``: the
+    table engine's probe-axis scan, rank 0 the journal's one writer. A cold
+    run, then one resumed from the journal cut to its header and first
+    chunk; both JSONs must be the whole path's host JSON, KM and KD
+    launched on each rank of both runs, and the resumed journal the cold
+    one."""
+    import torch
+
+    from asgart_tpu_torch import distributed
+    from asgart_tpu_torch.fused_index import INDEX_CACHE
+    from asgart_tpu_torch.structs import RunSettings
+
+    INDEX_CACHE.clear()
+    torch.cuda.empty_cache()
+    s = RunSettings(probe_size=20, reverse=True, complement=True)
+    journal = os.path.join(work, "group_journal2.journal")
+    if os.path.exists(journal):
+        os.remove(journal)
+    lines = None
+    for run in ("cold", "resumed"):
+        if lines is not None:
+            with open(journal, "w") as fh:
+                fh.write("\n".join(lines[:2]) + "\n")
+        tag = f"group_journal2 k=20 {run}"
+        t0 = time.time()
+        _, reports = distributed.dryrun(2, "cuda:0", fa=fa, settings=s,
+                                        host=host, timeout=600,
+                                        checkpoint=journal)
+        print(f"{tag}: 2 ranks, JSON identical and the whole path's host "
+              f"JSON, {time.time() - t0:.3f} s wall", flush=True)
+        rank_reports(tag, reports, PROBE_KERNELS)
+        with open(journal) as fh:
+            now = fh.read().splitlines()
+        if lines is not None and now != lines:
+            raise AssertionError(f"{tag}: the journal differs from the "
+                                 "cold run's")
+        lines = now
+    print(f"group_journal2: journal of {len(lines) - 1} chunk records",
+          flush=True)
+
+
 NCCL_PAIR = r"""
 import sys, datetime, torch, torch.distributed as dist
 dist.init_process_group("nccl", init_method="tcp://127.0.0.1:" + sys.argv[2],
@@ -3135,6 +3375,12 @@ def main(argv=None) -> int:
                                                 mj_host)),
             ("rank_trim4", lambda: run_rank_trim4(fa, trim, mj_host)),
             ("probe_mesh2", lambda: run_probe_mesh2(fa, whole_host)),
+            # the windows x probes mesh, the windows in turn on every rank,
+            # and a journal on ranks
+            ("mesh_shards", lambda: run_mesh_shards(fa, shard_host)),
+            ("seq_shards3", lambda: run_seq_shards3(fa, shard_host)),
+            ("group_journal2", lambda: run_group_journal2(fa, work,
+                                                          whole_host)),
             ("nccl_shared_card", nccl_shared_card)):
         t0 = time.time()
         rows += phase() or []

@@ -15,7 +15,9 @@ the seed lookups (KQ, KR and KS against their plain versions, with empty
 inputs, no buckets and wide buckets; ``SearchEngine(engine="cuda")`` and
 the k = 21 route against the host engine), and the rank-sharded window
 engine on one rank (KT against its plain version on every shard, and its
-JSON against the host engine). The
+JSON against the host engine), and gloo ranks sharing the GPU on the
+windows x probes mesh and on a journaled run (their JSON against the
+one-device run's). The
 kernels have no CPU mode, so without a CUDA GPU these tests skip. On a
 machine with a GPU (and without jax, which tests/conftest.py imports),
 run them with::
@@ -1114,3 +1116,72 @@ def test_gpu_rank_sharded_json_equals_host(tmp_path, gpu, monkeypatch):
         after = launch_counts()
         for name in ("pack_keys", "mj_ranges", "gather_owned", "scan_core"):
             assert after[name] > before[name], (hb, name)
+
+
+@pytest.mark.parametrize("form", ["mesh", "journal"])
+@pytest.mark.parametrize("n_ranks", [2, 4])
+def test_gpu_ranks_mesh_and_journal_json_equal_one_device(tmp_path, gpu,
+                                                          n_ranks, form):
+    """Gloo ranks sharing ``cuda:0`` (``distributed.dryrun``): ``--shards
+    2`` on the windows x probes mesh (2 ranks: 2 x 1; 4 ranks: 2 x 2, both
+    probe slots of a window scanning lanes at k = 12), launching KA, KH
+    and KD on every rank, and on 4 ranks KP, which merges each window's
+    cells; and ``--checkpoint`` on the table engine's
+    probe axis (KM and KD on every rank), cold, then resumed from its
+    first record; every rank's JSON is the one-device run's, which is
+    the host engine's."""
+    from asgart_tpu_torch import distributed
+    from asgart_tpu_torch.device_engine import chunk_specs, probe_lanes
+    from asgart_tpu_torch.fused_index import INDEX_CACHE
+    from asgart_tpu_torch.pipeline import search_duplications
+
+    from torch_jax_ref import mesh_genome
+
+    fa, chunks, _ = prepared(tmp_path, [("chr1", mesh_genome())])
+    s = RunSettings(probe_size=12, reverse=True, complement=True,
+                    min_duplication_length=800)
+    shards = 2 if form == "mesh" else 1
+    want = json_text(search_duplications([fa], s, engine="cuda",
+                                         device=gpu, shards=shards))
+    INDEX_CACHE.clear()
+    torch.cuda.empty_cache()
+    assert '"families": []' not in want
+    # the one-device run is the host engine's, so a fault that both CUDA
+    # runs share cannot pass
+    host = json_text(search_duplications([fa], s, engine="host",
+                                         shards=shards))
+    assert want == host
+    journal = str(tmp_path / "run.journal") if form == "journal" else None
+    kernels = ("pack_keys", "mj_ranges", "scan_core") if form == "mesh" \
+        else ("table_ranges", "scan_core")
+    if form == "mesh" and n_ranks > shards:  # KP merges a window's cells
+        kernels += ("gather_flat",)
+    for rerun in (False, True) if journal else (False,):
+        if rerun:  # resume from the header and the first record
+            lines = open(journal).read().splitlines()
+            with open(journal, "w") as fh:
+                fh.write("\n".join(lines[:2]) + "\n")
+        text, reports = distributed.dryrun(
+            n_ranks, "cuda:0", fa=fa, settings=s, host=host, timeout=600,
+            shards=shards, checkpoint=journal)
+        assert text == want
+        # KD runs on the ranks that hold lanes of a scanned chunk (the
+        # resumed run scans the 60 kb record alone, whose lanes all fall
+        # to rank 0; on 4 ranks the 220 kb record's fill ranks 0-2); KA,
+        # KH and KM read every lane on every rank
+        P = n_ranks // shards
+        scanned = chunk_specs(chunks[1:] if rerun else chunks, s)
+        for rep in reports:
+            p = rep["rank"] % P
+            holds = any(a < b for _, _, nc in scanned
+                        for a, b in [probe_lanes(nc, p, P)])
+            for name in kernels:
+                assert (rep["launches"][name] > 0) == \
+                    (holds or name != "scan_core"), (rep["rank"], name)
+        if form == "mesh":
+            P = n_ranks // 2
+            assert [(r["profile"]["mesh"]["w"], r["profile"]["mesh"]["p"])
+                    for r in reports] == [(r // P, r % P)
+                                          for r in range(n_ranks)]
+            assert all(r["profile"]["mesh"]["lanes"][0] > 0
+                       for r in reports)

@@ -271,6 +271,22 @@ def key_planes(words):
     return planes, (w0 & 1).astype(bool)
 
 
+def mesh_genome() -> bytes:
+    """A 220 kb record with planted -RC pairs and a direct pair, a 6 kb N
+    run, then a 60 kb record (two chunks): at k = 8 the first chunk has
+    54,997 lanes in a 65,536-lane bucket, so every probe slot of 2 and of
+    4 scans some, and the second chunk's lanes all fall to slot 0; at k =
+    12, 36,665 lanes, where the planted pairs stand out of the random
+    matches."""
+    rng = np.random.default_rng(88)
+    a = bytearray(random_dna(rng, 220000))
+    a[150000:152000] = revcomp(bytes(a[10000:12000]))   # -RC pair
+    a[200000:201500] = revcomp(bytes(a[90000:91500]))   # across slots
+    a[120000:122000] = bytes(a[30000:32000])            # direct pair
+    b = random_dna(rng, 60000)
+    return bytes(a) + b"N" * 6000 + b
+
+
 def dist_genome() -> tuple[bytes, tuple[int, int]]:
     """asgart_tpu/distributed.py's genome (70 kb, seed 77: a direct pair
     inside the trim window, a reverse-complement pair) and its window."""
