@@ -25,8 +25,19 @@
 //   of output per probe, and 8 B per halving done; each halving is a
 //   dependent read of one random row (neighbouring probes are unrelated
 //   k-mers), so latency, not the bytes, sets the time of a simple kernel.
-// KR: one thread per index: 8 B of index, 8 B of table (a random row) and
-//   16 B of output. Memory bound.
+// KR: each thread takes 2 indices (a block's width apart, so every load
+//   and store of a warp is coalesced) and issues both row reads before any
+//   store (2, 4 and 8 indices a thread ran alike on the H100: the reads
+//   stream the table's span, see below). A row is one 8-byte load when the
+//   sources are the two columns of an 8-byte aligned [n, 2] table (hi_src
+//   == lo_src + 1, stride 2), else two 4-byte loads. An index outside
+//   [0, n), negative ones included, reads nothing and sets the error flag,
+//   which the entry point zeroes on the stream before the launch and the
+//   wrapper reads after it (the JAX gathers clamp instead).
+//   Bound on the H100: memory, 8 B of index, 8 B of table and 16 B of
+//   output per index. A chunk's probes lie k/2 text positions apart, so
+//   its rows lie 80 B apart in the [n, 2] table and the row reads fetch
+//   most of the table's span between the first and the last probe.
 // KS: one thread per position: k bytes of codes (neighbouring positions
 //   read overlapping bytes, served by L1), 8 B of position and 8 B of
 //   output. Memory bound.
@@ -70,19 +81,53 @@ __global__ void equal_range_kernel(const long long* __restrict__ keys,
   }
 }
 
+constexpr int kRangesPerThread = 2;
+
+template <bool kRows>
 __global__ void gather_ranges_kernel(const int* __restrict__ lo_src,
                                      const int* __restrict__ hi_src,
-                                     long long stride,
+                                     long long stride, long long n,
                                      const long long* __restrict__ x,
                                      long long b,
                                      long long* __restrict__ lo_out,
-                                     long long* __restrict__ hi_out) {
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       t < b; t += (long long)gridDim.x * blockDim.x) {
-    const long long i = x[t] * stride;
-    lo_out[t] = lo_src[i];
-    hi_out[t] = hi_src[i];
+                                     long long* __restrict__ hi_out,
+                                     int* __restrict__ bad) {
+  constexpr int V = kRangesPerThread;
+  const long long tile = (long long)blockDim.x * V;
+  bool outside = false;
+  for (long long t0 = blockIdx.x * tile + threadIdx.x; t0 < b;
+       t0 += (long long)gridDim.x * tile) {
+    long long i[V];
+    bool ok[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const long long t = t0 + (long long)j * blockDim.x;
+      i[j] = t < b ? x[t] : 0;
+      ok[j] = t < b && (unsigned long long)i[j] < (unsigned long long)n;
+      outside |= t < b && !ok[j];
+    }
+    int lo[V], hi[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      if (!ok[j]) continue;
+      if (kRows) {
+        const int2 r = __ldg(reinterpret_cast<const int2*>(lo_src) + i[j]);
+        lo[j] = r.x;
+        hi[j] = r.y;
+      } else {
+        lo[j] = __ldg(lo_src + i[j] * stride);
+        hi[j] = __ldg(hi_src + i[j] * stride);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const long long t = t0 + (long long)j * blockDim.x;
+      if (!ok[j]) continue;
+      lo_out[t] = lo[j];
+      hi_out[t] = hi[j];
+    }
   }
+  if (outside) *bad = 1;
 }
 
 __global__ void pack_probe_planes_kernel(const uint8_t* __restrict__ codes,
@@ -119,17 +164,32 @@ ASGART_API int asgart_equal_range(const void* keys, long long n,
   return (int)cudaGetLastError();
 }
 
-// lo_src, hi_src: int32 sources read at x[t] * stride; x: int64 [b]; lo,
-// hi: int64 [b].
+// lo_src, hi_src: int32 sources of n rows read at x[t] * stride; x: int64
+// [b]; lo, hi: int64 [b]; bad: int32 [1], set to 1 when an index lies
+// outside [0, n) (zeroed here first).
 ASGART_API int asgart_gather_ranges(const void* lo_src, const void* hi_src,
-                                    long long stride, const void* x,
-                                    long long b, void* lo, void* hi,
-                                    void* stream) {
+                                    long long stride, long long n,
+                                    const void* x, long long b, void* lo,
+                                    void* hi, void* bad, void* stream) {
   if (b <= 0) return (int)cudaGetLastError();
-  gather_ranges_kernel<<<asgart::grid_for(b), asgart::kThreads, 0,
-                         (cudaStream_t)stream>>>(
-      (const int*)lo_src, (const int*)hi_src, stride, (const long long*)x, b,
-      (long long*)lo, (long long*)hi);
+  cudaStream_t s = (cudaStream_t)stream;
+  const cudaError_t rc = cudaMemsetAsync(bad, 0, sizeof(int), s);
+  if (rc != cudaSuccess) return (int)rc;
+  const bool rows = stride == 2 &&
+                    (const int*)hi_src == (const int*)lo_src + 1 &&
+                    (reinterpret_cast<uintptr_t>(lo_src) & 7) == 0;
+  const long long per_block = (long long)asgart::kThreads * kRangesPerThread;
+  long long grid = (b + per_block - 1) / per_block;
+  if (grid > 132LL * 32) grid = 132LL * 32;
+  if (rows) {
+    gather_ranges_kernel<true><<<(unsigned)grid, asgart::kThreads, 0, s>>>(
+        (const int*)lo_src, (const int*)hi_src, stride, n,
+        (const long long*)x, b, (long long*)lo, (long long*)hi, (int*)bad);
+  } else {
+    gather_ranges_kernel<false><<<(unsigned)grid, asgart::kThreads, 0, s>>>(
+        (const int*)lo_src, (const int*)hi_src, stride, n,
+        (const long long*)x, b, (long long*)lo, (long long*)hi, (int*)bad);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -80,14 +80,15 @@ SIGNATURES = {
     "asgart_full_round_refine": [_P, _P, _P, _I64, _I64, _P, _P, _P, _P],
     # lane_lo, lane_hi, lane_mask, n, gran, totals, stream
     "asgart_granule_totals": [_P, _P, _P, _I64, _I64, _P, _P],
-    # srcs (device pointers), src_off [n_src + 1], n_src, idx, n, out,
-    # stream
-    "asgart_gather_flat": [_P, _P, _I32, _P, _I64, _P, _P],
+    # table [2 n_src + 1] (the sources' pointers, then their offsets; on
+    # the host, passed by value, or on the card when cap is 0), n_src, cap,
+    # idx, n, out, stream
+    "asgart_gather_flat": [_P, _I32, _I32, _P, _I64, _P, _P],
     # keys, n, bucket_starts, key_shift (-1: no buckets), probes, b, steps,
     # lo, hi, stream
     "asgart_equal_range": [_P, _I64, _P, _I32, _P, _I64, _I32, _P, _P, _P],
-    # lo_src, hi_src, stride, x, b, lo, hi, stream
-    "asgart_gather_ranges": [_P, _P, _I64, _P, _I64, _P, _P, _P],
+    # lo_src, hi_src, stride, n, x, b, lo, hi, bad, stream
+    "asgart_gather_ranges": [_P, _P, _I64, _I64, _P, _I64, _P, _P, _P, _P],
     # codes, pos, b, k, hi, lo, stream
     "asgart_pack_probe_planes": [_P, _P, _I64, _I32, _P, _P, _P],
     # lane_lo, lane_hi, lane_mask, off, n, sa_local, row0, n_local, flat,
@@ -217,6 +218,7 @@ def on_cuda(*tensors) -> bool:
 
 
 def stream_of(t) -> int:
+    """The raw handle of PyTorch's current stream on ``t``'s device."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

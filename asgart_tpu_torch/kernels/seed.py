@@ -4,10 +4,11 @@ the seed lookups of ``SearchEngine(engine="cuda")`` (``seed.py``).
 Kernels: ``csrc/seed.cu`` (see its header for what each replaces in the
 JAX package and how it is bounded). ``equal_range_plain``,
 ``gather_ranges_plain`` and ``pack_probe_planes_plain`` are the same
-functions in plain PyTorch. Before a wrapper launches, it checks that
-every row its kernel reads lies inside its array (one ``aminmax`` over
-each index input, read on the host): a CUDA read past an array's end reads
-other memory, where the JAX programs' gathers clamp.
+functions in plain PyTorch. Every row a kernel reads must lie inside its
+array: a CUDA read past an array's end reads other memory, where the JAX
+programs' gathers clamp. KQ and KS check their inputs before the launch
+(one ``aminmax`` over each index input, read on the host); KR checks each
+index in the kernel, which raises a flag that the wrapper reads after it.
 """
 
 from __future__ import annotations
@@ -110,7 +111,8 @@ def gather_ranges(lo_src: torch.Tensor, hi_src: torch.Tensor,
                   x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(lo_src[x], hi_src[x]) as int64 [B]: ``lo_src`` and ``hi_src`` are
     int32 [n] tensors of one stride (two tables, or the two columns of an
-    [n, 2] row table), ``x`` int64 [B] in [0, n)."""
+    [n, 2] row table), ``x`` int64 [B] in [0, n); raises ``ValueError``
+    for an index outside it."""
     _contiguous("gather_ranges", x=(x, torch.int64))
     n = lo_src.numel()
     if lo_src.dtype != torch.int32 or hi_src.dtype != torch.int32 \
@@ -119,24 +121,37 @@ def gather_ranges(lo_src: torch.Tensor, hi_src: torch.Tensor,
         raise ValueError("gather_ranges: the sources must be int32 [n] "
                          "tensors of one positive stride")
     cuda = _build.on_cuda(lo_src, hi_src, x)
-    B = x.numel()
-    if B == 0:
+    if x.numel() == 0:
         return (torch.empty(0, dtype=torch.int64, device=x.device),
                 torch.empty(0, dtype=torch.int64, device=x.device))
-    xmin, xmax = _extremes(x)
-    if xmin < 0 or xmax >= n:
-        raise ValueError(f"gather_ranges: an index lies outside [0, {n})")
-    if not cuda:
+    outside = f"gather_ranges: an index lies outside [0, {n})"
+    if not cuda:  # torch's CPU indexing would wrap a negative index
+        xmin, xmax = _extremes(x)
+        if xmin < 0 or xmax >= n:
+            raise ValueError(outside)
         return gather_ranges_plain(lo_src, hi_src, x)
+    lo, hi, bad = launch_gather_ranges(lo_src, hi_src, x)
+    if bad.item():  # one 4-byte read: the host waits for the kernel
+        raise ValueError(outside)
+    return lo, hi
+
+
+def launch_gather_ranges(lo_src, hi_src, x):
+    """KR's launch alone, on arguments :func:`gather_ranges` has checked:
+    (lo, hi, bad), ``bad`` an int32 [1] flag on the card, nonzero when an
+    index lies outside [0, n) (and lo, hi then garbage). Nothing is read
+    back, so the host does not wait for the card."""
+    lib = _build.lib()
+    B = x.numel()
     lo = torch.empty(B, dtype=torch.int64, device=x.device)
     hi = torch.empty(B, dtype=torch.int64, device=x.device)
-    lib = _build.lib()
+    bad = torch.empty(1, dtype=torch.int32, device=x.device)
     gather_ranges.launches += 1
     _build.check(lib.asgart_gather_ranges(
         lo_src.data_ptr(), hi_src.data_ptr(), lo_src.stride(0),
-        x.data_ptr(), B, lo.data_ptr(), hi.data_ptr(), _build.stream_of(x)),
-        "gather_ranges")
-    return lo, hi
+        lo_src.numel(), x.data_ptr(), B, lo.data_ptr(), hi.data_ptr(),
+        bad.data_ptr(), _build.stream_of(x)), "gather_ranges")
+    return lo, hi, bad
 
 
 gather_ranges.launches = 0

@@ -8,6 +8,8 @@ JAX package and how it is bounded). ``granule_totals_plain`` and
 
 from __future__ import annotations
 
+import array
+
 import torch
 
 from . import _build
@@ -59,6 +61,20 @@ def granule_totals_plain(lane_lo, lane_hi, lane_mask,
     return counts.reshape(-1, gran).sum(1)
 
 
+# KP's by-value source tables (csrc/slices.cu SrcTable): a launch takes the
+# smallest that holds its sources
+KP_CAPACITIES = (8, 64, 1024)
+
+
+def kp_capacity(n_src: int) -> int:
+    """The capacity of the source table KP passes by value for ``n_src``
+    sources, or 0 past the largest: then the table goes to the card."""
+    for cap in KP_CAPACITIES:
+        if n_src <= cap:
+            return cap
+    return 0
+
+
 def gather_flat(srcs, idx: torch.Tensor) -> torch.Tensor:
     """int32 [n]: ``src.reshape(-1)[idx]``, where ``src`` is the flat
     concatenation of the int32 tensors ``srcs`` (not made: the kernel reads
@@ -74,21 +90,27 @@ def gather_flat(srcs, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError("gather_flat: no source")
     if not _build.on_cuda(idx, *srcs):
         return gather_flat_plain(srcs, idx)
-    dev = idx.device
-    out = torch.empty(idx.numel(), dtype=torch.int32, device=dev)
-    if idx.numel() == 0:
+    n, S = idx.numel(), len(srcs)
+    out = torch.empty(n, dtype=torch.int32, device=idx.device)
+    if n == 0:
         return out
-    off = [0]
-    for t in srcs:
-        off.append(off[-1] + t.numel())
-    ptrs = torch.tensor([t.data_ptr() for t in srcs],
-                        dtype=torch.int64).to(dev)
-    src_off = torch.tensor(off, dtype=torch.int64).to(dev)
     lib = _build.lib()
+    table = array.array("q", [t.data_ptr() for t in srcs])  # then offsets
+    o = 0
+    for t in srcs:
+        table.append(o)
+        o += t.numel()
+    table.append(o)
+    cap = kp_capacity(S)
+    if cap:
+        table_ptr = table.buffer_info()[0]
+    else:  # the table form: the table on the card
+        table = torch.frombuffer(table, dtype=torch.int64).to(idx.device)
+        table_ptr = table.data_ptr()
     gather_flat.launches += 1
     _build.check(lib.asgart_gather_flat(
-        ptrs.data_ptr(), src_off.data_ptr(), len(srcs), idx.data_ptr(),
-        idx.numel(), out.data_ptr(), _build.stream_of(idx)), "gather_flat")
+        table_ptr, S, cap, idx.data_ptr(), n, out.data_ptr(),
+        _build.stream_of(idx)), "gather_flat")
     return out
 
 

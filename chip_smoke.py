@@ -165,7 +165,11 @@
    from the first chunk's record, held to the whole path's host JSON; then
    :func:`nccl_shared_card` prints how NCCL treats two ranks on one card;
 10. prints a {"kernels": [...]} line (each kernel once per path, with the
-   path's name and k; KN's rows: its time, the plain time and the bound
+   path's name and k; each row's ``ms`` the wrapper's call; KP's and KR's
+   rows, timed over ``FINE_REPS`` calls, also ``kernel_alone_ms`` and
+   ``library_alone_ms``, the launches alone (:func:`kernel_ms`), and
+   beside KP's rows ``merge_slices``' whole time is printed; KN's
+   rows: its time, the plain time and the bound
    on the checked bursts, and beside them its chunk's events, bursts,
    native tests, one KN pass over the chunk and the host chain's time on
    the chunk), the card again, and last {"ok": true, ...}.
@@ -187,6 +191,10 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 1234
 REPS = 3
+# KP's and KR's rows: their wrappers and library calls take 0.01-0.3 ms and
+# wait on the host at small sizes, where a mean of 3 calls swings 2-5x
+FINE_REPS = 20
+SLEEP_CYCLES = 50_000_000  # kernel_ms's busy-wait: ~25 ms at the H100's clock
 SHARDS = 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 ALU_OPS_PER_S = 67e12      # H100 SXM non-tensor-core rate (data sheet)
@@ -247,6 +255,32 @@ def cuda_ms(fn, reps: int = REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_ms(fn, reps: int = REPS) -> float:
+    """Mean milliseconds of the device work ``fn()`` queues, without the
+    host's time between its launches: the events and the ``reps`` calls
+    are queued behind a busy-wait on the card (``torch.cuda._sleep``), so
+    the card runs them back to back. ``fn`` must not wait for the card;
+    raises if the busy-wait ended before the host had queued them all."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    queued_in_time = not start.query()
+    torch.cuda.synchronize()
+    if not queued_in_time:
+        raise AssertionError("kernel_ms: the card was idle before the "
+                             "launches were queued (fn waits for the card, "
+                             "or the busy-wait is too short)")
+    return start.elapsed_time(end) / reps
+
+
 def max_abs_err(got, want) -> int:
     """Largest |got - want| over matching integer outputs, in slices of
     2^26 entries (no int64 copy of a genome-sized output); raises when the
@@ -279,18 +313,25 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
 
 def recorder(rows: list, path: str, k: int):
     """``record(name, src, replaces, err, ms, plain_ms, shape, nbytes, ops,
-    library_ms=None)``: prints a kernel's line, raises if it disagrees with
-    its plain version, and appends its row to ``rows``."""
+    library_ms=None, alone=None)``: prints a kernel's line, raises if it
+    disagrees with its plain version, and appends its row to ``rows``
+    (``ms`` is the wrapper's call; ``alone``, where given, the kernel's
+    launches alone and the library call's, :func:`kernel_ms`, as the row's
+    ``kernel_alone_ms`` and ``library_alone_ms``)."""
     tag = f"{path} k={k}"
 
     def record(name, src, replaces, err, ms, plain_ms, shape, nbytes, ops,
-               library_ms=None):
+               library_ms=None, alone=None):
         bound_ms, bound_by = bound(nbytes, ops)
         lib = "none" if library_ms is None else f"{library_ms:.3f} ms"
-        print(f"{tag} kernel {name}: max_abs_err={err} kernel {ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
+        k_alone = l_alone = ""
+        if alone is not None:
+            k_alone = f" (alone {alone[0]:.4f} ms)"
+            l_alone = f" (alone {alone[1]:.4f} ms)"
+        print(f"{tag} kernel {name}: max_abs_err={err} kernel {ms:.3f} ms"
+              f"{k_alone}, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
               f"({bound_by}: {nbytes:.0f} B, {ops:.0f} ops), library "
-              f"{lib} at {shape}", flush=True)
+              f"{lib}{l_alone} at {shape}", flush=True)
         if err != 0:
             raise AssertionError(f"{name} disagrees with its plain version "
                                  f"on {tag} (max_abs_err {err})")
@@ -299,6 +340,8 @@ def recorder(rows: list, path: str, k: int):
                      "replaces": replaces, "max_abs_err": err,
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": library_ms})
+        if alone is not None:
+            rows[-1]["kernel_alone_ms"], rows[-1]["library_alone_ms"] = alone
 
     record.rows = rows
     return record
@@ -686,12 +729,26 @@ def sliced_checks(record, tag: str, settings, chunk, lanes, sa,
         raise AssertionError(f"torch.take differs from KP on {tag}")
     m = idx.numel()
     record("gather_flat", "slices.cu", "asgart_tpu/device_engine.py:1112",
-           err, cuda_ms(kp), cuda_ms(pp), f"{m} entries from {len(srcs)} "
-           f"slices' buffers ({src.numel()} int32)",
-           12 * m + 4 * src.numel(), m, library_ms=cuda_ms(lib))
+           err, cuda_ms(kp, FINE_REPS), cuda_ms(pp, FINE_REPS),
+           f"{m} entries from {len(srcs)} slices' buffers ({src.numel()} "
+           "int32)", 12 * m + 4 * src.numel(), m,
+           library_ms=cuda_ms(lib, FINE_REPS),
+           alone=(kernel_ms(kp, FINE_REPS), kernel_ms(lib, FINE_REPS)))
+    merge_ms(tag, parts)
     del parts, srcs, src, idx
     torch.cuda.empty_cache()
     return plan
+
+
+def merge_ms(tag: str, parts) -> None:
+    """Prints ``merge_slices``' whole time on ``parts``: ``merged_index``
+    (an ``arange`` and its 4 S + 1 shifted runs), KP and the aging carry's
+    upload and add."""
+    from asgart_tpu_torch.device_engine import merge_slices
+
+    print(f"{tag} merge_slices of {len(parts)} parts: "
+          f"{cuda_ms(lambda: merge_slices(parts), FINE_REPS):.3f} ms "
+          "(merged_index, KP, the carry)", flush=True)
 
 
 def json_text(result) -> str:
@@ -2593,7 +2650,8 @@ def run_seed_k21(fa: str, n: int, device, work: str) -> list:
 
     from asgart_tpu_torch import kernels as kmod
     from asgart_tpu_torch import seed
-    from asgart_tpu_torch.kernels.seed import _extremes, gather_ranges_plain
+    from asgart_tpu_torch.kernels.seed import (gather_ranges_plain,
+                                               launch_gather_ranges)
     from asgart_tpu_torch.pipeline import search_duplications
     from asgart_tpu_torch.structs import RunSettings
 
@@ -2652,8 +2710,6 @@ def run_seed_k21(fa: str, n: int, device, work: str) -> list:
     ranges = largest.pop("ranges")
     B, nr = x.numel(), ranges.shape[0]
     pos_lo, pos_hi = ranges[:, 0].contiguous(), ranges[:, 1].contiguous()
-    print(f"{tag} KR's bounds check alone (aminmax of x, one host read): "
-          f"{cuda_ms(lambda: _extremes(x)):.3f} ms", flush=True)
     for form, src, gather_fn, lib in (
             ("rows", (ranges[:, 0], ranges[:, 1]),
              lambda: seed._gather_range_rows(ranges, x),
@@ -2673,9 +2729,12 @@ def run_seed_k21(fa: str, n: int, device, work: str) -> list:
                           else "seed_k21 planar", k)
         record("gather_ranges", "seed.cu", "asgart_tpu/seed.py:125"
                if form == "rows" else "asgart_tpu/seed.py:120", err,
-               cuda_ms(gather_fn), cuda_ms(lambda: gather_ranges_plain(
-                   *src, x)), f"{B} indices into {nr} rows ({form})",
-               32 * B, 2 * B, library_ms=cuda_ms(lib))
+               cuda_ms(gather_fn, FINE_REPS), cuda_ms(
+                   lambda: gather_ranges_plain(*src, x), FINE_REPS),
+               f"{B} indices into {nr} rows ({form})", 32 * B, 2 * B,
+               library_ms=cuda_ms(lib, FINE_REPS),
+               alone=(kernel_ms(lambda: launch_gather_ranges(*src, x),
+                                FINE_REPS), kernel_ms(lib, FINE_REPS)))
         rows[-1]["launches"] = runs["cold"][3]["gather_ranges"]
     del x, ranges, pos_lo, pos_hi, got, want
     torch.cuda.empty_cache()
@@ -3102,11 +3161,14 @@ def mesh_checks(fa: str, settings, device, w: int, P: int,
     m = idx_m.numel()
     record("gather_flat", "slices.cu", "asgart_tpu/device_engine.py:3091 "
            "(_chain_cells' _merge_shard_events :1082; :1112 _gather_flat)",
-           err, cuda_ms(kp), cuda_ms(pp), f"window {w}'s {P} cells of the "
-           f"largest chunk: {m} entries from {src.numel()} int32",
-           12 * m + 4 * src.numel(), m, library_ms=cuda_ms(lib))
+           err, cuda_ms(kp, FINE_REPS), cuda_ms(pp, FINE_REPS),
+           f"window {w}'s {P} cells of the largest chunk: {m} entries from "
+           f"{src.numel()} int32", 12 * m + 4 * src.numel(), m,
+           library_ms=cuda_ms(lib, FINE_REPS),
+           alone=(kernel_ms(kp, FINE_REPS), kernel_ms(lib, FINE_REPS)))
     rows[-1]["launches"] = r0["gather_flat"]
     rows[-1]["path"] = f"mesh_shards window {w}"
+    merge_ms(f"mesh_shards window {w}", parts)
     del eng, idx, codes, parts, srcs, src, idx_m
     torch.cuda.empty_cache()
     return rows

@@ -884,6 +884,71 @@ def test_slices_kernels_equal_plain_on_gpu(gpu):
     assert after["gather_flat"] == before["gather_flat"] + 2
 
 
+def _merge_like_index(rng, sizes, n: int) -> np.ndarray:
+    """n int64 indices into the concatenation of sources of ``sizes``:
+    runs of consecutive indices within one source (as ``merged_index``
+    writes), then random indices, in random order of runs."""
+    off = np.concatenate([[0], np.cumsum(sizes)])
+    total = int(off[-1])
+    out, left = [], n
+    while left > 0:
+        s = int(rng.integers(0, len(sizes)))
+        if sizes[s] == 0 or rng.random() < 0.2:
+            m = min(left, int(rng.integers(1, 9)))
+            out.append(rng.integers(0, total, m))
+        else:
+            a = int(rng.integers(off[s], off[s + 1]))
+            m = min(left, int(off[s + 1]) - a, int(rng.integers(1, 300)))
+            out.append(np.arange(a, a + m))
+        left -= m
+    return np.concatenate(out)[:n] if n else np.zeros(0, np.int64)
+
+
+@pytest.mark.parametrize("n_src", [1, 2, 5, 8, 9, 64, 65, 1024, 1025])
+def test_gather_flat_source_tables_on_gpu(gpu, n_src):
+    """KP against its plain version at every form of its source table: by
+    value at S = 1, 2 and 5, at each capacity (8, 64, 1024) and one past
+    it, and the device table past the largest; some sources empty."""
+    from asgart_tpu_torch.kernels import gather_flat, launch_counts
+    from asgart_tpu_torch.kernels.slices import gather_flat_plain
+
+    rng = np.random.default_rng(50 + n_src)
+    sizes = [int(m) if rng.random() > 0.1 else 0
+             for m in rng.integers(1, 400, n_src)]
+    sizes[0] = max(sizes[0], 1)
+    srcs = [torch.from_numpy(rng.integers(-2**31, 2**31, m, dtype=np.int64)
+                             .astype(np.int32)).to(gpu) for m in sizes]
+    idx = torch.from_numpy(_merge_like_index(rng, sizes, 20011)).to(gpu)
+    before = launch_counts()["gather_flat"]
+    _equal([gather_flat(srcs, idx)], [gather_flat_plain(srcs, idx)])
+    assert launch_counts()["gather_flat"] == before + 1
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 1001, 4099, 200003])
+@pytest.mark.parametrize("offset", [0, 1, 2])
+def test_gather_flat_views_and_lengths_on_gpu(gpu, n, offset):
+    """KP with ``idx`` a view at an odd int64 offset (no 16-byte loads)
+    or an even one, sources that are views at odd int32 offsets, lengths
+    that are not a multiple of the vector width, and no index at all
+    (nothing launched)."""
+    from asgart_tpu_torch.kernels import gather_flat, launch_counts
+    from asgart_tpu_torch.kernels.slices import gather_flat_plain
+
+    rng = np.random.default_rng(7 * n + offset)
+    buf = torch.from_numpy(rng.integers(-2**31, 2**31, 90001, dtype=np.int64)
+                           .astype(np.int32)).to(gpu)
+    srcs = [buf[1:20000], buf[20003:20004], buf[20005:90001]]
+    sizes = [t.numel() for t in srcs]
+    whole = torch.from_numpy(_merge_like_index(rng, sizes, n + offset))
+    idx = whole.to(gpu)[offset:]
+    assert idx.numel() == n and idx.is_contiguous()
+    before = launch_counts()["gather_flat"]
+    got = gather_flat(srcs, idx)
+    _equal([got], [gather_flat_plain(srcs, idx)])
+    assert got.dtype == torch.int32
+    assert launch_counts()["gather_flat"] == before + (n > 0)
+
+
 @pytest.mark.parametrize("packed", [False, True])
 def test_sliced_scan_equals_unsliced_on_gpu(gpu, monkeypatch, packed):
     """A chunk's lanes scanned as slices (every granule its own, or
@@ -1014,6 +1079,50 @@ def test_seed_kernels_equal_plain_on_gpu(gpu):
     assert after["gather_ranges"] == before["gather_ranges"] + 2
     assert after["equal_range"] + after["pack_probe_planes"] == \
         before["equal_range"] + before["pack_probe_planes"] + launches
+
+
+@pytest.mark.parametrize("form", ["rows", "planar"])
+@pytest.mark.parametrize("bad", [-1, "n", 1 << 40])
+def test_gather_ranges_outside_raises_on_gpu(gpu, form, bad):
+    """KR's check in the kernel, in both forms: an index of -1, n or far
+    past n raises ``ValueError``; the next call, whose flag is zeroed
+    with its launch, returns its plain version's outputs."""
+    from asgart_tpu_torch import seed
+    from asgart_tpu_torch.kernels.seed import gather_ranges_plain
+
+    rng = np.random.default_rng(43)
+    n = 7000
+    ranges = torch.from_numpy(rng.integers(-2**31, 2**31, (n, 2))
+                              .astype(np.int32)).to(gpu)
+    src = ((ranges[:, 0], ranges[:, 1]) if form == "rows"
+           else (ranges[:, 0].contiguous(), ranges[:, 1].contiguous()))
+    x = torch.from_numpy(rng.integers(0, n, 50000)).to(gpu)
+    bad_x = x.clone()
+    bad_x[31337] = n if bad == "n" else bad
+    with pytest.raises(ValueError, match="outside"):
+        seed.gather_ranges(*src, bad_x)
+    _equal(seed.gather_ranges(*src, x), gather_ranges_plain(*src, x))
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_gather_ranges_row_views_on_gpu(gpu, offset):
+    """KR's rows form on an [n, 2] view at an int32 offset: at an odd one
+    the columns are not 8-byte aligned and the kernel reads each row as
+    two 4-byte loads; at an even one as one 8-byte load. Both equal the
+    plain version, and ``x`` may be a view at an odd offset too."""
+    from asgart_tpu_torch import seed
+    from asgart_tpu_torch.kernels.seed import gather_ranges_plain
+
+    rng = np.random.default_rng(47 + offset)
+    n = 9001
+    buf = torch.from_numpy(rng.integers(-2**31, 2**31, 2 * n + 4)
+                           .astype(np.int32)).to(gpu)
+    rows = buf[offset: offset + 2 * n].view(n, 2)
+    x = torch.from_numpy(rng.integers(0, n, 40001)).to(gpu)[offset:]
+    src = (rows[:, 0], rows[:, 1])
+    _equal(seed.gather_ranges(*src, x), gather_ranges_plain(*src, x))
+    _equal(seed._gather_range_rows(rows, x),
+           (rows[x, 0].long(), rows[x, 1].long()))
 
 
 @pytest.mark.parametrize("rc", [False, True])

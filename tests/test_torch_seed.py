@@ -251,6 +251,22 @@ def test_empty_inputs_and_bounds():
                          torch.tensor([5]), 4, 0)
 
 
+@pytest.mark.parametrize("form", ["rows", "planar"])
+@pytest.mark.parametrize("bad", [-1, -(1 << 40), 6, 1 << 40])
+def test_gather_ranges_outside_raises_on_cpu(form, bad):
+    """KR's host check on the CPU path, in both forms: an index outside
+    [0, n), negative ones included (torch's CPU indexing would wrap them),
+    raises; an index inside it does not."""
+    rows = torch.arange(12, dtype=torch.int32).reshape(6, 2)
+    src = ((rows[:, 0], rows[:, 1]) if form == "rows"
+           else (rows[:, 0].contiguous(), rows[:, 1].contiguous()))
+    x = torch.tensor([0, 5, bad, 3])
+    with pytest.raises(ValueError, match="outside"):
+        seed.gather_ranges(*src, x)
+    lo, hi = seed.gather_ranges(*src, x[[0, 1, 3]])
+    assert lo.tolist() == [0, 10, 6] and hi.tolist() == [1, 11, 7]
+
+
 @pytest.mark.parametrize("rc", [False, True])
 def test_position_tables_equal_jax(rc):
     """``DevicePositionTables.gather_ranges`` on a doubled-text

@@ -161,6 +161,50 @@ def test_gather_flat_equals_jax(pieces):
     assert np.array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("n_src,cap", [(1, 8), (2, 8), (5, 8), (8, 8),
+                                       (9, 64), (64, 64), (65, 1024),
+                                       (1024, 1024), (1025, 0)])
+def test_gather_flat_source_table_form(monkeypatch, n_src, cap):
+    """KP's form, chosen from the source count alone: up to 1024 sources
+    the host table of pointers and offsets goes to the launch by value (no
+    tensor made), past it the table goes to the device (cap 0). The
+    wrapper's arguments, with the inputs reported as GPU tensors and the
+    library faked."""
+    import ctypes
+
+    from asgart_tpu_torch.kernels import _build, slices
+
+    calls = []
+
+    class Lib:
+        @staticmethod
+        def asgart_gather_flat(table, S, *args):
+            words = (ctypes.c_int64 * (2 * S + 1)).from_address(table)
+            calls.append((list(words), S, *args))
+            return 0
+
+    made = []
+    monkeypatch.setattr(_build, "on_cuda", lambda *t: True)
+    monkeypatch.setattr(_build, "lib", lambda: Lib)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    real = torch.frombuffer
+    monkeypatch.setattr(torch, "frombuffer",
+                        lambda *a, **k: made.append(a) or real(*a, **k))
+    srcs = [torch.zeros(s % 3, dtype=torch.int32) for s in range(n_src)]
+    idx = torch.zeros(7, dtype=torch.int64)
+    before = slices.gather_flat.launches
+    out = slices.gather_flat(srcs, idx)
+    assert slices.kp_capacity(n_src) == cap
+    assert out.shape == (7,) and out.dtype == torch.int32
+    assert slices.gather_flat.launches == before + 1
+    (words, S, got_cap, idx_p, n, out_p, stream), = calls
+    assert (S, got_cap, idx_p, n, out_p) == (n_src, cap, idx.data_ptr(), 7,
+                                             out.data_ptr())
+    off = np.concatenate([[0], np.cumsum([t.numel() for t in srcs])])
+    assert words == [t.data_ptr() for t in srcs] + off.tolist()
+    assert len(made) == (cap == 0)
+
+
 KINDS = ["event", "quiet", "quiet", "event", "over", "event", "quiet",
          "event", "event"]
 
