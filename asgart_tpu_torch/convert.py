@@ -35,10 +35,16 @@ def fused_index_from_numpy(sa, lane_lo, lane_hi, lane_mask, specs, offs,
                            trim: tuple | None = None) -> FusedIndex:
     """The port's FusedIndex from a JAX FusedIndex's arrays and fields
     (its float raw totals become ints; ``trim`` is a window build's
-    (ws, we))."""
+    (ws, we)). A JAX window's ``sa`` holds genome positions, every slot
+    shifted by ws, its probe slots too (asgart_tpu/device_index.py:
+    1771-1774); the port's keeps window positions, so ws comes off every
+    slot."""
     def dev(a, dtype):
         return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
+    sa = np.asarray(sa)
+    if trim is not None:
+        sa = sa - np.int32(trim[0])
     return FusedIndex(
         sa=dev(sa, torch.int32), lane_lo=dev(lane_lo, torch.int32),
         lane_hi=dev(lane_hi, torch.int32),

@@ -18,13 +18,33 @@
 //       max(k - 10, 0) codes (int32 arithmetic, wrapping as XLA's does).
 //
 // KQ: one thread per probe (grid-stride): the probe, its bucket's bounds,
-//   then the left and the right search. A search stops once its interval
-//   is empty, where the JAX loop's lanes stop moving, so any `steps`, also
-//   one too small to converge, gives the JAX result.
+//   then both bounds from one descent: the lower bound by bisection of
+//   [lo0, hi0); the key at the lower bound is the last one the descent
+//   read at or above the probe, so where it differs from the probe (or
+//   the bucket is passed) the upper bound is the lower one, with no
+//   further read; else a gallop forward from it (asgart::run_end: rows
+//   +1, +2, +4, ... in the sector where the descent ended, then a
+//   bisection of the last gap). This equals the JAX result whenever both
+//   JAX loops converge, i.e. when the bucket's width hi0 - lo0 is below
+//   2^steps, which the pipeline's steps (the widest bucket's halvings)
+//   always gives. A probe whose bucket is wider runs the JAX loop's two
+//   searches, halving for halving, so any `steps`, also one too small to
+//   converge, gives the JAX result. One probe a thread ran as fast on the
+//   H100 as 2 and faster than 4, each thread issuing its probes' reads
+//   before any comparison (PERF.md): at 6.4 M probes the threads already
+//   keep enough reads in flight.
+//   The counting instance (kCount, a non-null `counts`) adds the keys each
+//   thread read and the probes that took the JAX loop to counts[0] and
+//   counts[1], one atomic add each a thread: the bound's data-dependent
+//   bytes, read from the kernel itself.
+//   A probe that is negative, whose prefix lies past the bucket table, or
+//   whose bucket bounds do not satisfy 0 <= lo0 <= hi0 <= n reads no key
+//   and sets the error flag, which the entry point zeroes on the stream
+//   before the launch and the wrapper reads after it.
 //   Bound on the H100: memory, 8 B of probe, 8 B of bucket bounds and 16 B
-//   of output per probe, and 8 B per halving done; each halving is a
-//   dependent read of one random row (neighbouring probes are unrelated
-//   k-mers), so latency, not the bytes, sets the time of a simple kernel.
+//   of output per probe, and 8 B per key read; each read of a descent is
+//   a dependent read of one random row (neighbouring probes are unrelated
+//   k-mers), so latency, not the bytes, sets the time.
 // KR: each thread takes 2 indices (a block's width apart, so every load
 //   and store of a warp is coalesced) and issues both row reads before any
 //   store (2, 4 and 8 indices a thread ran alike on the H100: the reads
@@ -45,39 +65,82 @@
 
 namespace {
 
-// The first row of keys[lo, hi) whose key is above (right) or at least
-// (left) the probe p, after at most `steps` halvings.
-__device__ __forceinline__ long long search(const long long* __restrict__ keys,
-                                            long long lo, long long hi,
-                                            long long p, int steps,
-                                            bool right) {
+// The JAX loop's search (asgart_tpu/seed.py:97-117): the first row of
+// keys[lo, hi) whose key is above (right) or at least (left) the probe p,
+// after at most `steps` halvings; adds its key reads to `reads`.
+__device__ __forceinline__ long long jax_search(
+    const long long* __restrict__ keys, long long lo, long long hi,
+    long long p, int steps, bool right, unsigned long long& reads) {
   for (int s = 0; s < steps && lo < hi; ++s) {
     const long long mid = (lo + hi) >> 1;
-    const long long key = keys[mid];
+    const long long key = __ldg(keys + mid);
+    ++reads;
     if (right ? key <= p : key < p) lo = mid + 1; else hi = mid;
   }
   return lo;
 }
 
+template <bool kCount>
 __global__ void equal_range_kernel(const long long* __restrict__ keys,
                                    long long n,
                                    const int* __restrict__ bucket_starts,
-                                   int key_shift,
+                                   long long n_starts, int key_shift,
                                    const long long* __restrict__ probes,
                                    long long b, int steps,
                                    long long* __restrict__ lo_out,
-                                   long long* __restrict__ hi_out) {
+                                   long long* __restrict__ hi_out,
+                                   int* __restrict__ bad,
+                                   unsigned long long* __restrict__ counts) {
+  bool outside = false;
+  unsigned long long reads = 0, jax_loop = 0;  // used by kCount alone
   for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        t < b; t += (long long)gridDim.x * blockDim.x) {
     const long long p = probes[t];
-    long long lo0 = 0, hi0 = n;
+    long long lo = 0, hi = n;
     if (key_shift >= 0) {
       const long long pre = p >> key_shift;
-      lo0 = bucket_starts[pre];
-      hi0 = bucket_starts[pre + 1];
+      if (p < 0 || pre > n_starts - 2) {
+        outside = true;
+        continue;
+      }
+      lo = __ldg(bucket_starts + pre);
+      hi = __ldg(bucket_starts + pre + 1);
+      if (!(0 <= lo && lo <= hi && hi <= n)) {
+        outside = true;
+        continue;
+      }
     }
-    lo_out[t] = search(keys, lo0, hi0, p, steps, false);
-    hi_out[t] = search(keys, lo0, hi0, p, steps, true);
+    const long long top = hi;
+    if (steps < 63 && hi - lo >= (1LL << steps)) {  // a JAX loop stops short
+      lo_out[t] = jax_search(keys, lo, top, p, steps, false, reads);
+      hi_out[t] = jax_search(keys, lo, top, p, steps, true, reads);
+      ++jax_loop;
+      continue;
+    }
+    long long key_hi = 0;  // keys[hi] once hi < top
+    while (lo < hi) {
+      const long long mid = (lo + hi) >> 1;
+      const long long key = __ldg(keys + mid);
+      ++reads;
+      if (key < p) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+        key_hi = key;
+      }
+    }
+    lo_out[t] = lo;
+    hi_out[t] = lo < top && key_hi == p
+        ? asgart::run_end(lo, top, [&](long long r) {
+            ++reads;
+            return __ldg(keys + r) == p;
+          })
+        : lo;
+  }
+  if (outside) *bad = 1;
+  if (kCount) {
+    atomicAdd(counts, reads);
+    atomicAdd(counts + 1, jax_loop);
   }
 }
 
@@ -149,18 +212,27 @@ __global__ void pack_probe_planes_kernel(const uint8_t* __restrict__ codes,
 
 }  // namespace
 
-// keys: int64 [n] sorted; bucket_starts: int32 [2^pb + 1], read only when
-// key_shift >= 0 (the bucket of a probe p is p >> key_shift); probes:
-// int64 [b]; lo, hi: int64 [b].
+// keys: int64 [n] sorted; bucket_starts: int32 [n_starts], read only
+// when key_shift >= 0 (the bucket of a probe p is p >> key_shift); probes:
+// int64 [b]; steps in [0, 63]; lo, hi: int64 [b]; bad: int32 [1], set to 1
+// when a probe's bucket or its bounds lie outside their arrays (zeroed
+// here first); counts: null, or int64 [2] that the counting instance adds
+// its key reads and its JAX-loop probes to (not zeroed here).
 ASGART_API int asgart_equal_range(const void* keys, long long n,
-                                  const void* bucket_starts, int key_shift,
+                                  const void* bucket_starts,
+                                  long long n_starts, int key_shift,
                                   const void* probes, long long b, int steps,
-                                  void* lo, void* hi, void* stream) {
+                                  void* lo, void* hi, void* bad,
+                                  void* counts, void* stream) {
   if (b <= 0) return (int)cudaGetLastError();
-  equal_range_kernel<<<asgart::grid_for(b), asgart::kThreads, 0,
-                       (cudaStream_t)stream>>>(
-      (const long long*)keys, n, (const int*)bucket_starts, key_shift,
-      (const long long*)probes, b, steps, (long long*)lo, (long long*)hi);
+  cudaStream_t s = (cudaStream_t)stream;
+  const cudaError_t rc = cudaMemsetAsync(bad, 0, sizeof(int), s);
+  if (rc != cudaSuccess) return (int)rc;
+  auto kernel = counts ? equal_range_kernel<true> : equal_range_kernel<false>;
+  kernel<<<asgart::grid_for(b), asgart::kThreads, 0, s>>>(
+      (const long long*)keys, n, (const int*)bucket_starts, n_starts,
+      key_shift, (const long long*)probes, b, steps, (long long*)lo,
+      (long long*)hi, (int*)bad, (unsigned long long*)counts);
   return (int)cudaGetLastError();
 }
 

@@ -106,9 +106,20 @@ class FusedEngine:
     The index is built (or served from ``cache``; ``None`` builds without
     caching) for the whole chunk set at the first :meth:`run_chunks`;
     ``codes`` are the strand's codes already on ``device``; ``index``
-    supplies a prebuilt index (e.g. from :mod:`asgart_tpu_torch.convert`)."""
+    supplies a prebuilt index (e.g. from :mod:`asgart_tpu_torch.convert`;
+    a window's must be of the same ``trim``).
 
-    m_offset = 0  # added to the matches (genome positions)
+    A window's suffix order keeps window positions (fused_index.py), so
+    KD scans it with :func:`rebased_bases` and the window start
+    ``m_offset`` is added to the matches in int64, on the host
+    (:func:`chain_chunk_events`) or by KN (:func:`chain_on_device`), as on
+    the merge-join engine. KD reads no probe slot (W + lane): a lane's
+    window [lane_lo, lane_hi) holds the direct rows of its key's run (KB
+    gives a probe row the run's direct rows, which sort before the probe
+    rows of the same key; tie resolution reorders direct rows among
+    themselves), and every direct slot is a window position in [0, W). So
+    the rebased constants, clamped to [-(chunk_len + 2), W + 2], keep
+    every comparison's outcome, as they do for the merge-join index."""
 
     def __init__(self, strand, settings, device: torch.device,
                  cache: IndexCache | None = INDEX_CACHE,
@@ -120,6 +131,8 @@ class FusedEngine:
         self.cache = cache
         self.index = index
         self.trim = None if trim is None else (int(trim[0]), int(trim[1]))
+        # added to the matches: window positions to genome positions
+        self.m_offset = 0 if self.trim is None else self.trim[0]
         self.codes = codes
 
     def ensure_index(self, chunks) -> FusedIndex:
@@ -151,7 +164,16 @@ class FusedEngine:
     def scan_results(self, chunks):
         """KD's result for each chunk, in order (:func:`scan_lanes`)."""
         idx = self.ensure_index(chunks)
-        return scan_lanes(self.settings, idx, idx.sa, chunks, fused_bases)
+        if idx.trim != self.trim:
+            raise ValueError(f"FusedEngine: an index of the window "
+                             f"{idx.trim} for the window {self.trim}")
+        if self.trim is None:
+            return scan_lanes(self.settings, idx, idx.sa, chunks,
+                              fused_bases)
+        ws, we = self.trim
+        return scan_lanes(self.settings, idx, idx.sa, chunks,
+                          lambda cs, cl: rebased_bases(cs, cl, ws,
+                                                       we - ws + 1))
 
 
 class TableEngine:

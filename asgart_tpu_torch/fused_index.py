@@ -18,7 +18,13 @@ steps and their kernels:
 
   upload codes (codes.py) -> KA pack_keys -> sort_keys (torch.sort)
   -> KB group_bounds -> KC invert_fused -> ties.resolve_ties (KE, KF)
-  -> KG offset_slots (windows with ws > 0: window to genome positions)
+
+A trim window's suffix order keeps window positions (its direct slots in
+[0, W), its probe slots at W + lane), where the JAX build adds the window
+start to every slot (``_offset_i32``, device_index.py:1771-1774): the
+engine scans it with the rebased filter constants and adds the window
+start to the matches in int64, as the merge-join engine does
+(``device_engine.FusedEngine``).
 
 The sort key is one int64 word up to k = 20 and two words (int64, int32)
 for k = 21..30 (kernels/pack_keys.py).
@@ -34,7 +40,7 @@ import torch
 
 from .codes import upload_codes
 from .host_helpers import _bucket, _strand_fingerprint
-from .kernels import group_bounds, invert_fused, offset_slots, pack_keys
+from .kernels import group_bounds, invert_fused, pack_keys
 from .kernels.pack_keys import LO_SYMS, MAX_K, key_words
 from .ties import resolve_ties
 
@@ -278,8 +284,6 @@ class FusedIndex:
             sa, run_lo, run_hi, lane_mask, W, lane_off)
         del run_lo, run_hi
         sa = resolve_ties(sa, rank, tied, M, k)
-        if ws:
-            offset_slots(sa, ws)
         offs = {(cs, cl): (off, int(t)) for (cs, cl, _), off, t in
                 zip(specs, lane_off, totals.tolist())}
         return cls(sa=sa, lane_lo=lane_lo, lane_hi=lane_hi,

@@ -61,8 +61,6 @@ SIGNATURES = {
     "asgart_scan_emit": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32,
                          _I64, _I32, _I32, _I64, _P, _P, _I64, _P, _P, _P,
                          _P, _P],
-    # sa (in place), n, ws, stream
-    "asgart_offset_slots": [_P, _I64, _I32, _P],
     # skey, W, pkey, lane_mask, total, lane_off [n_chunks + 1], n_chunks,
     # lane_lo, lane_hi, totals, stream
     "asgart_mj_ranges": [_P, _I64, _P, _P, _I64, _P, _I32, _P, _P, _P, _P],
@@ -84,9 +82,10 @@ SIGNATURES = {
     # the host, passed by value, or on the card when cap is 0), n_src, cap,
     # idx, n, out, stream
     "asgart_gather_flat": [_P, _I32, _I32, _P, _I64, _P, _P],
-    # keys, n, bucket_starts, key_shift (-1: no buckets), probes, b, steps,
-    # lo, hi, stream
-    "asgart_equal_range": [_P, _I64, _P, _I32, _P, _I64, _I32, _P, _P, _P],
+    # keys, n, bucket_starts, n_starts, key_shift (-1: no buckets), probes,
+    # b, steps, lo, hi, bad, counts (None: the uncounted instance), stream
+    "asgart_equal_range": [_P, _I64, _P, _I64, _I32, _P, _I64, _I32, _P, _P,
+                           _P, _P, _P],
     # lo_src, hi_src, stride, n, x, b, lo, hi, bad, stream
     "asgart_gather_ranges": [_P, _P, _I64, _I64, _P, _I64, _P, _P, _P, _P],
     # codes, pos, b, k, hi, lo, stream

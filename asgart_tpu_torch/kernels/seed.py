@@ -6,9 +6,10 @@ JAX package and how it is bounded). ``equal_range_plain``,
 ``gather_ranges_plain`` and ``pack_probe_planes_plain`` are the same
 functions in plain PyTorch. Every row a kernel reads must lie inside its
 array: a CUDA read past an array's end reads other memory, where the JAX
-programs' gathers clamp. KQ and KS check their inputs before the launch
-(one ``aminmax`` over each index input, read on the host); KR checks each
+programs' gathers clamp. KS checks its positions before the launch (one
+``aminmax``, read on the host); KQ checks each probe's bucket and KR each
 index in the kernel, which raises a flag that the wrapper reads after it.
+On CPU tensors the wrappers check the same conditions on the host.
 """
 
 from __future__ import annotations
@@ -42,41 +43,95 @@ def equal_range(keys: torch.Tensor, bucket_starts: torch.Tensor,
     ``bucket_starts[p + 1]`` (int32) of ``p = probe >> (prefix_shift +
     LO_BITS)``, or in all N rows when ``prefix_shift`` < 0, by at most
     ``steps`` halvings on each side: the JAX ``equal_range`` on one-word
-    keys, whose ``prefix_shift`` applies to the high plane."""
+    keys, whose ``prefix_shift`` applies to the high plane. Raises
+    ``ValueError`` for a probe whose bucket lies outside the table (a
+    negative probe included) or whose bounds do not satisfy 0 <= lo0 <=
+    hi0 <= N."""
     _contiguous("equal_range", keys=(keys, torch.int64),
                 bucket_starts=(bucket_starts, torch.int32),
                 probes=(probes, torch.int64))
     if steps < 0:
         raise ValueError(f"equal_range: bad steps {steps}")
     cuda = _build.on_cuda(keys, bucket_starts, probes)
-    B, N = probes.numel(), keys.numel()
-    if B == 0:
+    if probes.numel() == 0:
         return (torch.empty(0, dtype=torch.int64, device=probes.device),
                 torch.empty(0, dtype=torch.int64, device=probes.device))
     key_shift = prefix_shift + LO_BITS if prefix_shift >= 0 else -1
-    if key_shift >= 0:
-        if bucket_starts.numel() < 2:
-            raise ValueError("equal_range: no bucket table")
-        pmin, pmax, bmin, bmax = _extremes(probes, bucket_starts)
-        if pmin < 0 or (pmax >> key_shift) > bucket_starts.numel() - 2 \
-                or bmin < 0 or bmax > N:
-            raise ValueError("equal_range: a probe's bucket or a bucket "
-                             "bound lies outside its array")
+    if key_shift >= 0 and bucket_starts.numel() < 2:
+        raise ValueError("equal_range: no bucket table")
+    outside = ("equal_range: a probe's bucket or a bucket bound lies "
+               "outside its array")
     if not cuda:
+        if not _buckets_inside(keys.numel(), bucket_starts, probes,
+                               key_shift):
+            raise ValueError(outside)
         return equal_range_plain(keys, bucket_starts, probes, steps,
                                  prefix_shift)
-    lo = torch.empty(B, dtype=torch.int64, device=probes.device)
-    hi = torch.empty(B, dtype=torch.int64, device=probes.device)
-    lib = _build.lib()
-    equal_range.launches += 1
-    _build.check(lib.asgart_equal_range(
-        keys.data_ptr(), N, bucket_starts.data_ptr(), key_shift,
-        probes.data_ptr(), B, steps, lo.data_ptr(), hi.data_ptr(),
-        _build.stream_of(probes)), "equal_range")
+    lo, hi, bad = launch_equal_range(keys, bucket_starts, probes, steps,
+                                     prefix_shift)
+    if bad.item():  # one 4-byte read: the host waits for the kernel
+        raise ValueError(outside)
     return lo, hi
 
 
+def _buckets_inside(N: int, bucket_starts, probes, key_shift: int) -> bool:
+    """The condition KQ checks per probe, on the host: each probe's bucket
+    lies in the table and its bounds satisfy 0 <= lo0 <= hi0 <= N (always
+    true without buckets)."""
+    if key_shift < 0:
+        return True
+    prefix = probes >> key_shift
+    if not bool(((probes >= 0)
+                 & (prefix <= bucket_starts.numel() - 2)).all()):
+        return False
+    lo0, hi0 = bucket_starts[prefix], bucket_starts[prefix + 1]
+    return bool(((lo0 >= 0) & (lo0 <= hi0) & (hi0 <= N)).all())
+
+
+def launch_equal_range(keys, bucket_starts, probes, steps: int,
+                       prefix_shift: int, counts=None):
+    """KQ's launch alone, on arguments :func:`equal_range` has checked:
+    (lo, hi, bad), ``bad`` an int32 [1] flag on the card, nonzero when a
+    probe's bucket or its bounds lie outside their arrays (and lo, hi then
+    garbage). Nothing is read back, so the host does not wait for the
+    card. ``counts``, an int64 [2] tensor on the card, runs the counting
+    instance, which adds its key reads and the probes that took the JAX
+    loop to it."""
+    lib = _build.lib()
+    B = probes.numel()
+    lo = torch.empty(B, dtype=torch.int64, device=probes.device)
+    hi = torch.empty(B, dtype=torch.int64, device=probes.device)
+    bad = torch.empty(1, dtype=torch.int32, device=probes.device)
+    key_shift = prefix_shift + LO_BITS if prefix_shift >= 0 else -1
+    equal_range.launches += 1
+    _build.check(lib.asgart_equal_range(
+        keys.data_ptr(), keys.numel(), bucket_starts.data_ptr(),
+        bucket_starts.numel(), key_shift, probes.data_ptr(), B,
+        min(steps, 63), lo.data_ptr(), hi.data_ptr(), bad.data_ptr(),
+        None if counts is None else counts.data_ptr(),
+        _build.stream_of(probes)), "equal_range")
+    return lo, hi, bad
+
+
 equal_range.launches = 0
+
+
+def equal_range_reads(keys, bucket_starts, probes, steps: int,
+                      prefix_shift: int) -> tuple[int, int]:
+    """(the keys KQ reads on these inputs, the probes that take the JAX
+    loop), counted by the kernel itself in one launch of its counting
+    instance; CUDA tensors that :func:`equal_range` accepts."""
+    if not _build.on_cuda(keys, bucket_starts, probes):
+        raise ValueError("equal_range_reads: KQ counts its reads on the "
+                         "card only")
+    counts = torch.zeros(2, dtype=torch.int64, device=probes.device)
+    _, _, bad = launch_equal_range(keys, bucket_starts, probes, steps,
+                                   prefix_shift, counts)
+    if bad.item():
+        raise ValueError("equal_range_reads: a probe's bucket or a bucket "
+                         "bound lies outside its array")
+    reads, jax_loop = counts.tolist()
+    return int(reads), int(jax_loop)
 
 
 def equal_range_plain(keys, bucket_starts, probes, steps: int,

@@ -11,11 +11,10 @@ and of the probe-key cache ``_PROBE_KEYS_CACHE``
   -> ties.resolve_ties (KE, KF)
 
 The suffix order keeps window positions 0..W-1, as the JAX
-``BigWindowEngine`` keeps them (asgart_tpu/device_engine.py:2453-2458):
-KG, which turns a fused window build's order into genome positions, is not
-run, and the engine adds the window start to its matches on the host, in
-int64. So the index has no int32 bound on the probed text and serves any
-genome size; a JAX ``DeviceWindowIndex`` (genome positions) is carried in
+``BigWindowEngine`` keeps them (asgart_tpu/device_engine.py:2453-2458),
+and as the port's fused window build does; the engine adds the window
+start to its matches in int64. So the index has no int32 bound on the
+probed text and serves any genome size; a JAX ``DeviceWindowIndex`` (genome positions) is carried in
 by subtracting its window start (convert.py).
 
 Unlike the fused build, the probes are not sorted into the index: the

@@ -26,10 +26,10 @@
    a. runs each kernel of the path and its plain PyTorch version on the
       card, on that path's arrays (KI on the strand's upload; the fused
       build of the genome, or of window 2 of the shards, or of the trim
-      window, and its largest chunk's scan; KE/KF on the first, largest
-      tie round; KG on a fused window's final suffix order; KA's
-      probe-only mode with its own bound and KD with the merge-join
-      engine's rebased constants on its window-relative order), requires
+      window, and its largest chunk's scan, a window's, fused or
+      merge-join, with the rebased constants on its window-relative
+      order; KE/KF on the first, largest tie round; KA's probe-only mode
+      with its own bound), requires
       equal outputs (tolerance 0: all integers), times
       both with CUDA events after a warm-up, and gives each kernel its
       bound (the larger of its bytes over the HBM rate and its integer
@@ -54,7 +54,7 @@
       the JSON bytes of all three runs to be equal and every kernel of
       the path to have been launched (the merge-join trim paths' cache
       hits launch neither KA nor KH; their shards paths pack the probe
-      keys once a run; the merge-join paths never launch KG);
+      keys once a run);
 4. three ``--checkpoint`` paths on the table engine (:func:`run_table_path`):
    ``table`` (the 128 Mbp genome, k = 20), ``table_k25`` (the same genome,
    k = 25: two-word keys) and ``table_repeats`` (a ``--repeats-mbp``
@@ -123,7 +123,9 @@
    reaches ``DeviceSeedIndex``) on the mj_trim window at k = 20, every
    chunk, then ``_finalize_result``, held to mj_trim's host JSON, KQ the
    only kernel launched; KQ against its plain version and
-   ``torch.searchsorted`` and KS against its plain version and the host
+   ``torch.searchsorted`` (with its key reads, counted by the kernel's
+   counting instance, beside the JAX loop's halvings; its bound from its
+   reads) and KS against its plain version and the host
    pack, on the largest chunk; ``seed_k21`` (:func:`run_seed_k21`): the
    whole genome at k = 21 behind a ballast that leaves too little memory
    for the fused build and the table, so the router takes the
@@ -165,9 +167,11 @@
    from the first chunk's record, held to the whole path's host JSON; then
    :func:`nccl_shared_card` prints how NCCL treats two ranks on one card;
 10. prints a {"kernels": [...]} line (each kernel once per path, with the
-   path's name and k; each row's ``ms`` the wrapper's call; KP's and KR's
-   rows, timed over ``FINE_REPS`` calls, also ``kernel_alone_ms`` and
-   ``library_alone_ms``, the launches alone (:func:`kernel_ms`), and
+   path's name and k; each row's ``ms`` the wrapper's call; KP's, KQ's
+   and KR's rows, timed over ``FINE_REPS`` calls, also
+   ``kernel_alone_ms`` and ``library_alone_ms``, the launches alone
+   (:func:`kernel_ms`), and KQ's ``key_reads`` and ``jax_loop_probes``,
+   counted by the kernel (``kernels.seed.equal_range_reads``);
    beside KP's rows ``merge_slices``' whole time is printed; KN's
    rows: its time, the plain time and the bound
    on the checked bursts, and beside them its chunk's events, bursts,
@@ -191,8 +195,8 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 SEED = 1234
 REPS = 3
-# KP's and KR's rows: their wrappers and library calls take 0.01-0.3 ms and
-# wait on the host at small sizes, where a mean of 3 calls swings 2-5x
+# KP's, KQ's and KR's rows: their wrappers and library calls take 0.01-3 ms
+# and wait on the host at small sizes, where a mean of 3 calls swings 2-5x
 FINE_REPS = 20
 SLEEP_CYCLES = 50_000_000  # kernel_ms's busy-wait: ~25 ms at the H100's clock
 SHARDS = 4
@@ -200,8 +204,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 ALU_OPS_PER_S = 67e12      # H100 SXM non-tensor-core rate (data sheet)
 WHOLE = ("unpack_codes", "pack_keys", "group_bounds", "invert_fused",
          "tie_keys", "tie_refine", "scan_core")
-WINDOW = WHOLE + ("offset_slots",)  # KG runs when the window starts > 0
-MJ = WHOLE + ("mj_ranges",)  # the merge-join window engine: no KG
+MJ = WHOLE + ("mj_ranges",)  # the merge-join window engine
 # the table engine (--checkpoint): its build, then KM and KD per chunk;
 # full rounds (KK, KL) where the first tied count passes tied_cap
 TABLE = ("unpack_codes", "pack_keys", "group_bounds", "invert_tables",
@@ -555,28 +558,6 @@ def gapped_upload_check(tag: str, data, device) -> None:
     torch.cuda.empty_cache()
 
 
-def kg_check(record, sa, ws: int) -> None:
-    """KG on a window's final suffix order: kernel, plain version and the
-    one PyTorch call (the plain version is that call), each on its own
-    copy, so every timed launch adds ws to the same values; then ``sa +=
-    ws`` in place."""
-    from asgart_tpu_torch.kernels import offset_slots
-    from asgart_tpu_torch.kernels.window import offset_slots_plain
-
-    M = sa.numel()
-    copies = [sa.clone() for _ in range(3)]
-    kg = lambda: offset_slots(copies[0], ws)  # noqa: E731
-    pg = lambda: offset_slots_plain(copies[1], ws)  # noqa: E731
-    lg = lambda: copies[2].add_(ws)  # noqa: E731
-    err = max_abs_err((kg(),), (pg(),))
-    ms, plain_ms, lib_ms = cuda_ms(kg), cuda_ms(pg), cuda_ms(lg)
-    record("offset_slots", "window.cu", "asgart_tpu/device_index.py:1505",
-           err, ms, plain_ms, f"{M} slots, ws={ws}", 8 * M, M,
-           library_ms=lib_ms)
-    del copies
-    offset_slots(sa, ws)
-
-
 def kd_check(record, settings, specs, lane_off, lane_lo, lane_hi, lane_mask,
              sa, bases=None, chunk=None, part=None,
              replaces: str | None = None) -> None:
@@ -764,7 +745,7 @@ def kernel_checks(fa: str, path: str, settings, device,
     """Each kernel of a path against its plain version at the path's
     shapes: the whole genome's fused build, or the window ``trim``'s.
     Returns (kernel rows, fused rows M)."""
-    from asgart_tpu_torch.device_engine import chunk_specs
+    from asgart_tpu_torch.device_engine import chunk_specs, rebased_bases
     from asgart_tpu_torch.fasta import prepare_data
     from asgart_tpu_torch.fused_index import fused_layout, sort_keys
     from asgart_tpu_torch.host_helpers import _strand_fingerprint
@@ -844,9 +825,13 @@ def kernel_checks(fa: str, path: str, settings, device,
 
     sa = tie_checks(record, tag, sa, rank, tied, M, k, device)
     del rank, tied
-    if ws:
-        kg_check(record, sa, ws)
-    kd_check(record, s, specs, lane_off, lane_lo, lane_hi, lane_mask, sa)
+    # a window's suffix order keeps window positions: the rebased constants,
+    # as FusedEngine scans it
+    kd_check(record, s, specs, lane_off, lane_lo, lane_hi, lane_mask, sa,
+             bases=None if trim is None else
+             lambda cs, cl: rebased_bases(cs, cl, ws, W0),
+             replaces=None if trim is None else
+             "asgart_tpu/device_engine.py:249 (window, rebased)")
     return rows, M
 
 
@@ -1427,8 +1412,6 @@ def run_mj_path(fa: str, n: int, device, path: str, settings,
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"{tag} main path")
-    if counts["offset_slots"]:
-        raise AssertionError(f"{tag}: KG launched on a merge-join path")
     if shards > 1:
         for tag2, (_, _, _, c) in runs.items():
             # one window-key pack per window, one probe pack per run
@@ -2403,8 +2386,7 @@ def run_big_whole(work: str, mbp: float, device, plain_events: int = 0
         raise AssertionError(f"{tag}: the planner did not shard into {S} "
                              f"windows: {said.lines}")
     for tag2, (_, _, _, c) in runs.items():
-        want = {"unpack_codes": 1, "pack_keys": S + 1, "mj_ranges": S,
-                "offset_slots": 0}
+        want = {"unpack_codes": 1, "pack_keys": S + 1, "mj_ranges": S}
         if any(c[m] != v for m, v in want.items()):
             raise AssertionError(f"{tag} {tag2}: launches {c}, expected "
                                  f"{want} for {S} merge-join windows")
@@ -2452,9 +2434,9 @@ def run_big_whole(work: str, mbp: float, device, plain_events: int = 0
 
 def search_halvings(keys, bucket_starts, probes, steps: int,
                     prefix_shift: int) -> int:
-    """The halvings KQ makes on these inputs, both searches together (the
-    lanes still live at each step of the plain loop): its data-dependent
-    reads."""
+    """The halvings the JAX loop (KQ's plain version) makes on these
+    inputs, both searches together: the lanes still live at each of its
+    steps."""
     import torch
 
     from asgart_tpu_torch.kernels.seed import LO_BITS
@@ -2503,6 +2485,8 @@ def run_seed_trim(fa: str, device, trim, host: str) -> list:
     from asgart_tpu_torch.fused_index import INDEX_CACHE
     from asgart_tpu_torch.index import CODE
     from asgart_tpu_torch.kernels.seed import (_extremes, equal_range_plain,
+                                               equal_range_reads,
+                                               launch_equal_range,
                                                pack_probe_planes_plain)
     from asgart_tpu_torch.pipeline import (SearchEngine, _finalize_result,
                                            _pack_probe_kmers,
@@ -2569,17 +2553,30 @@ def run_seed_trim(fa: str, device, trim, host: str) -> list:
     err = max_abs_err(got, pq())
     if max_abs_err(got, lq()) != 0:
         raise AssertionError(f"{tag}: torch.searchsorted differs from KQ")
+    # the bound: 8 B of probe, 8 B of bucket bounds and 16 B of output a
+    # probe, and 8 B a key read, the reads KQ's counting instance makes
+    reads, jax_loop = equal_range_reads(*args)
+    if jax_loop:
+        raise AssertionError(f"{tag}: {jax_loop} probes took the JAX loop "
+                             f"at the index's own steps {dsi.steps}")
     halvings = search_halvings(*args)
-    print(f"{tag} KQ's bounds check alone (aminmax of the probes and the "
-          f"buckets, one host read): "
-          f"{cuda_ms(lambda: _extremes(probes, dsi.bucket_starts)):.3f} ms",
-          flush=True)
+    old_ms, _ = bound(32 * B + 8 * halvings, 6 * halvings + 4 * B)
+    print(f"{tag} KQ's key reads on these probes, counted by the kernel: "
+          f"{reads} ({reads / B:.2f} a probe), {jax_loop} probes took the "
+          f"JAX loop; the JAX loop's halvings {halvings} "
+          f"({halvings / B:.2f} a probe), whose bytes bound the reference "
+          f"loop at {old_ms:.4f} ms", flush=True)
     record("equal_range", "seed.cu", "asgart_tpu/seed.py:73", err,
-           cuda_ms(kq), cuda_ms(pq),
+           cuda_ms(kq, FINE_REPS), cuda_ms(pq, FINE_REPS),
            f"{B} probes (chunk {start}+{length}) against {N} keys, "
            f"{1 << dsi.prefix_bits} buckets, steps {dsi.steps}, "
-           f"{halvings} halvings", 8 * B + 8 * B + 16 * B + 8 * halvings,
-           6 * halvings + 4 * B, library_ms=cuda_ms(lq))
+           f"{reads} key reads",
+           32 * B + 8 * reads, 6 * reads + 4 * B,
+           library_ms=cuda_ms(lq, FINE_REPS),
+           alone=(kernel_ms(lambda: launch_equal_range(*args), FINE_REPS),
+                  kernel_ms(lq, FINE_REPS)))
+    rows[-1]["key_reads"] = reads
+    rows[-1]["jax_loop_probes"] = jax_loop
     rows[-1]["launches"] = counts["equal_range"]
 
     t_codes = torch.from_numpy(codes).to(device)
@@ -3395,7 +3392,7 @@ def main(argv=None) -> int:
             rows += run_whole_sliced(fa, device, path_host)
     shard_rows, shard_host = run_path(fa, n, device, "shards",
                                       RunSettings(probe_size=20, **rc),
-                                      shards=SHARDS, kernels=WINDOW)
+                                      shards=SHARDS)
     rows += shard_rows
     # a quarter of the genome around its middle (its N run), two-word
     # keys; at the default size it holds planted -RC pairs (a quick run's
@@ -3404,7 +3401,7 @@ def main(argv=None) -> int:
     min_sds = 1 if args.mbp >= 100 else 0
     rows += run_path(fa, n, device, "trim", RunSettings(probe_size=25,
                                                        trim=trim, **rc),
-                     kernels=WINDOW, min_sds=min_sds)[0]
+                     min_sds=min_sds)[0]
     # the merge-join window engine, routed there by a ballast tensor: the
     # same middle window at k = 20, and the shards path's windows, whose
     # JSON is the host JSON the fused shards path computed

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions on the GPU, for
 every transform and k in {8, 20} (one-word keys) and {25, 30} (two-word
-keys), KA's window mode and KG on trim windows, the merge-join window
+keys), KA's window mode on trim windows (whose suffix order keeps window
+positions, scanned by KD with rebased constants), the merge-join window
 engine's kernels (KA's probe-only mode and window keys, KC with no lanes,
 KH, KD with rebased constants on its window-relative index), KI, the table
 engine's (KA's doubled mode, KB's N flag and run ends, KJ, KK / KL at a
@@ -12,7 +13,10 @@ int32 addressing), the sliced dispatch of a repeat-heavy chunk (KO
 and KP against their plain versions, a sliced scan against one unsliced
 KD launch, and the JSON of sliced runs on both chains and journaled), and
 the seed lookups (KQ, KR and KS against their plain versions, with empty
-inputs, no buckets and wide buckets; ``SearchEngine(engine="cuda")`` and
+inputs, no buckets and wide buckets; KQ also against two
+``torch.searchsorted`` calls, on runs that end at a bucket's last row,
+empty buckets and every ``steps`` from 1, and its check in the kernel;
+``SearchEngine(engine="cuda")`` and
 the k = 21 route against the host engine), and the rank-sharded window
 engine on one rank (KT against its plain version on every shard, and its
 JSON against the host engine), and gloo ranks sharing the GPU on the
@@ -138,12 +142,11 @@ def test_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse, complement, k):
             n_events += got.n_events
     torch.cuda.synchronize()
     after = launch_counts()
-    # KG runs on trim windows only (test_window_kernels_equal_plain_on_gpu),
-    # KH on the merge-join engine (test_mj_kernels_equal_plain_on_gpu), KI
-    # in upload_codes (test_unpack_codes_equal_plain_on_gpu), KJ, KM, KK and
-    # KL on the table engine (test_table_kernels_equal_plain_on_gpu)
+    # KH runs on the merge-join engine (test_mj_kernels_equal_plain_on_gpu),
+    # KI in upload_codes (test_unpack_codes_equal_plain_on_gpu), KJ, KM, KK
+    # and KL on the table engine (test_table_kernels_equal_plain_on_gpu)
     assert all(after[name] > before[name] for name in after
-               if name not in ("offset_slots", "mj_ranges", "unpack_codes",
+               if name not in ("mj_ranges", "unpack_codes",
                                *TABLE_KERNELS, *CHAIN_KERNELS,
                                *SLICE_KERNELS, *SEED_KERNELS,
                                *SHARD_KERNELS))
@@ -192,14 +195,15 @@ def test_gpu_json_equals_host(tmp_path, gpu, genome):
 @pytest.mark.parametrize("reverse,complement", TRANSFORMS)
 def test_window_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse,
                                            complement, k):
-    """KA in window mode and KG on a window with ws > 0, each against its
-    plain version; the window build on the GPU equals the CPU build."""
-    from asgart_tpu_torch.device_engine import chunk_specs
+    """KA in window mode on a window with ws > 0 against its plain version;
+    the window build on the GPU (window positions) equals the CPU build,
+    and KD over it with the rebased constants equals its plain version."""
+    from asgart_tpu_torch.device_engine import chunk_specs, rebased_bases
     from asgart_tpu_torch.fused_index import FusedIndex, fused_layout
-    from asgart_tpu_torch.kernels import launch_counts, offset_slots, pack_keys
+    from asgart_tpu_torch.kernels import launch_counts, pack_keys, scan_core
     from asgart_tpu_torch.kernels.pack_keys import (chunk_tables,
                                                     pack_keys_plain)
-    from asgart_tpu_torch.kernels.window import offset_slots_plain
+    from asgart_tpu_torch.kernels.scan_core import scan_core_plain
 
     _, chunks, strand = prepared(tmp_path, [("chr1", chunked_genome())])
     s = RunSettings(reverse=reverse, complement=complement, probe_size=k)
@@ -215,13 +219,6 @@ def test_window_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse,
         codes, *chunk_tables(specs, n1, k, reverse, complement), k,
         reverse, complement, W, total, ws)
     _equal((*keys, mask), (*want_keys, want_mask))
-    for n in (W + total, 4097, 3, 0):  # vector body, ragged tail, empty
-        sa = torch.randint(0, 2**30, (n,), dtype=torch.int32, device=gpu)
-        want = offset_slots_plain(sa.clone(), ws)
-        _equal((offset_slots(sa, ws),), (want,))
-    sa = torch.arange(9, dtype=torch.int32, device=gpu)[1:]  # unaligned
-    _equal((offset_slots(sa, ws),),
-           (torch.arange(1, 9, dtype=torch.int32, device=gpu) + ws,))
     got = FusedIndex.build(strand.data, k, specs, reverse, complement, gpu,
                            trim=(ws, we))
     ref = FusedIndex.build(strand.data, k, specs, reverse, complement,
@@ -229,10 +226,21 @@ def test_window_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse,
     _equal((got.sa, got.lane_lo, got.lane_hi, got.lane_mask),
            (ref.sa, ref.lane_lo, ref.lane_hi, ref.lane_mask))
     assert got.offs == ref.offs
+    assert int(got.sa[got.sa < we - ws + 1].numel()) == we - ws + 1
+    for (cs, cl, nc) in specs:
+        off = got.offs[(cs, cl)][0]
+        lanes = slice(off, off + nc)
+        args = (got.lane_lo[lanes], got.lane_hi[lanes], got.lane_mask[lanes],
+                got.sa, *rebased_bases(cs, cl, ws, we - ws + 1), 500, 0, k,
+                reverse)
+        res, want = scan_core(*args), scan_core_plain(*args)
+        assert (res.n_events, res.total_kept) == \
+            (want.n_events, want.total_kept)
+        _equal((res.flat,), (want.flat,))
     torch.cuda.synchronize()
     after = launch_counts()
     assert all(after[name] > before[name] for name in after
-               if name not in ("scan_core", "mj_ranges", "unpack_codes",
+               if name not in ("mj_ranges", "unpack_codes",
                                *TABLE_KERNELS, *CHAIN_KERNELS,
                                *SLICE_KERNELS, *SEED_KERNELS,
                                *SHARD_KERNELS))
@@ -268,6 +276,47 @@ def test_gpu_trim_and_shards_json_equal_host(tmp_path, gpu, k):
             assert main([fa, "-R", "-C", "-k", str(k), *flags, "--engine",
                          engine, "--out", str(out)]) == 0
         assert outs[0].read_text() == outs[1].read_text()
+
+
+def test_gpu_fused_windows_json_equal_host(tmp_path, gpu, monkeypatch):
+    """The fused trim window at k = 25 and a fused ``--shards 4`` run at k
+    = 20, -RC: both route to ``FusedEngine``, whose windows keep window
+    positions (scanned with the rebased constants, the window start added
+    to the matches), write the host engine's bytes, and launch every
+    kernel of the fused window path."""
+    from asgart_tpu_torch import device_engine
+    from asgart_tpu_torch.fused_index import INDEX_CACHE
+    from asgart_tpu_torch.kernels import launch_counts
+    from asgart_tpu_torch.pipeline import search_duplications
+
+    g = bytearray(chunked_genome())
+    g[500:3560] = g[20500:23560]  # a direct duplication
+    fa, _, _ = prepared(tmp_path, [("chr1", bytes(g))])
+    seen = []
+    scan = device_engine.FusedEngine.scan_results
+
+    def spy(self, chunks):
+        seen.append((self.trim, self.m_offset))
+        return scan(self, chunks)
+
+    monkeypatch.setattr(device_engine.FusedEngine, "scan_results", spy)
+    window = ("pack_keys", "group_bounds", "invert_fused", "tie_keys",
+              "tie_refine", "scan_core")
+    for k, kw in ((25, dict(trim=(400, 52000))), (20, {})):
+        s = RunSettings(reverse=True, complement=True, probe_size=k, **kw)
+        shards = {} if kw else dict(shards=4)
+        host = json_text(search_duplications([fa], s, engine="host",
+                                             **shards))
+        INDEX_CACHE.clear()
+        seen.clear()
+        before = launch_counts()
+        assert json_text(search_duplications([fa], s, engine="cuda",
+                                             device=gpu, **shards)) == host
+        after = launch_counts()
+        assert all(after[name] > before[name] for name in window)
+        assert seen and all(t is not None and m == t[0] for t, m in seen)
+        assert len({t for t, _ in seen}) == (1 if kw else 4)
+    INDEX_CACHE.clear()
 
 
 @pytest.mark.parametrize("k", [20, 8])
@@ -326,10 +375,8 @@ def test_mj_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse, complement,
     assert r_gpu.offs == r_cpu.offs
     torch.cuda.synchronize()
     after = launch_counts()
-    # the window index keeps window positions: no KG
-    assert after["offset_slots"] == before["offset_slots"]
     assert all(after[name] > before[name] for name in after
-               if name not in ("scan_core", "unpack_codes", "offset_slots",
+               if name not in ("scan_core", "unpack_codes",
                                *TABLE_KERNELS, *CHAIN_KERNELS,
                                *SLICE_KERNELS, *SEED_KERNELS,
                                *SHARD_KERNELS))
@@ -469,7 +516,7 @@ def test_big_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse, complement,
     """KD with the merge-join engine's rebased constants on its
     window-relative index (windows at 0 and past it, max_cardinality 500
     and 1) against its plain version; the relative index and stage 1 on
-    the GPU equal the CPU's, and no KG runs."""
+    the GPU equal the CPU's."""
     from asgart_tpu_torch.device_engine import (DeviceWindowEngine,
                                                 rebased_bases)
     from asgart_tpu_torch.kernels import launch_counts, scan_core
@@ -506,11 +553,10 @@ def test_big_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse, complement,
                 n_events += got.n_events
     torch.cuda.synchronize()
     after = launch_counts()
-    assert after["offset_slots"] == before["offset_slots"]
     # this genome's N run makes its exceptions dense: a plain upload, no KI
     # (test_unpack_codes_equal_plain_on_gpu)
     assert all(after[name] > before[name] for name in after
-               if name not in ("offset_slots", "unpack_codes",
+               if name not in ("unpack_codes",
                                *TABLE_KERNELS, *CHAIN_KERNELS,
                                *SLICE_KERNELS, *SEED_KERNELS,
                                *SHARD_KERNELS))
@@ -1079,6 +1125,188 @@ def test_seed_kernels_equal_plain_on_gpu(gpu):
     assert after["gather_ranges"] == before["gather_ranges"] + 2
     assert after["equal_range"] + after["pack_probe_planes"] == \
         before["equal_range"] + before["pack_probe_planes"] + launches
+
+
+def _kq_table(rng, n_prefix: int = 64, empty=(3, 17, 40, 63)):
+    """Sorted keys (prefix << 30 | a suffix in 0..19) with many equal runs,
+    every bucket's last rows one run (so runs end at a bucket's last row),
+    bucket 5 one run of 300 equal keys (an equal run past the descent's
+    depth, as on the poly-A text), the buckets ``empty`` empty; the bucket
+    table over prefix_shift 0 and the converging depth."""
+    parts = []
+    for pre in range(n_prefix):
+        if pre in empty:
+            continue
+        suf = np.full(300, 7) if pre == 5 else \
+            np.sort(rng.integers(0, 20, int(rng.integers(1, 400))))
+        parts.append((np.int64(pre) << 30) | suf.astype(np.int64))
+    keys = np.concatenate(parts)
+    starts = np.searchsorted(keys >> 30, np.arange(n_prefix), side="left")
+    table = np.concatenate([starts, [len(keys)]]).astype(np.int32)
+    steps = int(np.ceil(np.log2(np.diff(table).max() + 1)))
+    return keys, table, steps
+
+
+def _kq_probes(rng, keys, n_prefix: int = 64, extra: int = 3000):
+    """Every key, then random probes of every bucket (empty ones too) with
+    suffixes 0..24 (mostly absent)."""
+    pre = rng.integers(0, n_prefix, extra).astype(np.int64)
+    return np.concatenate([keys, (pre << 30) | rng.integers(0, 25, extra)])
+
+
+def test_equal_range_equals_plain_and_searchsorted_on_gpu(gpu):
+    """KQ against its plain version at every ``steps`` from 1 to two past
+    the converging depth (a bucket wider than 2^steps runs the JAX loop's
+    two searches), and against two ``torch.searchsorted`` calls where the
+    depth converges: a synthetic table (runs that end at a bucket's last
+    row, empty buckets, a 300-key run), tests/test_seed.py's texts at k =
+    20 and 8 (no buckets) and the poly-A text (k = 10)."""
+    from asgart_tpu_torch import seed
+    from asgart_tpu_torch.index import GenomeIndex
+    from asgart_tpu_torch.kernels.seed import equal_range_plain
+    from asgart_tpu_torch.pipeline import _pack_probe_kmers, probe_positions
+    from util import random_dna
+
+    rng = np.random.default_rng(53)
+    keys, table, depth = _kq_table(rng)
+    cases = [(torch.from_numpy(keys).to(gpu), torch.from_numpy(table).to(gpu),
+              torch.from_numpy(_kq_probes(rng, keys)).to(gpu), depth, 0)]
+    texts = [(random_dna(np.random.default_rng(0), 3000, b"ACGTN") + b"$",
+              20),
+             (random_dna(np.random.default_rng(2), 2000, b"ACGTN") + b"$", 8),
+             (b"A" * 500 + random_dna(rng, 1000, b"AC") + b"A" * 300 + b"$",
+              10)]
+    for text, k in texts:
+        arr = np.frombuffer(text, dtype=np.uint8)
+        dsi = seed.DeviceSeedIndex(GenomeIndex.build(arr, k), gpu)
+        is_ = probe_positions(arr[:-1], k)
+        codes = np.zeros(len(arr) + k, dtype=np.uint8)
+        codes[:len(arr) - 1] = CODE[arr[:-1]]
+        pk = np.concatenate([_pack_probe_kmers(codes, is_, k),
+                             rng.integers(0, 1 << (3 * k), 500)])
+        cases.append((dsi.keys, dsi.bucket_starts,
+                      torch.from_numpy(pk).to(gpu), dsi.steps,
+                      dsi.prefix_shift))
+    assert cases[2][4] < 0  # k = 8: no buckets
+    for keys_t, table_t, probes, depth, shift in cases:
+        library = (torch.searchsorted(keys_t, probes, side="left"),
+                   torch.searchsorted(keys_t, probes, side="right"))
+        for steps in range(1, depth + 3):
+            args = (keys_t, table_t, probes, steps, shift)
+            got = seed.equal_range(*args)
+            _equal(got, equal_range_plain(*args))
+            if steps >= depth:
+                _equal(got, library)
+
+
+@pytest.mark.parametrize("extra", [1, 2, 3])
+@pytest.mark.parametrize("base", [4096, 132 * 32 * 256])
+def test_equal_range_tails_on_gpu(gpu, base, extra):
+    """KQ on 1, 2 and 3 probes past a multiple of its block (256 threads,
+    one probe each) and past its grid's stride (132 x 32 blocks, whose
+    threads then take a second probe)."""
+    from asgart_tpu_torch import seed
+    from asgart_tpu_torch.kernels.seed import equal_range_plain
+
+    rng = np.random.default_rng(59 + extra)
+    keys, table, depth = _kq_table(rng)
+    pk = _kq_probes(rng, keys, extra=max(base + extra - len(keys), 0))
+    probes = torch.from_numpy(pk[: base + extra]).to(gpu)
+    args = (torch.from_numpy(keys).to(gpu), torch.from_numpy(table).to(gpu),
+            probes, depth, 0)
+    _equal(seed.equal_range(*args), equal_range_plain(*args))
+
+
+@pytest.mark.parametrize("bad", ["negative probe", "prefix past the table",
+                                 "bound below 0", "bound past N",
+                                 "bounds crossed"])
+def test_equal_range_outside_raises_on_gpu(gpu, bad):
+    """KQ's check in the kernel: a probe that is negative or whose prefix
+    lies past the bucket table, or a bucket bound outside 0 <= lo0 <= hi0
+    <= N that a probe reads, raises ``ValueError``; the next call, whose
+    flag is zeroed with its launch, returns its plain version's outputs."""
+    from asgart_tpu_torch import seed
+    from asgart_tpu_torch.kernels.seed import equal_range_plain
+
+    rng = np.random.default_rng(61)
+    keys, table, depth = _kq_table(rng)
+    pk = _kq_probes(rng, keys)
+    args = [torch.from_numpy(keys).to(gpu), torch.from_numpy(table).to(gpu),
+            torch.from_numpy(pk).to(gpu), depth, 0]
+    bad_table, bad_pk = table.copy(), pk.copy()
+    at = len(pk) // 2
+    if bad == "negative probe":
+        bad_pk[at] = -1
+    elif bad == "prefix past the table":
+        bad_pk[at] = np.int64(len(table) - 1) << 30
+    else:
+        bucket = 9
+        bad_pk[at] = np.int64(bucket) << 30
+        bad_table[bucket + {"bound below 0": 0, "bound past N": 1,
+                            "bounds crossed": 0}[bad]] = \
+            {"bound below 0": -1, "bound past N": len(keys) + 1,
+             "bounds crossed": table[bucket + 1] + 1}[bad]
+    with pytest.raises(ValueError, match="outside its array"):
+        seed.equal_range(args[0], torch.from_numpy(bad_table).to(gpu),
+                         torch.from_numpy(bad_pk).to(gpu), depth, 0)
+    _equal(seed.equal_range(*args), equal_range_plain(*args))
+
+
+# (keys, probes, steps, (key reads, JAX-loop probes)), no buckets: 0..7
+# and probes 3 (a descent of 3 reads, then one read past its run) and 100
+# (3 reads, past the end); eight 5s (4 reads down to row 0, then
+# run_end's gallop to rows 1, 2, 4 and its bisection at 6 and 7); at
+# steps 1 the 8-row interval is 2^1 rows or wider, so both probes take the
+# JAX loop's two searches, a halving each
+KQ_READS = {
+    "descent and one gallop read": (list(range(8)), [3, 100], 10, (7, 0)),
+    "a run to the end": ([5] * 8, [5], 10, (9, 0)),
+    "the JAX loop": (list(range(8)), [3, 100], 1, (4, 2)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(KQ_READS))
+def test_equal_range_reads_exact_on_gpu(gpu, case):
+    """KQ's counting instance counts the keys the kernel reads, worked
+    out by hand, and returns its plain version's outputs."""
+    from asgart_tpu_torch.kernels.seed import (equal_range_plain,
+                                               equal_range_reads,
+                                               launch_equal_range)
+
+    keys, probes, steps, want = KQ_READS[case]
+    args = (torch.tensor(keys, dtype=torch.int64, device=gpu),
+            torch.zeros(0, dtype=torch.int32, device=gpu),
+            torch.tensor(probes, dtype=torch.int64, device=gpu), steps, -1)
+    assert equal_range_reads(*args) == want
+    counts = torch.zeros(2, dtype=torch.int64, device=gpu)
+    lo, hi, bad = launch_equal_range(*args, counts=counts)
+    assert bad.item() == 0 and tuple(counts.tolist()) == want
+    _equal((lo, hi), equal_range_plain(*args))
+
+
+def test_equal_range_reads_on_gpu(gpu):
+    """On the synthetic table at every ``steps`` from 1 to the converging
+    depth: the probes counted as taking the JAX loop are those whose
+    bucket is 2^steps rows or wider; at steps 1 each of them makes one
+    halving a search and a one-row bucket's probe one read, and at the
+    depth the probes of non-empty buckets read at least one key each and
+    at most 2 x depth + 1 each on average."""
+    from asgart_tpu_torch.kernels.seed import equal_range_reads
+
+    rng = np.random.default_rng(67)
+    keys, table, depth = _kq_table(rng)
+    pk = _kq_probes(rng, keys)
+    width = np.diff(table.astype(np.int64))[pk >> 30]
+    args = [torch.from_numpy(keys).to(gpu), torch.from_numpy(table).to(gpu),
+            torch.from_numpy(pk).to(gpu), 0, 0]
+    for steps in range(1, depth + 1):
+        args[3] = steps
+        reads, jax_loop = equal_range_reads(*args)
+        assert jax_loop == int((width >= 1 << steps).sum())
+        if steps == 1:
+            assert reads == 2 * jax_loop + int((width == 1).sum())
+    live = int((width > 0).sum())
+    assert jax_loop == 0 and live <= reads <= (2 * depth + 1) * live
 
 
 @pytest.mark.parametrize("form", ["rows", "planar"])

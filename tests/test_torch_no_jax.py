@@ -136,8 +136,8 @@ def test_wrappers_take_kernel_path_for_gpu_tensors(monkeypatch):
                                           gather_ranges, granule_totals,
                                           group_bounds,
                                           invert_fused, mj_ranges,
-                                          offset_slots, pack_keys,
-                                          pack_probe_planes, scan_core,
+                                          pack_keys, pack_probe_planes,
+                                          scan_core,
                                           tie_keys, tie_refine, unpack_codes)
 
     def mod(name):  # the module, not the wrapper of the same name
@@ -157,13 +157,13 @@ def test_wrappers_take_kernel_path_for_gpu_tensors(monkeypatch):
                     ("scan_core", "scan_core_plain"),
                     ("ties", "tie_keys_plain"),
                     ("ties", "tie_refine_plain"),
-                    ("window", "offset_slots_plain"),
                     ("merge_join", "mj_ranges_plain"),
                     ("codes", "unpack_codes_plain"),
                     ("chain", "chain_bursts_plain"),
                     ("slices", "granule_totals_plain"),
                     ("slices", "gather_flat_plain"),
                     ("seed", "equal_range_plain"),
+                    ("seed", "_buckets_inside"),  # KQ checks on the card
                     ("seed", "gather_ranges_plain"),
                     ("seed", "pack_probe_planes_plain"),
                     ("sharded", "gather_owned_plain")):
@@ -183,8 +183,6 @@ def test_wrappers_take_kernel_path_for_gpu_tensors(monkeypatch):
     with pytest.raises(RuntimeError, match="kernel library"):
         mj_ranges(torch.arange(8, dtype=i64), torch.arange(4, dtype=i64),
                   torch.ones(4, dtype=torch.bool), [0, 4])
-    with pytest.raises(RuntimeError, match="kernel library"):
-        offset_slots(torch.arange(8, dtype=i32), 5)
     with pytest.raises(RuntimeError, match="kernel library"):
         group_bounds([torch.arange(8, dtype=i64)],
                      torch.arange(8, dtype=i32), 4)
@@ -229,6 +227,10 @@ def test_wrappers_take_kernel_path_for_gpu_tensors(monkeypatch):
     with pytest.raises(RuntimeError, match="kernel library"):
         equal_range(torch.arange(8, dtype=i64), torch.zeros(0, dtype=i32),
                     torch.tensor([3]), 4, -1)
+    with pytest.raises(RuntimeError, match="kernel library"):
+        mod("seed").equal_range_reads(torch.arange(8, dtype=i64),
+                                      torch.zeros(0, dtype=i32),
+                                      torch.tensor([3]), 4, -1)
     with pytest.raises(RuntimeError, match="kernel library"):
         gather_ranges(torch.arange(6, dtype=i32), torch.arange(6, dtype=i32),
                       torch.tensor([5, 0]))

@@ -26,7 +26,7 @@ from asgart_tpu_torch.pipeline import plan_shards, search_duplications
 from asgart_tpu_torch.structs import RunSettings
 
 from torch_jax_ref import (TRANSFORMS, jax_settings, json_text,
-                           masked_multifasta)
+                           masked_multifasta, specs_for)
 from torch_jax_ref import (one_port_test_at_a_time,  # noqa: F401
                            one_torch_thread)  # (autouse)
 from util import plant_duplication, revcomp, write_fasta
@@ -95,6 +95,38 @@ def test_trim_json_equals_jax_transforms(tmp_path, monkeypatch, reverse,
     assert port == _jax_host(fa, s)
     assert port == _jax_fused_window(fa, s, monkeypatch)
     assert _sds(port) >= 1
+
+
+@pytest.mark.parametrize("k", [20, 25])
+def test_fused_engine_on_jax_window_index(tmp_path, monkeypatch, k):
+    """A JAX window ``FusedIndex`` (its ``sa`` in genome positions),
+    carried across by ``convert.fused_index_from_numpy(..., trim=)``, which
+    takes the window start off every slot, drives the port's
+    ``FusedEngine`` to the JAX ``engine="tpu"`` JSON (its fused window
+    engine)."""
+    from asgart_tpu.device_index import FusedIndex as JaxFusedIndex
+    from asgart_tpu_torch.convert import fused_index_from_numpy
+    from asgart_tpu_torch.device_engine import FusedEngine
+    from asgart_tpu_torch.fasta import prepare_data
+    from asgart_tpu_torch.pipeline import _finalize_result, _protosds
+
+    fa = _genome(tmp_path)
+    s = RunSettings(reverse=True, complement=True, probe_size=k,
+                    trim=(5000, 70000))
+    trim, chunks, strand = prepare_data([fa], s.skip_masked, s.trim)
+    ref = JaxFusedIndex.build(strand.data, k, specs=specs_for(chunks, s),
+                              reverse=True, complement=True, trim=trim)
+    idx = fused_index_from_numpy(
+        np.asarray(ref.sa), np.asarray(ref.lane_lo), np.asarray(ref.lane_hi),
+        np.asarray(ref.lane_mask), ref.specs, ref.offs, ref.k, ref.n,
+        ref.first_len, ref.reverse, ref.complement, CPU, trim=ref.trim)
+    assert np.array_equal(idx.sa.numpy(), np.asarray(ref.sa) - trim[0])
+    eng = FusedEngine(strand, s, CPU, index=idx, trim=trim)
+    assert eng.m_offset == trim[0]
+    port = json_text(_finalize_result(
+        _protosds(eng.run_chunks(chunks), chunks, s), strand, s))
+    assert port == _jax_fused_window(fa, s, monkeypatch)
+    assert _sds(port) == 1
 
 
 @pytest.mark.parametrize("skip_masked", [False, True])

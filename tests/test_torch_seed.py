@@ -251,6 +251,67 @@ def test_empty_inputs_and_bounds():
                          torch.tensor([5]), 4, 0)
 
 
+# (bucket table, probes, raises): keys 0..9, prefix_shift 0 (bucket p >>
+# 30); the table's entries read by no probe are not checked
+KQ_BOUNDS = {
+    "negative probe": ([0, 4, 10], [3, -1], True),
+    "prefix past the table": ([0, 4, 10], [3, 2 << 30], True),
+    "prefix at the table's end": ([0, 4, 10], [3, (1 << 30) + 5], False),
+    "bound below 0": ([-1, 4, 10], [3], True),
+    "bound past N": ([0, 4, 11], [(1 << 30) + 5], True),
+    "bounds crossed": ([0, 5, 4, 10], [(1 << 30) + 1], True),
+    "unread bad bound": ([0, 4, 10, 99], [3, (1 << 30) + 5], False),
+    "unread crossed bounds": ([0, 5, 4, 10], [3, (2 << 30) + 9], False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(KQ_BOUNDS))
+def test_equal_range_bounds_on_cpu(case):
+    """KQ's check on the CPU path, per probe as the kernel makes it on the
+    card: a probe that is negative, whose prefix lies past the bucket
+    table, or whose bucket's bounds do not satisfy 0 <= lo0 <= hi0 <= N
+    raises ``ValueError``; bounds no probe reads are not checked, and the
+    probes that pass get the JAX result."""
+    table, probes, raises = KQ_BOUNDS[case]
+    keys = torch.arange(10, dtype=torch.int64)
+    buckets = torch.tensor(table, dtype=torch.int32)
+    pk = torch.tensor(probes, dtype=torch.int64)
+    if raises:
+        with pytest.raises(ValueError, match="outside its array"):
+            seed.equal_range(keys, buckets, pk, 4, 0)
+        return
+    got = seed.equal_range(keys, buckets, pk, 4, 0)
+    jkeys = np.arange(10, dtype=np.int64)
+    want = jseed.equal_range(
+        *(jnp.asarray(a) for a in seed.split_planes(jkeys)),
+        jnp.asarray(np.array(table, dtype=np.int32)),
+        *(jnp.asarray(a) for a in seed.split_planes(np.array(probes))),
+        steps=4, prefix_shift=0)
+    for a, b in zip(got, want):
+        assert np.array_equal(a.numpy(), np.asarray(b))
+
+
+def test_equal_range_without_buckets_checks_nothing():
+    """Without buckets (prefix_shift < 0) every probe searches all N rows:
+    a negative probe reads no table and gets an empty range at 0, as the
+    JAX loop gives it."""
+    keys = torch.arange(10, dtype=torch.int64)
+    lo, hi = seed.equal_range(keys, torch.zeros(0, dtype=torch.int32),
+                              torch.tensor([-5, 3, 10]), 4, -1)
+    assert lo.tolist() == [0, 3, 10] and hi.tolist() == [0, 4, 10]
+
+
+def test_equal_range_reads_needs_the_card():
+    """KQ counts its key reads in the kernel: on CPU tensors there is no
+    count to read, so ``equal_range_reads`` raises."""
+    from asgart_tpu_torch.kernels.seed import equal_range_reads
+
+    with pytest.raises(ValueError, match="on the card only"):
+        equal_range_reads(torch.arange(10, dtype=torch.int64),
+                          torch.zeros(0, dtype=torch.int32),
+                          torch.tensor([3]), 4, -1)
+
+
 @pytest.mark.parametrize("form", ["rows", "planar"])
 @pytest.mark.parametrize("bad", [-1, -(1 << 40), 6, 1 << 40])
 def test_gather_ranges_outside_raises_on_cpu(form, bad):

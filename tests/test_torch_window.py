@@ -1,20 +1,26 @@
 """The trim-window fused build against the JAX one: KA's window mode
-(plain version) against ``_window_codes`` + the JAX key planes, KG
-``offset_slots`` against ``sa + ws``, and the whole window build (sa,
-lane windows, lane mask, per-chunk totals) against JAX
-``FusedIndex.build(trim=...)``, at k = 8, 20 and 25, for the four
+(plain version) against ``_window_codes`` + the JAX key planes, and the
+whole window build (sa, lane windows, lane mask, per-chunk totals) against
+JAX ``FusedIndex.build(trim=...)``, at k = 8, 20 and 25, for the four
 transforms, with windows at the genome's start, in its middle, at its end,
 and across an N run and a fragment boundary, and on the tied vocabulary.
-Exact (integers; tolerance 0)."""
+The port's window ``sa`` keeps window positions: it is the JAX ``sa``
+minus the window start, every slot. KD over it with the rebased filter
+constants (``device_engine.rebased_bases``) against the JAX
+``_scan_core`` over the JAX ``sa`` with the fused ones: the same events,
+the matches shifted by the window start. Exact (integers; tolerance
+0)."""
 
 import jax  # noqa: F401  (JAX on the CPU, tests/conftest.py)
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from asgart_tpu_torch.device_engine import rebased_bases
 from asgart_tpu_torch.fused_index import FusedIndex
 from asgart_tpu_torch.index import CODE
-from asgart_tpu_torch.kernels import offset_slots, pack_keys
+from asgart_tpu_torch.kernels import pack_keys, scan_core
 from asgart_tpu_torch.kernels.pack_keys import key_words
 from asgart_tpu_torch.structs import RunSettings
 
@@ -23,6 +29,7 @@ from torch_jax_ref import (TRANSFORMS, chunked_genome, fused_key,
                            prepared, specs_for, vocab_genome)
 from torch_jax_ref import (one_port_test_at_a_time,  # noqa: F401
                            one_torch_thread)  # (autouse)
+from util import revcomp
 
 CPU = torch.device("cpu")
 
@@ -38,8 +45,23 @@ WINDOWS = {
 }
 
 
+def _repeats_genome() -> bytes:
+    """The chunked genome with a 120 bp unit at 2000, 20500, 25000 and
+    50000, and its reverse complement at 8000 and 55000: matches of every
+    transform inside each KD case's window, beside the planted -RC pair
+    (3000 -> 40000)."""
+    g = bytearray(chunked_genome())
+    unit = bytes(g[20500:20620])
+    for p in (2000, 25000, 50000):
+        g[p:p + 120] = unit
+    for p in (8000, 55000):
+        g[p:p + 120] = revcomp(unit)
+    return bytes(g)
+
+
 def _records(genome):
     return {"chunked": lambda: [("chr1", chunked_genome())],
+            "repeats": lambda: [("chr1", _repeats_genome())],
             "multifasta": masked_multifasta,
             "vocab": lambda: [("chr1", vocab_genome())]}[genome]()
 
@@ -89,27 +111,22 @@ def test_pack_keys_whole_genome_is_window_zero(tmp_path):
         pack_keys(codes, specs, 20, True, True, n1, ref["total"], ws=1)
 
 
-def test_offset_slots_plain():
-    rng = np.random.default_rng(8)
-    sa = rng.integers(0, 2**30, 1001).astype(np.int32)
-    t = torch.from_numpy(sa.copy())
-    assert offset_slots(t, 12345) is t
-    assert np.array_equal(t.numpy(), sa + 12345)
-    with pytest.raises(ValueError):
-        offset_slots(t.to(torch.int64), 1)
-    with pytest.raises(ValueError):
-        offset_slots(t, -1)
-
-
-def _assert_build_equal(strand, specs, k, reverse, complement, trim):
+def _builds(strand, specs, k, reverse, complement, trim):
+    """(port build, JAX build) of the window ``trim``."""
     from asgart_tpu.device_index import FusedIndex as JaxFusedIndex
 
     ref = JaxFusedIndex.build(strand.data, k, specs=specs, reverse=reverse,
                               complement=complement, trim=trim)
     got = FusedIndex.build(strand.data, k, specs, reverse, complement, CPU,
                            trim=trim)
+    return got, ref
+
+
+def _assert_build_equal(strand, specs, k, reverse, complement, trim):
+    got, ref = _builds(strand, specs, k, reverse, complement, trim)
     assert got.trim == ref.trim == tuple(trim)
-    assert np.array_equal(got.sa.numpy(), np.asarray(ref.sa))
+    # window positions: the JAX sa less ws in every slot, probe slots too
+    assert np.array_equal(got.sa.numpy(), np.asarray(ref.sa) - trim[0])
     assert np.array_equal(got.lane_lo.numpy(), np.asarray(ref.lane_lo))
     assert np.array_equal(got.lane_hi.numpy(), np.asarray(ref.lane_hi))
     assert np.array_equal(got.lane_mask.numpy(), np.asarray(ref.lane_mask))
@@ -122,14 +139,14 @@ def _assert_build_equal(strand, specs, k, reverse, complement, trim):
 def test_window_build_equals_jax_transforms(tmp_path, reverse, complement,
                                             k):
     """The middle window for every transform: its suffix order holds
-    genome positions (KG) and only positions inside the window."""
+    window positions, each of [0, W) once."""
     genome, trim = WINDOWS["middle"]
     strand, specs = _setup(tmp_path, genome, k, reverse, complement)
     got = _assert_build_equal(strand, specs, k, reverse, complement, trim)
     W = trim[1] - trim[0] + 1
     sa = got.sa.numpy()
-    direct = np.sort(sa[sa < trim[0] + W])  # probe slots hold ws + W + lane
-    assert np.array_equal(direct, np.arange(trim[0], trim[1] + 1))
+    direct = np.sort(sa[sa < W])  # probe slots hold W + lane
+    assert np.array_equal(direct, np.arange(W))
 
 
 @pytest.mark.parametrize("window", ["start", "end", "n_run", "fragments"])
@@ -149,6 +166,66 @@ def test_window_build_equals_jax_tied_vocabulary(tmp_path, k, reverse,
     strand, specs = _setup(tmp_path, "vocab", k, reverse, complement)
     _assert_build_equal(strand, specs, k, reverse, complement,
                         (15000, 60000))
+
+
+def _jax_window_scan(ref, off, nc, cs, cl, max_card, k, reverse):
+    """The JAX ``_scan_core`` of one chunk over the JAX window index (genome
+    positions, the fused constants), as its ``FusedEngine`` runs it:
+    (events, matches, z_trail)."""
+    from asgart_tpu.device_engine import _bucket, _scan_core
+
+    b_pad = _bucket(nc)
+    lanes = slice(off, off + b_pad)
+    ev, m, sc = _scan_core(
+        ref.lane_lo[lanes], ref.lane_hi[lanes], ref.lane_mask[lanes],
+        ref.sa, jnp.int32(cs), jnp.int32(cl), jnp.int32((1 << 31) - 1),
+        jnp.int32(max_card), jnp.int32(0), k=k, reverse=reverse,
+        b_pad=b_pad, cap=1 << 20, ev_cap=b_pad)
+    n_events, total_kept, z_trail, overflow = (int(v) for v in
+                                               np.asarray(sc))
+    assert not overflow
+    return (np.asarray(ev)[:, :n_events], np.asarray(m)[:total_kept],
+            z_trail)
+
+
+# (genome, window, k, reverse, complement)
+KD_CASES = ([("repeats", WINDOWS["middle"][1], k, r, c)
+             for k in (8, 20, 25) for r, c in TRANSFORMS]
+            + [("repeats", WINDOWS[w][1], k, True, True)
+               for w in ("start", "end") for k in (8, 20, 25)]
+            + [("vocab", (15000, 60000), 20, False, False),
+               ("vocab", (15000, 60000), 25, False, False)])
+
+
+@pytest.mark.parametrize("genome,trim,k,reverse,complement", KD_CASES)
+def test_window_scan_rebased_equals_jax(tmp_path, genome, trim, k, reverse,
+                                        complement):
+    """KD (plain version) over the port's window-relative ``sa`` with
+    ``rebased_bases`` against the JAX ``_scan_core`` over its genome-position
+    ``sa`` with the fused constants, every chunk: events, matches + ws,
+    n_events, total_kept and z_trail equal."""
+    strand, specs = _setup(tmp_path, genome, k, reverse, complement)
+    got, ref = _builds(strand, specs, k, reverse, complement, trim)
+    ws, we = trim
+    max_card = RunSettings().max_cardinality
+    n_events = 0
+    for (cs, cl, nc) in specs:
+        off = ref.offs[(cs, cl)][0]
+        want = _jax_window_scan(ref, off, nc, cs, cl, max_card, k, reverse)
+        lanes = slice(off, off + nc)
+        res = scan_core(got.lane_lo[lanes], got.lane_hi[lanes],
+                        got.lane_mask[lanes], got.sa,
+                        *rebased_bases(cs, cl, ws, we - ws + 1), max_card,
+                        0, k, reverse)
+        ev, m, z_trail = res.to_host()
+        assert (res.n_events, res.total_kept) == (want[0].shape[1],
+                                                  len(want[1]))
+        assert np.array_equal(ev, want[0])
+        assert np.array_equal(m.astype(np.int64) + ws, want[1])
+        assert z_trail == want[2]
+        n_events += res.n_events
+    if reverse == complement:
+        assert n_events > 0
 
 
 def test_window_build_refuses_bad_trim(tmp_path):
