@@ -48,19 +48,24 @@ SIGNATURES = {
     "asgart_tie_keys": [_P, _P, _P, _I64, _I64, _I64, _P, _P, _P],
     # skey, order, slots, ps, n, sa, rank, p_sorted, rs, still, stream
     "asgart_tie_refine": [_P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P],
-    # sa, run_lo, run_hi, lane_mask, M, W, lane_off [n_chunks + 1],
-    # n_chunks, rank, lane_lo, lane_hi, totals, stream
-    "asgart_invert_fused": [_P, _P, _P, _P, _I64, _I64, _P, _I32, _P, _P,
-                            _P, _P, _P],
+    # sa, run_lo, run_hi, lane_mask, M, W, lane_off [n_chunks + 1] (on
+    # the host, passed by value, or on the card when cap is 0), n_chunks,
+    # cap, cursor, n_coarse, n_tiles, d1, l1, h1 (None: no probe rows),
+    # h1_first, d2, l2, h2, h2_first, rank, lane_lo, lane_hi, totals,
+    # stream
+    "asgart_invert_fused": [_P, _P, _P, _P, _I64, _I64, _P, _I32, _I32, _P,
+                            _I32, _I32, _P, _P, _P, _I64, _P, _P, _P, _I64,
+                            _P, _P, _P, _P, _P],
     # lane_lo, lane_hi, lane_mask, sa, n_lanes, self_base, dir_base,
-    # rev_t0, max_cardinality, j0, k, reverse, max_match_pos, flags, stream
+    # rev_t0, max_cardinality, j0, k, reverse, max_match_pos, n_blocks,
+    # code, sums, tot, stream
     "asgart_scan_count": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32,
-                          _I64, _I32, _I32, _I64, _P, _P],
-    # ... the same inputs, flags, cums [3, n_lanes], n_events, ev_pack,
+                          _I64, _I32, _I32, _I64, _I64, _P, _P, _P, _P],
+    # ... the same inputs, n_blocks, code, sums, tot, n_events, ev_pack,
     # m_flat, z_trail, a_evt, stream
     "asgart_scan_emit": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32,
-                         _I64, _I32, _I32, _I64, _P, _P, _I64, _P, _P, _P,
-                         _P, _P],
+                         _I64, _I32, _I32, _I64, _I64, _P, _P, _P, _I64, _P,
+                         _P, _P, _P, _P],
     # skey, W, pkey, lane_mask, total, lane_off [n_chunks + 1], n_chunks,
     # lane_lo, lane_hi, totals, stream
     "asgart_mj_ranges": [_P, _I64, _P, _P, _I64, _P, _I32, _P, _P, _P, _P],

@@ -1,6 +1,7 @@
 """KD ``scan_core``: match filters and event compaction for one chunk.
 
-Kernel: ``csrc/scan_core.cu`` (three launches around one ``torch.cumsum``).
+Kernel: ``csrc/scan_core.cu`` (count and block sums, then one read of the
+totals by the host, then emit and finish; its scratch is :func:`kd_plan`).
 ``scan_core_plain`` is the same function in plain PyTorch. The match
 filters take three constants: :func:`fused_bases` for a suffix order of
 genome positions (the fused engine), or the merge-join engine's
@@ -11,6 +12,7 @@ window-relative constants
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
 
@@ -19,6 +21,9 @@ from . import _build
 # the fused engine's match-position cutoff (device_engine.py:1846):
 # neutral, as the JAX big-window engine's W + 1 (:2696) is for its m < W
 MAX_MATCH_POS = 2**31 - 1
+# lanes per block of KD's count and emit launches (csrc/scan_core.cu
+# kScanThreads; the launch refuses another block count)
+KD_BLOCK_LANES = 1024
 
 
 @dataclass
@@ -44,6 +49,25 @@ def fused_bases(chunk_start: int, chunk_len: int) -> tuple[int, int, int]:
     suffix order of genome positions, as ``_scan_core`` passes them
     (asgart_tpu/device_engine.py:366-368)."""
     return 0, chunk_start, chunk_start + chunk_len
+
+
+class KdPlan(NamedTuple):
+    """KD's scratch, one int64 buffer of ``words``: first the block sums
+    [3, blocks], the three totals at ``tot_at``, then the lanes' int32 codes
+    from int64 word ``code_at``."""
+
+    blocks: int
+    tot_at: int
+    code_at: int
+    words: int
+
+
+def kd_plan(n: int) -> KdPlan:
+    """The scratch of one KD launch over ``n`` lanes."""
+    blocks = -(-n // KD_BLOCK_LANES)
+    tot_at = 3 * blocks
+    code_at = tot_at + 3
+    return KdPlan(blocks, tot_at, code_at, code_at + -(-n // 2))
 
 
 def scan_core(lane_lo: torch.Tensor, lane_hi: torch.Tensor,
@@ -77,18 +101,21 @@ def scan_core(lane_lo: torch.Tensor, lane_hi: torch.Tensor,
     stream = _build.stream_of(sa)
     ptrs = (lane_lo.data_ptr(), lane_hi.data_ptr(), lane_mask.data_ptr(),
             sa.data_ptr(), n)
-    flags = torch.empty((3, n), dtype=torch.int32, device=dev)
+    plan = kd_plan(n)
+    work = torch.empty(plan.words, dtype=torch.int64, device=dev)
+    wp = work.data_ptr()
+    bufs = (plan.blocks, wp + 8 * plan.code_at, wp, wp + 8 * plan.tot_at)
     scan_core.launches += 1
-    _build.check(lib.asgart_scan_count(*ptrs, *args, flags.data_ptr(),
-                                       stream), "scan_core(count)")
-    cums = torch.cumsum(flags, dim=1, dtype=torch.int64)
-    n_events, _, total_kept = cums[:, -1].tolist()
+    _build.check(lib.asgart_scan_count(*ptrs, *args, *bufs, stream),
+                 "scan_core(count)")
+    # the one read that sizing needs: n_events and total_kept
+    n_events, _, total_kept = work[plan.tot_at: plan.tot_at + 3].tolist()
     flat = torch.empty(3 * n_events + total_kept + 1, dtype=torch.int32,
                        device=dev)
     a_evt = torch.empty(max(n_events, 1), dtype=torch.int32, device=dev)
     fp = flat.data_ptr()
     _build.check(lib.asgart_scan_emit(
-        *ptrs, *args, flags.data_ptr(), cums.data_ptr(), n_events, fp,
+        *ptrs, *args, *bufs, n_events, fp,
         fp + 4 * 3 * n_events, fp + 4 * (3 * n_events + total_kept),
         a_evt.data_ptr(), stream), "scan_core(emit)")
     return ScanResult(flat, n_events, total_kept)

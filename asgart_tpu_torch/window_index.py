@@ -47,8 +47,8 @@ def window_arrays_from_codes(codes: torch.Tensor, k: int, W: int,
     - 1]`` plus its '$': the sorted keys and the WINDOW-RELATIVE suffix
     order (positions 0..W-1), as ``window_arrays_from_codes`` gives its
     (key_hi, key_lo) and ``sa``."""
-    (key,), _ = pack_keys(codes, (), k, False, False, W, 0, ws)
-    (skey,), sa = sort_keys([key])
+    keys, _ = pack_keys(codes, (), k, False, False, W, 0, ws)
+    (skey,), sa = sort_keys(keys)  # frees the unsorted key
     run_lo, run_hi, tied = group_bounds([skey], sa, W)
     rank, _, _, _ = invert_fused(
         sa, run_lo, run_hi, torch.zeros(0, dtype=torch.bool,

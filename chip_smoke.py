@@ -167,16 +167,19 @@
    from the first chunk's record, held to the whole path's host JSON; then
    :func:`nccl_shared_card` prints how NCCL treats two ranks on one card;
 10. prints a {"kernels": [...]} line (each kernel once per path, with the
-   path's name and k; each row's ``ms`` the wrapper's call; KP's, KQ's
-   and KR's rows, timed over ``FINE_REPS`` calls, also
-   ``kernel_alone_ms`` and ``library_alone_ms``, the launches alone
+   path's name and k; each row's ``ms`` the wrapper's call; KC's, KP's,
+   KQ's and KR's rows also ``kernel_alone_ms`` and ``library_alone_ms``
+   (null where no library call computes the function), the launches alone
    (:func:`kernel_ms`), and KQ's ``key_reads`` and ``jax_loop_probes``,
    counted by the kernel (``kernels.seed.equal_range_reads``);
    beside KP's rows ``merge_slices``' whole time is printed; KN's
    rows: its time, the plain time and the bound
    on the checked bursts, and beside them its chunk's events, bursts,
    native tests, one KN pass over the chunk and the host chain's time on
-   the chunk), the card again, and last {"ok": true, ...}.
+   the chunk); before each KD row, its masked windows' lengths by powers
+   of two (:func:`window_histogram`) and the CUDA kernels of one call with
+   their device times (:func:`kernel_profile`, ``torch.profiler``); the
+   card again, and last {"ok": true, ...}.
 
 Any failure raises before the last line; without CUDA it exits non-zero
 and prints no result. Nothing of JAX or of the JAX package is imported.
@@ -284,6 +287,62 @@ def kernel_ms(fn, reps: int = REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_profile(fn, sessions: int = 3) -> str:
+    """The CUDA kernels one call of ``fn`` runs, from ``torch.profiler``
+    (after one warm-up call): each kernel's name, launches and device
+    milliseconds, longest first. Late in this long process (after its
+    NCCL and gloo ranks) a session can lose some or all of the call's
+    kernels, CUDA-only sessions more often than sessions with CPU
+    activity too (PERF.md §7): the line is the session, of ``sessions``,
+    that recorded the most kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    best = []
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = []
+        for e in prof.key_averages():
+            us = getattr(e, "device_time_total", None)
+            if us is None:
+                us = getattr(e, "cuda_time_total", 0)
+            if us > 0 and getattr(e, "device_type", None) != \
+                    torch.autograd.DeviceType.CPU:
+                rows.append((us, e.key, e.count))
+        if len(rows) > len(best):
+            best = rows
+    if not best:
+        return "no device time recorded"
+    return "; ".join(f"{key[:60]} x{n} {us / 1e3:.4f} ms"
+                     for us, key, n in sorted(best, reverse=True))
+
+
+def window_histogram(lane_lo, lane_hi, lane_mask) -> str:
+    """The masked lanes' window lengths ``lane_hi - lane_lo`` by powers of
+    two: per bucket [2^(b-1), 2^b) (b = 0: empty windows), its lanes and
+    the sa reads it holds; then the longest window."""
+    import torch
+
+    L = torch.where(lane_mask, lane_hi - lane_lo, 0).to(torch.int64)
+    live = int(lane_mask.sum())
+    ge = [(int((L >= (1 << b)).sum()), int(torch.where(
+        L >= (1 << b), L, 0).sum())) for b in range(32)]
+    parts = [f"0: {live - ge[0][0]} lanes"]
+    for b in range(1, 32):
+        nxt = ge[b] if b < 31 else (0, 0)
+        lanes, reads = ge[b - 1][0] - nxt[0], ge[b - 1][1] - nxt[1]
+        if lanes:
+            parts.append(f"[{1 << (b - 1)}, {1 << b}): {lanes} lanes "
+                         f"{reads} reads")
+    return (f"{live} of {L.numel()} lanes masked in; " + ", ".join(parts)
+            + f"; longest {int(L.max()) if L.numel() else 0}")
+
+
 def max_abs_err(got, want) -> int:
     """Largest |got - want| over matching integer outputs, in slices of
     2^26 entries (no int64 copy of a genome-sized output); raises when the
@@ -330,7 +389,8 @@ def recorder(rows: list, path: str, k: int):
         k_alone = l_alone = ""
         if alone is not None:
             k_alone = f" (alone {alone[0]:.4f} ms)"
-            l_alone = f" (alone {alone[1]:.4f} ms)"
+            if alone[1] is not None:
+                l_alone = f" (alone {alone[1]:.4f} ms)"
         print(f"{tag} kernel {name}: max_abs_err={err} kernel {ms:.3f} ms"
               f"{k_alone}, plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms "
               f"({bound_by}: {nbytes:.0f} B, {ops:.0f} ops), library "
@@ -346,7 +406,7 @@ def recorder(rows: list, path: str, k: int):
         if alone is not None:
             rows[-1]["kernel_alone_ms"], rows[-1]["library_alone_ms"] = alone
 
-    record.rows = rows
+    record.rows, record.tag = rows, tag
     return record
 
 
@@ -592,6 +652,11 @@ def kd_check(record, settings, specs, lane_off, lane_lo, lane_hi, lane_mask,
     err = max_abs_err((got.flat,), (want.flat,))
     reads = int(torch.where(lane_mask[lanes], lane_hi[lanes] - lane_lo[lanes],
                             0).sum())  # the sa entries this data needs
+    tag = f"{record.tag} chunk ({cs}, {cl})"
+    print(f"{tag} KD window lengths: "
+          f"{window_histogram(*args[:3])}", flush=True)
+    print(f"{tag} KD profile of one scan_core call: {kernel_profile(kd)}",
+          flush=True)
     record("scan_core", "scan_core.cu", replaces or (
            "asgart_tpu/device_engine.py:249" if bases is None else
            "asgart_tpu/device_engine.py:665 (via :249)"), err, cuda_ms(kd),
@@ -819,8 +884,10 @@ def kernel_checks(fa: str, path: str, settings, device,
     rank, lane_lo, lane_hi, totals = kc()
     err = max_abs_err((rank, lane_lo, lane_hi, totals), pc())
     record("invert_fused", "invert.cu", "asgart_tpu/device_index.py:1519",
-           err, cuda_ms(kc), cuda_ms(pc), f"M={M}",
-           12 * M + total + 4 * W + 8 * total, 10 * M)
+           err, cuda_ms(kc, FINE_REPS), cuda_ms(pc), f"M={M}, {total} lanes "
+           f"in {len(lane_off) - 1} chunks",
+           12 * M + total + 4 * W + 8 * total, 10 * M,
+           alone=(kernel_ms(kc, FINE_REPS), None))
     del run_lo, run_hi
 
     sa = tie_checks(record, tag, sa, rank, tied, M, k, device)
@@ -926,8 +993,9 @@ def mj_kernel_checks(fa: str, path: str, settings, device, trim
     lib = torch.empty(W, dtype=torch.int32, device=device)
     lc = lambda: lib.index_put_((sa64,), run_lo)  # noqa: E731
     record("invert_fused", "invert.cu", "asgart_tpu/device_index.py:631",
-           err, cuda_ms(kc), cuda_ms(pc), f"W={W}, no lanes", 12 * W, W,
-           library_ms=cuda_ms(lc))
+           err, cuda_ms(kc, FINE_REPS), cuda_ms(pc), f"W={W}, no lanes",
+           12 * W, W, library_ms=cuda_ms(lc, FINE_REPS),
+           alone=(kernel_ms(kc, FINE_REPS), kernel_ms(lc, FINE_REPS)))
     if not torch.equal(lib, rank):
         raise AssertionError(f"index_put_ differs from KC on {tag}")
     del run_lo, run_hi, sa64, lib
@@ -2245,7 +2313,9 @@ def big_whole_checks(tag: str, strand, chunks, settings, window, src: int,
     lc = lambda: lib.index_put_((sa64,), run_lo)  # noqa: E731
     record("invert_fused", "invert.cu", "asgart_tpu/device_index.py:631",
            err, cuda_ms(kc), cuda_ms(pc), f"W={W}, no lanes", 12 * W, W,
-           library_ms=cuda_ms(lc))
+           library_ms=cuda_ms(lc), alone=(kernel_ms(kc), kernel_ms(lc)))
+    if not torch.equal(lib, rank):
+        raise AssertionError(f"index_put_ differs from KC on {tag}")
     del run_lo, run_hi, sa64, lib
     torch.cuda.empty_cache()
     sa = tie_checks(record, tag, sa, rank, tied, W, k, device)

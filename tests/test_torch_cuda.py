@@ -1522,3 +1522,159 @@ def test_gpu_ranks_mesh_and_journal_json_equal_one_device(tmp_path, gpu,
                                           for r in range(n_ranks)]
             assert all(r["profile"]["mesh"]["lanes"][0] > 0
                        for r in reports)
+
+
+def _kd_lanes(rng, n, N, long_frac=0.1, maxlen=100, mask_p=0.9):
+    """Seeded lane windows over an N-entry order: most 0-3 entries long,
+    ``long_frac`` of them up to ``maxlen``; ``mask_p`` of them masked in."""
+    L = rng.integers(0, 4, n)
+    longs = rng.random(n) < long_frac
+    L[longs] = rng.integers(0, maxlen, int(longs.sum()))
+    lo = rng.integers(0, np.maximum(N - L, 1))
+    hi = np.minimum(lo + L, N)
+    return (lo.astype(np.int32), hi.astype(np.int32), rng.random(n) < mask_p)
+
+
+def _kd_equal(gpu, lo, hi, mask, sa, consts, max_card, j0=0, k=20,
+              reverse=False):
+    """KD against its plain version on the same inputs (exact); returns
+    KD's result."""
+    from asgart_tpu_torch.kernels import scan_core
+    from asgart_tpu_torch.kernels.scan_core import scan_core_plain
+
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(gpu)
+         for a in (lo, hi, mask, sa)]
+    args = (*t, *consts, max_card, j0, k, reverse)
+    got, want = scan_core(*args), scan_core_plain(*args)
+    assert (got.n_events, got.total_kept) == (want.n_events,
+                                              want.total_kept)
+    _equal([got.flat], [want.flat])
+    return got
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 32, 33, 1023, 1024, 1025, 4097,
+                               132 * 32 * 256 + 1])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_scan_core_lane_counts_on_gpu(gpu, n, reverse):
+    """KD at lane counts around a warp, a block (1024 lanes) and past a
+    grid-stride loop's stride (132 x 32 blocks of 256), with short and long
+    windows (thread and warp walks), j0 > 0 and a max_cardinality that some
+    lanes pass; one launch a call (none for no lane)."""
+    from asgart_tpu_torch.kernels import launch_counts
+
+    rng = np.random.default_rng(n + reverse)
+    N = 200_000
+    lo, hi, mask = _kd_lanes(rng, n, N)
+    sa = rng.permutation(N).astype(np.int32)
+    before = launch_counts()["scan_core"]
+    _kd_equal(gpu, lo, hi, mask, sa, (0, 5000, 150_000), 8, j0=37,
+              reverse=reverse)
+    assert launch_counts()["scan_core"] == before + (n > 0)
+
+
+@pytest.mark.parametrize("case", ["all masked", "block boundary",
+                                  "max_card", "max_card + 1"])
+@pytest.mark.parametrize("length", [5, 31, 32, 33, 300])
+def test_scan_core_edges_on_gpu(gpu, case, length):
+    """KD with every lane masked out; with events only on both sides of a
+    block boundary (lanes 1023 and 1024, 2047 and 2048); and with windows
+    that keep exactly max_cardinality and max_cardinality + 1 matches (an
+    event, then a lane that is neither); each at a window length below, at
+    and past the warp walk's threshold (32)."""
+    n, N = 3000, 50_000
+    rng = np.random.default_rng(length)
+    sa = rng.permutation(N).astype(np.int32) + N  # every m > i + dir_base
+    lo = (np.arange(n) * 7 % (N - length)).astype(np.int32)
+    hi = lo + np.int32(length)
+    mask = np.ones(n, dtype=bool)
+    max_card = length
+    if case == "all masked":
+        mask[:] = False
+    elif case == "block boundary":
+        mask[:] = False
+        mask[[1023, 1024, 2047, 2048]] = True
+    elif case == "max_card + 1":
+        max_card = length - 1
+    res = _kd_equal(gpu, lo, hi, mask, sa, (0, 0, 0), max_card)
+    want_events = {"all masked": 0, "block boundary": 4, "max_card": n,
+                   "max_card + 1": 0}[case]
+    assert res.n_events == want_events
+
+
+@pytest.mark.parametrize("keep", [False, True])
+def test_scan_core_long_window_on_gpu(gpu, keep):
+    """One window of 10^6 entries among short ones: every match rejected
+    (dir_base above every m), or every match kept (dir_base below every i,
+    max_cardinality above 10^6): the warp walk's counts and its coalesced
+    writes in slot order."""
+    n, N = 3000, 1_200_000
+    rng = np.random.default_rng(keep)
+    lo, hi, mask = _kd_lanes(rng, n, N, long_frac=0.0)
+    lo[1234], hi[1234], mask[1234] = 100_000, 1_100_000, True
+    sa = rng.permutation(N).astype(np.int32)
+    dir_base = -(10 ** 7) if keep else 10 ** 8
+    res = _kd_equal(gpu, lo, hi, mask, sa, (-(10 ** 8), dir_base, 0),
+                    2_000_000)
+    assert (res.total_kept >= 10 ** 6) == keep
+
+
+def test_scan_core_rebased_and_gathered_on_gpu(gpu):
+    """KD with the merge-join engine's rebased constants on a
+    window-relative order, and on the buffer the rank-sharded engine
+    passes in place of sa (KT's gather of every window, with the CSR
+    windows): the same events and matches as over sa."""
+    from asgart_tpu_torch.device_engine import rebased_bases
+    from asgart_tpu_torch.kernels import gather_owned
+    from asgart_tpu_torch.kernels.sharded import csr_offsets
+
+    rng = np.random.default_rng(11)
+    W, n = 300_000, 20_000
+    lo, hi, mask = _kd_lanes(rng, n, W, long_frac=0.2, maxlen=80)
+    sa = rng.permutation(W).astype(np.int32)
+    consts = rebased_bases(40_000_000, 200_000, 39_900_000, W)
+    over_sa = _kd_equal(gpu, lo, hi, mask, sa, consts, 20, j0=5,
+                        reverse=True)
+    t = [torch.from_numpy(a).to(gpu) for a in (lo, hi, mask)]
+    off, total = csr_offsets(*t)
+    flat = gather_owned(*t, off, total, torch.from_numpy(sa).to(gpu), 0)
+    end = off + torch.where(t[2], t[1] - t[0], 0)
+    g = _kd_equal(gpu, off.to(torch.int32).cpu().numpy(),
+                  end.to(torch.int32).cpu().numpy(), mask,
+                  flat.cpu().numpy(), consts, 20, j0=5, reverse=True)
+    _equal([g.flat], [over_sa.flat])
+
+
+def _kc_equal(gpu, M, W, n_chunks, seed):
+    """KC against its plain version on a random permutation of M rows, W of
+    them direct, the M - W lanes cut into n_chunks chunks."""
+    from asgart_tpu_torch.kernels import invert_fused, launch_counts
+    from asgart_tpu_torch.kernels.invert import invert_fused_plain
+
+    rng = np.random.default_rng(seed)
+    total = M - W
+    sa = torch.from_numpy(rng.permutation(M).astype(np.int32)).to(gpu)
+    lo = torch.from_numpy(rng.integers(0, 1 << 30, M).astype(np.int32))
+    hi = lo + torch.from_numpy(rng.integers(0, 100, M).astype(np.int32))
+    mask = torch.from_numpy(rng.random(total) < 0.8).to(gpu)
+    cuts = sorted(rng.integers(0, total + 1, max(n_chunks - 1, 0)).tolist())
+    lane_off = [0] + cuts + [total] if n_chunks else [0]
+    args = (sa, lo.to(gpu), hi.to(gpu), mask, W, lane_off)
+    before = launch_counts()["invert_fused"]
+    got = invert_fused(*args)
+    _equal(got, invert_fused_plain(*args))
+    assert launch_counts()["invert_fused"] == before + (M > 0)
+
+
+@pytest.mark.parametrize("M,W,n_chunks", [
+    (1, 1, 0), (1, 0, 1), (5000, 0, 3), (5000, 5000, 0),
+    ((1 << 21) + 3, (1 << 21) + 3, 0), ((1 << 22) + 7, (1 << 21) + 5, 4),
+    ((1 << 21) + 100, 1 << 21, 2), (3 << 21, 3 << 20, 256),
+    (3 << 21, 3 << 20, 257), ((1 << 25) + 1, (1 << 25) - 999, 1),
+    (8193, 8192, 1), (3 * 8192 + 1, 8000, 3), (0, 0, 2)])
+def test_invert_fused_partition_on_gpu(gpu, M, W, n_chunks):
+    """KC's partitioned scatter against its plain version: one row, W = M
+    and W = 0; M off the bucket width (2^21) and off the tile width (2^13);
+    a bucket and a tile straddling W (their rows split between rank and
+    the lanes); chunk counts at the by-value capacity (256) and one past
+    it; 17 buckets; no row (zero totals, no launch)."""
+    _kc_equal(gpu, M, W, n_chunks, M + W + n_chunks)
