@@ -1,15 +1,24 @@
 // KC invert_fused: slot-indexed run bounds -> position-indexed rank and
-// lane-ordered probe windows, plus per-chunk raw-match totals.
+// lane-ordered probe windows, plus per-chunk raw-match totals; and its
+// table form, KJ invert_tables: the table engine's position tables.
 //
-// Replaces (JAX reference): asgart_tpu/device_index.py:1519 _invert_fused
-// (with _assemble_dec :447, _dec_of :441, _fused_lane_totals :1545), and
-// with no lanes :631 _invert_perm (the merge-join window's rank).
+// Replaces (JAX reference, asgart_tpu/):
+//   KC  device_index.py:1519 _invert_fused (with _assemble_dec :447,
+//       _dec_of :441, _fused_lane_totals :1545), and with no lanes :631
+//       _invert_perm (the merge-join window's rank).
+//   KJ  device_index.py:467 _invert_tables_dec (with _dec_of :441 and
+//       _assemble_dec :447): pos_lo[sa] = run_lo (the N-probe flag of the
+//       position, set by KB, in its sign bit), pos_hi[sa] = run_hi and the
+//       doubling loop's rank seed rank[sa] = run_lo & 0x7FFFFFFF.
 //
 // Every row of the sorted fused index has a unique destination: a direct
 // row (sa < W) writes rank[sa] = run_lo, a probe row writes
 // lane_lo/hi[sa - W] = run_lo/hi. The JAX package did this with one more
 // full sort (scatters were slow on the TPU) into a decimated layout; here
 // it is a permutation scatter, and rank stays in plain position layout.
+// The table form is the case W = 0 (every row a "probe" row, its position
+// the lane) with a third output, rank, written from the same tile as
+// pos_lo; it takes no lane mask and computes no totals.
 // The totals are exact int64 sums of (lane_hi - lane_lo) over masked
 // lanes per chunk (the JAX float32 sums are exact only below 2^24).
 //
@@ -36,11 +45,12 @@
 //   fill: one block a tile reads the tile's region in order, stores each
 //     row's values at its destination's place in shared memory, then
 //     writes the tile out whole (coalesced): rank for destinations below W,
-//     lane_lo / lane_hi for the rest (a tile that straddles W splits).
+//     lane_lo / lane_hi for the rest (a tile that straddles W splits), and
+//     in the table form the rank plane beside lane_lo.
 //     Every destination is written once (a permutation), so the result is
 //     deterministic although the order within a region is not.
-// 44 B a row of DRAM traffic (68 B for a probe row), all of it in order,
-// against the bound's 12 B (21 B).
+// 44 B a row of DRAM traffic (68 B for a probe row, 72 B in the table
+// form), all of it in order, against the bound's 12 B (21 B; 24 B).
 // The totals pass streams 9 B per lane: it
 // reduces a warp's lanes with shuffles when the warp lies inside one chunk
 // (the common case: chunks are contiguous lane ranges) and falls back to
@@ -210,11 +220,12 @@ invert_partition_kernel(Planes in, long long M, long long W, int shift,
 }
 
 // One block a tile of 2^kTile destinations: its region of the second
-// pass's planes into shared memory, then out in order.
+// pass's planes into shared memory, then out in order; lane_rank (the
+// table form's rank, null in KC's) beside lane_lo.
 __global__ void __launch_bounds__(kFillThreads)
 invert_fill_kernel(Planes in, long long M, long long W,
                    int* __restrict__ rank, int* __restrict__ lane_lo,
-                   int* __restrict__ lane_hi) {
+                   int* __restrict__ lane_hi, int* __restrict__ lane_rank) {
   extern __shared__ int smem[];
   int* t_lo = smem;
   int* t_hi = smem + (1 << kTile);
@@ -235,8 +246,10 @@ invert_fill_kernel(Planes in, long long M, long long W,
     if (d < W) {
       rank[d] = t_lo[p];
     } else {
-      lane_lo[d - W] = t_lo[p];
+      const int lo = t_lo[p];
+      lane_lo[d - W] = lo;
       lane_hi[d - W] = t_hi[p];
+      if (lane_rank) lane_rank[d - W] = lo & 0x7FFFFFFF;
     }
   }
 }
@@ -289,6 +302,66 @@ __global__ void lane_totals_table_kernel(
   lane_totals_body(lane_lo, lane_hi, lane_mask, lane_off, n_chunks, totals);
 }
 
+// The partitioned scatter of M rows (W direct) into rank [W], lane_lo and
+// lane_hi [M - W] and, in the table form, lane_rank [M - W] (else null):
+// scratch as in asgart_invert_fused.
+cudaError_t scatter(const void* sa, const void* run_lo, const void* run_hi,
+                    long long M, long long W, void* cursor, int n_coarse,
+                    int n_tiles, void* d1, void* l1, void* h1,
+                    long long h1_first, void* d2, void* l2, void* h2,
+                    long long h2_first, void* rank, void* lane_lo,
+                    void* lane_hi, void* lane_rank, cudaStream_t s) {
+  if (M <= 0) return cudaSuccess;
+  if (n_coarse != (M + (1LL << kCoarse) - 1) >> kCoarse ||
+      n_tiles != (M + (1LL << kTile) - 1) >> kTile ||
+      n_coarse > kMaxBuckets) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t rc;
+  const bool lanes = M > W;
+  static bool attr = false;
+  if (!attr) {
+    rc = cudaFuncSetAttribute(invert_partition_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)(sizeof(int) * (3 * kMaxBuckets +
+                                                   3 * kPartRows)));
+    if (rc != cudaSuccess) return rc;
+    rc = cudaFuncSetAttribute(invert_fill_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)(sizeof(int) << (kTile + 1)));
+    if (rc != cudaSuccess) return rc;
+    attr = true;
+  }
+  unsigned* cur = (unsigned*)cursor;
+  rc = cudaMemsetAsync(cur, 0, sizeof(unsigned) * (n_coarse + n_tiles), s);
+  if (rc != cudaSuccess) return rc;
+  const unsigned blocks = (unsigned)((M + kPartRows - 1) / kPartRows);
+  const size_t rows_smem = sizeof(int) * (2 + lanes) * (size_t)kPartRows;
+  const Planes in1{(const int*)sa, (const int*)run_lo, (const int*)run_hi,
+                   0};
+  const OutPlanes out1{(int*)d1, (int*)l1, lanes ? (int*)h1 : nullptr,
+                       h1_first};
+  invert_partition_kernel<<<blocks, kPartThreads,
+                            sizeof(int) * 3 * n_coarse + rows_smem, s>>>(
+      in1, M, W, kCoarse, 0, n_coarse, cur, out1);
+  rc = cudaGetLastError();
+  if (rc != cudaSuccess) return rc;
+  const Planes in2{(const int*)d1, (const int*)l1, out1.hi, h1_first};
+  const OutPlanes out2{(int*)d2, (int*)l2, lanes ? (int*)h2 : nullptr,
+                       h2_first};
+  const int per = 1 << (kCoarse - kTile);
+  invert_partition_kernel<<<blocks, kPartThreads,
+                            sizeof(int) * 3 * per + rows_smem, s>>>(
+      in2, M, W, kTile, 1, per, cur + n_coarse, out2);
+  rc = cudaGetLastError();
+  if (rc != cudaSuccess) return rc;
+  const Planes in3{(const int*)d2, (const int*)l2, out2.hi, h2_first};
+  invert_fill_kernel<<<(unsigned)n_tiles, kFillThreads,
+                       sizeof(int) << (kTile + lanes), s>>>(
+      in3, M, W, (int*)rank, (int*)lane_lo, (int*)lane_hi, (int*)lane_rank);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // lane_off: n_chunks + 1 int64 offsets, on the host when cap is kOffCap
@@ -308,58 +381,13 @@ ASGART_API int asgart_invert_fused(const void* sa, const void* run_lo,
                                    void* lane_lo, void* lane_hi, void* totals,
                                    void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if ((cap != kOffCap && cap != 0) || (cap && n_chunks > kOffCap) ||
-      (M > 0 && (n_coarse != (M + (1LL << kCoarse) - 1) >> kCoarse ||
-                 n_tiles != (M + (1LL << kTile) - 1) >> kTile ||
-                 n_coarse > kMaxBuckets))) {
+  if ((cap != kOffCap && cap != 0) || (cap && n_chunks > kOffCap)) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaError_t rc;
-  if (M > 0) {
-    const bool lanes = M > W;
-    static bool attr = false;
-    if (!attr) {
-      rc = cudaFuncSetAttribute(invert_partition_kernel,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)(sizeof(int) * (3 * kMaxBuckets +
-                                                     3 * kPartRows)));
-      if (rc != cudaSuccess) return (int)rc;
-      rc = cudaFuncSetAttribute(invert_fill_kernel,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)(sizeof(int) << (kTile + 1)));
-      if (rc != cudaSuccess) return (int)rc;
-      attr = true;
-    }
-    unsigned* cur = (unsigned*)cursor;
-    rc = cudaMemsetAsync(cur, 0, sizeof(unsigned) * (n_coarse + n_tiles), s);
-    if (rc != cudaSuccess) return (int)rc;
-    const unsigned blocks = (unsigned)((M + kPartRows - 1) / kPartRows);
-    const size_t rows_smem = sizeof(int) * (2 + lanes) * (size_t)kPartRows;
-    const Planes in1{(const int*)sa, (const int*)run_lo,
-                     (const int*)run_hi, 0};
-    const OutPlanes out1{(int*)d1, (int*)l1, lanes ? (int*)h1 : nullptr,
-                         h1_first};
-    invert_partition_kernel<<<blocks, kPartThreads,
-                              sizeof(int) * 3 * n_coarse + rows_smem, s>>>(
-        in1, M, W, kCoarse, 0, n_coarse, cur, out1);
-    rc = cudaGetLastError();
-    if (rc != cudaSuccess) return (int)rc;
-    const Planes in2{(const int*)d1, (const int*)l1, out1.hi, h1_first};
-    const OutPlanes out2{(int*)d2, (int*)l2, lanes ? (int*)h2 : nullptr,
-                         h2_first};
-    const int per = 1 << (kCoarse - kTile);
-    invert_partition_kernel<<<blocks, kPartThreads,
-                              sizeof(int) * 3 * per + rows_smem, s>>>(
-        in2, M, W, kTile, 1, per, cur + n_coarse, out2);
-    rc = cudaGetLastError();
-    if (rc != cudaSuccess) return (int)rc;
-    const Planes in3{(const int*)d2, (const int*)l2, out2.hi, h2_first};
-    invert_fill_kernel<<<(unsigned)n_tiles, kFillThreads,
-                         sizeof(int) << (kTile + lanes), s>>>(
-        in3, M, W, (int*)rank, (int*)lane_lo, (int*)lane_hi);
-    rc = cudaGetLastError();
-    if (rc != cudaSuccess) return (int)rc;
-  }
+  cudaError_t rc = scatter(sa, run_lo, run_hi, M, W, cursor, n_coarse,
+                           n_tiles, d1, l1, h1, h1_first, d2, l2, h2,
+                           h2_first, rank, lane_lo, lane_hi, nullptr, s);
+  if (rc != cudaSuccess) return (int)rc;
   if (n_chunks == 0) return (int)cudaSuccess;
   rc = cudaMemsetAsync(totals, 0, sizeof(unsigned long long) * n_chunks, s);
   if (rc != cudaSuccess) return (int)rc;
@@ -377,4 +405,18 @@ ASGART_API int asgart_invert_fused(const void* sa, const void* run_lo,
         (const long long*)lane_off, n_chunks, (unsigned long long*)totals);
   }
   return (int)cudaGetLastError();
+}
+
+// KJ, the table form: the scatter of n rows with W = 0 (scratch laid out
+// by kc_plan(n, 0): every plane of n slots, h1_first = h2_first = 0);
+// pos_lo, pos_hi and rank int32 [n].
+ASGART_API int asgart_invert_tables(const void* sa, const void* run_lo,
+                                    const void* run_hi, long long n,
+                                    void* cursor, int n_coarse, int n_tiles,
+                                    void* d1, void* l1, void* h1, void* d2,
+                                    void* l2, void* h2, void* pos_lo,
+                                    void* pos_hi, void* rank, void* stream) {
+  return (int)scatter(sa, run_lo, run_hi, n, 0, cursor, n_coarse, n_tiles,
+                      d1, l1, h1, 0, d2, l2, h2, 0, nullptr, pos_lo, pos_hi,
+                      rank, (cudaStream_t)stream);
 }

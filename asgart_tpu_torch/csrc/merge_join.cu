@@ -1,83 +1,210 @@
 // KH mj_ranges: the merge join of the window engine. For every probe lane,
 // the equal range [lo, hi) of its key in the sorted window keys, plus exact
-// per-chunk totals of (hi - lo) over the masked lanes.
+// per-chunk totals of (hi - lo) over the masked lanes; and the key
+// directory that KH searches from, built once per index (mj_directory).
 //
 // Replaces (JAX reference): asgart_tpu/device_engine.py:788 _mj_tail, as
 // reached through _merge_join_core (:845), _window_ranges (:685),
 // _window_ranges_batch (:865) and _mj_ranges_from_keys (:946; the donated
-// variant :954 and _slice_lanes :964 have no counterpart).
+// variant :954 and _slice_lanes :964 have no counterpart). The directory
+// replaces nothing: the JAX package co-sorts instead of searching.
 //
 // The JAX package co-sorts the W window keys with the tagged probe keys and
 // reads hi (window entries at or before the probe: a cumsum) and lo (window
 // entries before the probe's run: a cummax) off the co-sorted stream, then
 // sorts both back into lane order: that is exactly the lower and upper
 // bound of each probe key in the sorted window keys. Here every lane finds
-// them itself: one binary search for the lower bound, then a gallop forward
-// to the end of its run (most runs are short, and a long repeat run costs
-// O(log run length) reads). No co-sort, so no (W + B)-row transient and no
+// them itself, with no co-sort, so no (W + B)-row transient and no
 // back-sorts. Keys compare without their flag bit (bit 0: 0 on window
 // keys, 1 on probe keys), as KB compares them.
 //
+// The directory: a key's 3-bit symbol ranks ('$' 0, A 1, C 2, G 3, N 4,
+// T 5; first symbol highest, csrc/pack_keys.cu) map to 2-bit digits by a
+// non-decreasing map ('$' shares A's digit, N G's, the unused ranks 6 and
+// 7 T's); where a symbol shares its digit with a higher rank ('$') every
+// later digit is 0, and where it shares it with a lower one (N, 6, 7)
+// every later digit is 3. So the digit string of a key's first symbols
+// never decreases along the sorted keys, and every key equal to a probe
+// lies in the probe's bucket: the top `bits` bits of that string. dir[b]
+// (b = 0 .. 2^bits) is the first row whose bucket is at least b, so
+// bucket b is rows [dir[b], dir[b + 1]), and dir[2^bits] = W.
+// 2^bits + 1 <= W / 16 entries (kernels/merge_join.py mj_directory_bits),
+// at most 0.25 B a window row; bits = 0 is no directory: the whole window
+// is one bucket. A repeat-poor window's
+// buckets hold ~16-32 keys, a span of a few hundred bytes.
+// Build: one block a tile of kThreads rows, grid-stride; each thread
+// reads its row's key and computes its bucket once, into shared memory
+// beside the row before the tile's (its first thread's second bucket), and
+// row i writes dir[b] = i for the buckets (bucket(i - 1), bucket(i)] that
+// start there, consecutive words, by itself when they are fewer than 32,
+// else with its warp (the head and tail of a shard's keys, which cover
+// part of the key space, take 2^bits words in all). A bucket is the
+// digits of the key's first m symbols, looked up a symbol at a time in
+// 32-bit words, with the fill after the first '$', N, 6 or 7 found at
+// once from the symbols' bits. It flags a key outside [0, 2^(3k)) or out
+// of order, which the wrapper reads and raises on.
+//
+// Search: a lane reads its mask and probe key, then the two directory
+// words of its bucket, then descends its bucket for the lower bound; the
+// key at the lower bound is the last one the descent read at or above the
+// probe, so where it differs (or the bucket is passed) the upper bound is
+// the lower one with no further read, else a gallop forward from it
+// (asgart::run_end, bounded by the bucket's end). A probe key below 0 or
+// at or past 2^(3k) compares below or above every window key (the
+// directory build checked them) and takes (0, 0) or (W, W) unread. The
+// counting instance (kCount, a non-null `counts`) adds the keys each
+// thread read and the directory words to counts[0] and counts[1], one
+// atomic add each a thread: the bound's data-dependent bytes, read from
+// the kernel itself.
+//
 // Bound on the H100: the bytes are 8 B per probe key, 1 B per mask and
-// 8 B of (lo, hi) per lane, plus the window keys once; but each search
-// reads about log2(W) keys at data-dependent addresses, so the kernel is
-// bound by the latency of those reads rather than the stream. The top
-// levels of every search hit the same few keys and stay in L1/L2. One
-// thread per lane, grid-stride, consecutive lanes on consecutive threads so
-// the lane reads and writes coalesce; the totals reduce a warp's lanes with
-// shuffles when the warp lies inside one chunk, with atomics only at chunk
-// edges (as KC does).
+// 8 B of (lo, hi) per lane, plus the keys and directory words the search
+// reads, each counted at most once (at most the window's 8 W and the
+// directory's words: chip_smoke.kh_checks); each lane's directory read and its bucket's first key are
+// dependent reads at random addresses (the directory, 4 MB at W = 32 M,
+// stays in L2; the key in DRAM), the rest of its descent and gallop
+// mostly hits the same sector or line, so latency, not the bytes, sets the
+// time. Without a directory each lane ran ~log2(W) dependent reads.
+// One thread per lane, grid-stride, consecutive lanes on consecutive
+// threads so the lane reads and writes coalesce; the totals reduce a
+// warp's lanes with shuffles when the warp lies inside one chunk, with
+// atomics only at chunk edges (as KC does).
 #include "common.cuh"
 
 namespace {
 
-// First index in [0, W) whose flag-free key is >= v (W if none).
-__device__ __forceinline__ long long lower_bound(const long long* skey,
-                                                 long long W, long long v) {
-  long long lo = 0, n = W;
-  while (n > 0) {
-    const long long half = n >> 1;
-    if ((__ldg(skey + lo + half) >> 1) < v) {
-      lo += half + 1;
-      n -= half + 1;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+// 2-bit digits of the symbol ranks 0..7: 0, 0, 1, 2, 2, 3, 3, 3
+// (kernels/merge_join.py DIGITS, FILL)
+constexpr unsigned kDigits = 0xFE90u;
+
+// Bit 0 of every 3-bit symbol field of a word.
+constexpr unsigned long long kLowBits = 0x1249249249249249ULL;
+
+// The bucket of a flag-free key v of k symbols (0 <= v < 2^(3k)): the top
+// `bits` bits of the digits of its first m = ceil(bits / 2) symbols, every
+// digit after a '$' 0 and after an N (or rank 6, 7) 3.
+__device__ __forceinline__ int bucket_of(long long v, int k, int bits) {
+  const int m = (bits + 1) >> 1;
+  const unsigned long long x = (unsigned long long)v >> (3 * (k - m));
+  unsigned d = 0;
+  for (int j = m - 1; j >= 0; --j) {
+    const unsigned r = (unsigned)(x >> (3 * j)) & 7u;
+    d = (d << 2) | ((kDigits >> (2 * r)) & 3u);
+  }
+  // the symbols of rank 0 or 4 (bits 1 and 0 clear) or 6, 7 (bits 2, 1
+  // set), one bit a field; the first of them (the highest) fills the
+  // digits of the j symbols after it
+  const unsigned long long ones = kLowBits & ((1ULL << (3 * m)) - 1);
+  const unsigned long long special =
+      (~x & ~(x >> 1) & ones) | ((x >> 2) & (x >> 1) & ones);
+  if (special) {
+    const int j = (63 - __clzll(special)) / 3;
+    const unsigned below = (1u << (2 * j)) - 1;
+    const bool dollar = ((x >> (3 * j)) & 7u) == 0;
+    d = dollar ? d & ~below : d | below;
+  }
+  return (int)(d >> (2 * m - bits));
+}
+
+// Row r's flag-free key and bucket into the tile's slot (r = W: past every
+// key, its bucket 2^bits; a key outside [0, 2^(3k)): bucket -2, flagged).
+__device__ __forceinline__ void tile_row(const long long* __restrict__ skey,
+                                         long long W, long long r, int k,
+                                         int bits, long long top,
+                                         long long* s_v, int* s_b, int slot,
+                                         bool& wrong) {
+  long long v = top;
+  int b = 1 << bits;
+  if (r < W) {
+    v = skey[r] >> 1;
+    if (v >= 0 && v < top) {
+      b = bucket_of(v, k, bits);
     } else {
-      n = half;
+      b = -2;
+      wrong = true;
     }
   }
-  return lo;
+  s_v[slot] = v;
+  s_b[slot] = b;
 }
 
-// First index after `lo` whose flag-free key differs from v, given that
-// skey[lo] holds v: gallop forward (1, 2, 4, ... rows), then bisect.
-__device__ __forceinline__ long long run_end(const long long* skey,
-                                             long long W, long long lo,
-                                             long long v) {
-  long long good = lo;  // known equal
-  long long bad = W;    // known different (or past the end)
-  for (long long d = 1;; d *= 2) {
-    const long long p = lo + d;
-    if (p >= W) break;
-    if ((__ldg(skey + p) >> 1) != v) { bad = p; break; }
-    good = p;
+__global__ void __launch_bounds__(asgart::kThreads)
+mj_directory_kernel(const long long* __restrict__ skey, long long W, int k,
+                    int bits, int* __restrict__ dir, int* __restrict__ bad) {
+  constexpr int kT = asgart::kThreads;
+  // slot 0: the row before the tile (bucket -1 before row 0); slot t + 1:
+  // the tile's row t
+  __shared__ long long s_v[kT + 1];
+  __shared__ int s_b[kT + 1];
+  const long long top = 1LL << (3 * k);
+  const int ln = threadIdx.x & 31;
+  bool wrong = false;
+  // the loop bound is uniform over the block, so every thread reaches the
+  // barriers and every warp stays converged for the ballot and shuffles
+  for (long long base = (long long)blockIdx.x * kT; base <= W;
+       base += (long long)gridDim.x * kT) {
+    const long long i = base + threadIdx.x;
+    if (i <= W) tile_row(skey, W, i, k, bits, top, s_v, s_b,
+                         threadIdx.x + 1, wrong);
+    if (threadIdx.x == 0) {
+      if (base > 0) {
+        bool unused = false;  // (row base - 1 is flagged by its own tile)
+        tile_row(skey, W, base - 1, k, bits, top, s_v, s_b, 0, unused);
+      } else {
+        s_b[0] = -1;
+      }
+    }
+    __syncthreads();
+    int b_lo = 1, b_hi = 0;  // the buckets that start at row i
+    if (i <= W) {
+      const int cur = s_b[threadIdx.x + 1], prev = s_b[threadIdx.x];
+      bool ok = cur != -2 && prev != -2;
+      if (ok && i > 0 && i < W && s_v[threadIdx.x] > s_v[threadIdx.x + 1]) {
+        ok = false;
+        wrong = true;
+      }
+      if (ok) {
+        b_lo = prev + 1;
+        b_hi = cur;
+      }
+    }
+    // a short run of buckets by its row's thread, a long one (the head
+    // and tail of a shard's or a slice's keys, a gap in a skewed key set)
+    // by the whole warp, 32 consecutive words at a time
+    const bool alone = b_hi - b_lo < 32;
+    if (alone) {
+      for (int b = b_lo; b <= b_hi; ++b) dir[b] = (int)i;
+    }
+    for (unsigned wide = __ballot_sync(kFull, !alone); wide;
+         wide &= wide - 1) {
+      const int src = __ffs(wide) - 1;
+      const int lo = __shfl_sync(kFull, b_lo, src);
+      const int hi = __shfl_sync(kFull, b_hi, src);
+      const int row = (int)__shfl_sync(kFull, i, src);
+      for (int b = lo + ln; b <= hi; b += 32) dir[b] = row;
+    }
+    __syncthreads();  // the tile's slots are read before the next fills
   }
-  while (bad - good > 1) {
-    const long long mid = good + (bad - good) / 2;
-    if ((__ldg(skey + mid) >> 1) == v) good = mid; else bad = mid;
-  }
-  return bad;
+  if (wrong) *bad = 1;
 }
 
+template <bool kCount>
 __global__ void mj_ranges_kernel(const long long* __restrict__ skey,
                                  long long W,
                                  const long long* __restrict__ pkey,
                                  const uint8_t* __restrict__ lane_mask,
                                  long long total,
                                  const long long* __restrict__ lane_off,
-                                 int n_chunks, int* __restrict__ lane_lo,
+                                 int n_chunks,
+                                 const int* __restrict__ dir, int bits, int k,
+                                 int* __restrict__ lane_lo,
                                  int* __restrict__ lane_hi,
-                                 unsigned long long* __restrict__ totals) {
-  const unsigned kFull = 0xFFFFFFFFu;
+                                 unsigned long long* __restrict__ totals,
+                                 unsigned long long* __restrict__ counts) {
   const long long n_live = n_chunks > 0 ? lane_off[n_chunks] : 0;
+  const long long top = bits > 0 ? 1LL << (3 * k) : 0;
+  unsigned long long key_reads = 0, dir_reads = 0;  // kCount alone
   // the loop bound is uniform over the block, so every warp stays
   // converged for the shuffles
   for (long long base = (long long)blockIdx.x * blockDim.x; base < total;
@@ -86,13 +213,43 @@ __global__ void mj_ranges_kernel(const long long* __restrict__ skey,
     int c = -1;
     unsigned long long v = 0;
     if (lane < total) {
+      // both loads in flight before the mask is tested
+      const bool live = lane_mask[lane];
+      const long long p = __ldg(pkey + lane) >> 1;
       long long lo = 0, hi = 0;
-      if (lane_mask[lane]) {
-        const long long key = __ldg(pkey + lane) >> 1;
-        lo = lower_bound(skey, W, key);
-        hi = (lo < W && (__ldg(skey + lo) >> 1) == key)
-                 ? run_end(skey, W, lo, key)
-                 : lo;
+      if (live) {
+        long long s = 0, e = W;  // the probe's bucket
+        if (bits > 0) {
+          if (p < 0) {
+            e = 0;
+          } else if (p >= top) {
+            s = W;
+          } else {
+            const long long b = bucket_of(p, k, bits);
+            s = __ldg(dir + b);
+            e = __ldg(dir + b + 1);
+            if (kCount) dir_reads += 2;
+          }
+        }
+        long long l = s, h = e, key_at = 0;  // key_at: skey[l] once l < e
+        while (l < h) {
+          const long long mid = (l + h) >> 1;
+          const long long key = __ldg(skey + mid) >> 1;
+          if (kCount) ++key_reads;
+          if (key < p) {
+            l = mid + 1;
+          } else {
+            h = mid;
+            key_at = key;
+          }
+        }
+        lo = l;
+        hi = l < e && key_at == p
+                 ? asgart::run_end(l, e, [&](long long r) {
+                     if (kCount) ++key_reads;
+                     return (__ldg(skey + r) >> 1) == p;
+                   })
+                 : l;
       }
       lane_lo[lane] = (int)lo;
       lane_hi[lane] = (int)hi;
@@ -109,24 +266,60 @@ __global__ void mj_ranges_kernel(const long long* __restrict__ skey,
       atomicAdd(totals + c, v);
     }
   }
+  if (kCount) {
+    atomicAdd(counts, key_reads);
+    atomicAdd(counts + 1, dir_reads);
+  }
+}
+
+bool bad_bits(int bits, int k) {
+  return bits < 0 || bits > 30 || (bits > 0 && (k < 1 || k > 20 ||
+                                                bits > 2 * k));
 }
 
 }  // namespace
 
+// skey: int64 [W] sorted; dir: int32 [2^bits + 1] (1 <= bits <= 2k,
+// k <= 20); bad: int32 [1], set to 1 when a flag-free key lies outside
+// [0, 2^(3k)) or below its predecessor (zeroed here first).
+ASGART_API int asgart_mj_directory(const void* skey, long long W, int k,
+                                   int bits, void* dir, void* bad,
+                                   void* stream) {
+  if (bits < 1 || bad_bits(bits, k)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const cudaError_t rc = cudaMemsetAsync(bad, 0, sizeof(int), s);
+  if (rc != cudaSuccess) return (int)rc;
+  mj_directory_kernel<<<asgart::grid_for(W + 1), asgart::kThreads, 0, s>>>(
+      (const long long*)skey, W, k, bits, (int*)dir, (int*)bad);
+  return (int)cudaGetLastError();
+}
+
+// lane_off: n_chunks + 1 int64 offsets on the card; dir: null with
+// bits = 0 (no directory), else mj_directory's table of k-symbol keys;
+// counts: null, or int64 [2] that the counting instance adds its key
+// reads and its directory reads to (not zeroed here).
 ASGART_API int asgart_mj_ranges(const void* skey, long long W,
                                 const void* pkey, const void* lane_mask,
                                 long long total, const void* lane_off,
-                                int n_chunks, void* lane_lo, void* lane_hi,
-                                void* totals, void* stream) {
+                                int n_chunks, const void* dir,
+                                int bits, int k, void* lane_lo,
+                                void* lane_hi, void* totals, void* counts,
+                                void* stream) {
+  if (bad_bits(bits, k) || (bits > 0 && dir == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t s = (cudaStream_t)stream;
   if (n_chunks > 0) {
     cudaError_t rc = cudaMemsetAsync(
         totals, 0, sizeof(unsigned long long) * n_chunks, s);
     if (rc != cudaSuccess) return (int)rc;
   }
-  mj_ranges_kernel<<<asgart::grid_for(total), asgart::kThreads, 0, s>>>(
+  if (total <= 0) return (int)cudaGetLastError();
+  auto kernel = counts ? mj_ranges_kernel<true> : mj_ranges_kernel<false>;
+  kernel<<<asgart::grid_for(total), asgart::kThreads, 0, s>>>(
       (const long long*)skey, W, (const long long*)pkey,
       (const uint8_t*)lane_mask, total, (const long long*)lane_off, n_chunks,
-      (int*)lane_lo, (int*)lane_hi, (unsigned long long*)totals);
+      (const int*)dir, bits, k, (int*)lane_lo, (int*)lane_hi,
+      (unsigned long long*)totals, (unsigned long long*)counts);
   return (int)cudaGetLastError();
 }

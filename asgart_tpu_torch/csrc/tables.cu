@@ -1,10 +1,8 @@
-// KJ invert_tables and KM table_ranges: the table engine's position tables
-// and its per-lane reads of them.
+// KM table_ranges: the table engine's per-lane reads of its position
+// tables (KJ invert_tables, which builds them, is the table form of KC's
+// partitioned scatter: csrc/invert.cu).
 //
 // Replaces (JAX reference, asgart_tpu/):
-//   KJ  device_index.py:467 _invert_tables_dec (with _dec_of :441 and
-//       _assemble_dec :447): slot-indexed run bounds -> position-indexed
-//       tables pos_lo, pos_hi and the doubling loop's rank seed.
 //   KM  the front of device_engine.py:202 _scan_chunk, as
 //       _scan_chunks_group (:375) maps it over a chunk group: the probe
 //       positions x = _probe_x0 (:130) + j * step, the table reads
@@ -12,16 +10,6 @@
 //       lane bound; plus the exact raw totals that the cap pre-passes
 //       _raw_total (:146) and _raw_totals_batch (:187) bound in float32.
 //
-// KJ: every slot i of the sorted text has a unique position p = sa[i];
-//   pos_lo[p] = run_lo[i] (the N-probe flag of p, set by KB, in its sign
-//   bit), pos_hi[p] = run_hi[i], rank[p] = run_lo[i] & 0x7FFFFFFF. The JAX
-//   package did this with one more full sort into a decimated,
-//   padded layout (scatters were slow on the TPU, and decimation made its
-//   strided probe reads contiguous); here it is a permutation scatter, and
-//   the tables keep plain position layout [n].
-//   Bound on the H100: memory. It reads 12 B per slot in order and writes
-//   12 B per slot to sa-permuted addresses (each store its own 32-byte
-//   sector). One thread per slot, grid-stride.
 // KM: lane l of chunk c (its lanes [lane_off[c], lane_off[c + 1])) probes
 //   j = l - lane_off[c] at x = x0[c] + j * step; it is live when
 //   j * step < len - k - step, x < n and pos_lo[x] >= 0 (the probe's first
@@ -36,22 +24,6 @@
 #include "common.cuh"
 
 namespace {
-
-__global__ void invert_tables_kernel(const int* __restrict__ sa,
-                                     const int* __restrict__ run_lo,
-                                     const int* __restrict__ run_hi,
-                                     long long n, int* __restrict__ pos_lo,
-                                     int* __restrict__ pos_hi,
-                                     int* __restrict__ rank) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < n; i += (long long)gridDim.x * blockDim.x) {
-    const long long p = sa[i];
-    const int lo = run_lo[i];
-    pos_lo[p] = lo;
-    pos_hi[p] = run_hi[i];
-    rank[p] = lo & 0x7FFFFFFF;
-  }
-}
 
 __global__ void table_ranges_kernel(const int* __restrict__ pos_lo,
                                     const int* __restrict__ pos_hi,
@@ -104,17 +76,6 @@ __global__ void table_ranges_kernel(const int* __restrict__ pos_lo,
 }
 
 }  // namespace
-
-ASGART_API int asgart_invert_tables(const void* sa, const void* run_lo,
-                                    const void* run_hi, long long n,
-                                    void* pos_lo, void* pos_hi, void* rank,
-                                    void* stream) {
-  invert_tables_kernel<<<asgart::grid_for(n), asgart::kThreads, 0,
-                         (cudaStream_t)stream>>>(
-      (const int*)sa, (const int*)run_lo, (const int*)run_hi, n,
-      (int*)pos_lo, (int*)pos_hi, (int*)rank);
-  return (int)cudaGetLastError();
-}
 
 // x0cl [n_chunks, 2]: each chunk's x0 (the table position of its probe
 // j = 0) and length; lane_off [n_chunks + 1]

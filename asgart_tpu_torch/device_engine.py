@@ -311,10 +311,12 @@ class DeviceWindowEngine:
     packs every chunk's probe keys (or ``probe_cache`` serves them: they
     do not depend on the window), reading the transformed probes from the
     strand's codes with 64-bit offsets, then KH ``mj_ranges`` joins them
-    to the sorted window keys. The result is kept with the index, so a
-    rescan of the same chunks from ``cache`` skips the build, the pack and
-    the join. Then KD per chunk over the window-relative suffix order,
-    with the rebased filter constants of :func:`rebased_bases`; the window
+    to the sorted window keys, searching from the index's key directory
+    (``mj_directory``, built with the index). The result is kept with the
+    index, so a rescan of the same chunks from ``cache`` skips the build,
+    the pack and the join. Then KD per chunk over the window-relative
+    suffix order, with the rebased filter constants of
+    :func:`rebased_bases`; the window
     start ``m_offset`` is added to the matches in int64, on the host
     (:func:`chain_chunk_events`) or by KN (:func:`chain_on_device`).
     ``codes``: the strand's codes already on ``device`` (uploaded on first
@@ -380,7 +382,8 @@ class DeviceWindowEngine:
                       self.probe_cache.get_or_pack(
                           (s.probe_size, s.reverse, s.complement, specs,
                            str(self.device)), pack))
-        lane_lo, lane_hi, totals = self.join(idx.key, pkey, mask, lane_off)
+        lane_lo, lane_hi, totals = self.join(idx.key, pkey, mask, lane_off,
+                                             idx.directory)
         offs = {(cs, cl): (off, int(t)) for (cs, cl, _), off, t in
                 zip(specs, lane_off, totals.tolist())}
         idx.stage1 = WindowRanges(lane_lo=lane_lo, lane_hi=lane_hi,
@@ -388,10 +391,10 @@ class DeviceWindowEngine:
         return idx.stage1
 
     @staticmethod
-    def join(key, pkey, mask, lane_off):
+    def join(key, pkey, mask, lane_off, directory):
         """KH: (lane_lo, lane_hi, per-chunk totals) of the probe keys in
-        the sorted window keys ``key``."""
-        return mj_ranges(key, pkey, mask, lane_off)
+        the sorted window keys ``key``, searched from their ``directory``."""
+        return mj_ranges(key, pkey, mask, lane_off, directory)
 
     def run_chunks(self, chunks) -> list:
         """Raw families (native-engine format, chunk-relative left
@@ -546,9 +549,11 @@ class ShardedWindowEngine(DeviceWindowEngine):
         return self.index
 
     @staticmethod
-    def join(key, pkey, mask, lane_off):
-        """KH against this rank's keys, summed over the ranks."""
-        lane_lo, lane_hi, totals = mj_ranges(key, pkey, mask, lane_off)
+    def join(key, pkey, mask, lane_off, directory):
+        """KH against this rank's keys (from their directory), summed over
+        the ranks."""
+        lane_lo, lane_hi, totals = mj_ranges(key, pkey, mask, lane_off,
+                                             directory)
         return (distributed.psum(lane_lo), distributed.psum(lane_hi),
                 distributed.psum(totals))
 

@@ -6,7 +6,7 @@ from .chain import chain_bursts
 from .codes import unpack_codes
 from .group_bounds import group_bounds
 from .invert import invert_fused
-from .merge_join import mj_ranges
+from .merge_join import mj_directory, mj_ranges
 from .pack_keys import pack_keys
 from .scan_core import scan_core
 from .seed import equal_range, gather_ranges, pack_probe_planes
@@ -19,7 +19,7 @@ KERNELS = (unpack_codes, pack_keys, group_bounds, invert_fused, tie_keys,
            tie_refine, mj_ranges, scan_core, invert_tables,
            table_ranges, full_round_keys, full_round_refine, chain_bursts,
            granule_totals, gather_flat, equal_range, gather_ranges,
-           pack_probe_planes, gather_owned)
+           pack_probe_planes, gather_owned, mj_directory)
 
 
 def launch_counts() -> dict:

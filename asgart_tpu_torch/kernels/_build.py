@@ -67,12 +67,18 @@ SIGNATURES = {
                          _I64, _I32, _I32, _I64, _I64, _P, _P, _P, _I64, _P,
                          _P, _P, _P, _P],
     # skey, W, pkey, lane_mask, total, lane_off [n_chunks + 1], n_chunks,
-    # lane_lo, lane_hi, totals, stream
-    "asgart_mj_ranges": [_P, _I64, _P, _P, _I64, _P, _I32, _P, _P, _P, _P],
+    # dir (None: no directory), bits, k, lane_lo, lane_hi, totals, counts
+    # (None: the uncounted instance), stream
+    "asgart_mj_ranges": [_P, _I64, _P, _P, _I64, _P, _I32, _P, _I32, _I32,
+                         _P, _P, _P, _P, _P],
+    # skey, W, k, bits, dir, bad, stream
+    "asgart_mj_directory": [_P, _I64, _I32, _I32, _P, _P, _P],
     # packed, n4, n1, exc_pos, exc_code, n_exc, codes, stream
     "asgart_unpack_codes": [_P, _I64, _I64, _P, _P, _I64, _P, _P],
-    # sa, run_lo, run_hi, n, pos_lo, pos_hi, rank, stream
-    "asgart_invert_tables": [_P, _P, _P, _I64, _P, _P, _P, _P],
+    # sa, run_lo, run_hi, n, cursor, n_coarse, n_tiles, d1, l1, h1, d2,
+    # l2, h2 (kc_plan(n, 0)), pos_lo, pos_hi, rank, stream
+    "asgart_invert_tables": [_P, _P, _P, _I64, _P, _I32, _I32, _P, _P, _P,
+                             _P, _P, _P, _P, _P, _P, _P],
     # pos_lo, pos_hi, n, lane_off [n_chunks + 1], x0cl [n_chunks, 2],
     # n_chunks, k, total, lane_lo, lane_hi, lane_mask, totals, stream
     "asgart_table_ranges": [_P, _P, _I64, _P, _P, _I32, _I32, _I64, _P, _P,

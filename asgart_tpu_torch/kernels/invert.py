@@ -4,6 +4,8 @@ Kernel: ``csrc/invert.cu`` (a partitioned scatter: two partition passes
 and a fill of shared-memory tiles; its scratch is :func:`kc_plan`; the
 chunks' lane offsets go in the launch by value up to ``KC_OFF_CAPACITY``
 chunks). ``invert_fused_plain`` is the same function in plain PyTorch.
+KJ ``invert_tables`` (:mod:`.tables`) is the same scatter's table form,
+its scratch :func:`kc_plan` with no direct row.
 """
 
 from __future__ import annotations

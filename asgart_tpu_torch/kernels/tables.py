@@ -1,8 +1,11 @@
 """KJ ``invert_tables`` and KM ``table_ranges``: the table engine's
 position tables, and each probe lane's read of them.
 
-Kernels: ``csrc/tables.cu`` (see its header for what they replace in the
-JAX package and how they are bounded). ``invert_tables_plain`` and
+Kernels: KJ is the table form of KC's partitioned scatter
+(``csrc/invert.cu``, its scratch laid out by
+:func:`~asgart_tpu_torch.kernels.invert.kc_plan` with no direct row), KM
+``csrc/tables.cu`` (see their headers for what they replace in the JAX
+package and how they are bounded). ``invert_tables_plain`` and
 ``table_ranges_plain`` are the same functions in plain PyTorch.
 """
 
@@ -12,6 +15,7 @@ import torch
 
 from ..host_helpers import _probe_x0
 from . import _build
+from .invert import kc_plan
 
 
 def invert_tables(sa: torch.Tensor, run_lo: torch.Tensor,
@@ -30,14 +34,22 @@ def invert_tables(sa: torch.Tensor, run_lo: torch.Tensor,
                              "contiguous int32 of one length")
     if not _build.on_cuda(sa, run_lo, run_hi):
         return invert_tables_plain(sa, run_lo, run_hi)
-    pos_lo, pos_hi, rank = (torch.empty(n, dtype=torch.int32,
-                                        device=sa.device) for _ in range(3))
+    dev = sa.device
+    pos_lo, pos_hi, rank = (torch.empty(n, dtype=torch.int32, device=dev)
+                            for _ in range(3))
+    if n == 0:
+        return pos_lo, pos_hi, rank
+    plan = kc_plan(n, 0)
+    scratch = torch.empty(plan.words, dtype=torch.int32, device=dev)
+    sp = scratch.data_ptr()
     lib = _build.lib()
     invert_tables.launches += 1
     _build.check(lib.asgart_invert_tables(
-        sa.data_ptr(), run_lo.data_ptr(), run_hi.data_ptr(), n,
-        pos_lo.data_ptr(), pos_hi.data_ptr(), rank.data_ptr(),
-        _build.stream_of(sa)), "invert_tables")
+        sa.data_ptr(), run_lo.data_ptr(), run_hi.data_ptr(), n, sp,
+        plan.coarse, plan.tiles, *(sp + 4 * w for w in (
+            plan.d1_at, plan.l1_at, plan.h1_at, plan.d2_at, plan.l2_at,
+            plan.h2_at)), pos_lo.data_ptr(), pos_hi.data_ptr(),
+        rank.data_ptr(), _build.stream_of(sa)), "invert_tables")
     return pos_lo, pos_hi, rank
 
 

@@ -8,7 +8,8 @@ and of the probe-key cache ``_PROBE_KEYS_CACHE``
 
   KA pack_keys (window mode, no probe rows) -> sort_keys (torch.sort)
   -> KB group_bounds (every row direct) -> KC invert_fused (no lanes)
-  -> ties.resolve_ties (KE, KF)
+  -> ties.resolve_ties (KE, KF); then the key directory that KH searches
+  from (``mj_directory``, at most 0.25 B a row), built once per index
 
 The suffix order keeps window positions 0..W-1, as the JAX
 ``BigWindowEngine`` keeps them (asgart_tpu/device_engine.py:2453-2458),
@@ -19,10 +20,11 @@ by subtracting its window start (convert.py).
 
 Unlike the fused build, the probes are not sorted into the index: the
 engine packs them apart (KA's probe-only mode) and joins them to the
-sorted keys (KH ``mj_ranges``), so the sorted key (8 B/row) and ``sa``
-(4 B/row) stay resident. The key is one int64 word (k <= 20, flag bit 0),
-the fused build's one-word key; wider probes have no merge-join route, as
-in the JAX package (its window engines are two-plane).
+sorted keys (KH ``mj_ranges``), so the sorted key (8 B/row), ``sa``
+(4 B/row) and the directory stay resident. The key is one int64 word (k
+<= 20, flag bit 0), the fused build's one-word key; wider probes have no
+merge-join route, as in the JAX package (its window engines are
+two-plane).
 
 ``ShardedWindowIndex`` is one rank's shard of such an index: a contiguous
 run of its rows (the rank-sharded window engine, device_engine.py).
@@ -30,7 +32,7 @@ run of its rows (the rank-sharded window engine, device_engine.py).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -38,6 +40,7 @@ import torch
 from .codes import upload_codes
 from .fused_index import MJ_MAX_K, sort_keys
 from .kernels import group_bounds, invert_fused, pack_keys
+from .kernels.merge_join import MjDirectory, index_directory
 from .ties import resolve_ties
 
 
@@ -78,7 +81,8 @@ class WindowRanges:
 class DeviceWindowIndex:
     """Device-resident merge-join index of one trim window: the window's
     sorted k-mer keys and its suffix order, aligned slot for slot (tie
-    resolution permutes only inside equal-key runs)."""
+    resolution permutes only inside equal-key runs), and the keys'
+    directory."""
 
     key: torch.Tensor        # int64 [W] sorted keys, (hi << 31) | (lo << 1)
     sa: torch.Tensor         # int32 [W] suffix order: window positions
@@ -93,10 +97,16 @@ class DeviceWindowIndex:
     # the last stage 1 joined against this index, kept with it so that a
     # rescan of the same chunks skips the pack and the join
     stage1: WindowRanges | None = None
+    # KH's key directory, built with the index (none on the CPU)
+    directory: MjDirectory | None = field(init=False, default=None)
+
+    def __post_init__(self):
+        self.directory = index_directory(self.key, self.k)
 
     def nbytes(self) -> int:
         held = self.key.numel() * 8 + self.sa.numel() * 4
-        return held + (self.stage1.nbytes() if self.stage1 else 0)
+        return held + (self.directory.nbytes() if self.directory is not None else 0) \
+            + (self.stage1.nbytes() if self.stage1 else 0)
 
     @classmethod
     def build(cls, strand_data: np.ndarray, k: int, trim: tuple,
@@ -146,8 +156,9 @@ class ShardedWindowIndex:
     row0 + n_local) of the window's sorted keys and suffix order, row0 =
     r·Wl with Wl = ceil(W / D) (D ranks), as device d of the JAX
     ``ShardedWindowEngine`` holds rows [d·Wl, (d + 1)·Wl) of its stacked
-    shards (asgart_tpu/device_engine.py:3295-3313). No padding: the last
-    shards are shorter, and a rank owns no row when r·Wl >= W."""
+    shards (asgart_tpu/device_engine.py:3295-3313), and the directory of
+    those keys. No padding: the last shards are shorter, and a rank owns no
+    row when r·Wl >= W."""
 
     key: torch.Tensor        # int64 [n_local] sorted keys (flag bit 0)
     sa: torch.Tensor         # int32 [n_local] window positions
@@ -163,6 +174,12 @@ class ShardedWindowIndex:
     complement: bool
     # the last stage 1 (after its all_reduce), kept as on DeviceWindowIndex
     stage1: WindowRanges | None = None
+    # KH's directory of this shard's keys, built with the shard (none on
+    # the CPU)
+    directory: MjDirectory | None = field(init=False, default=None)
+
+    def __post_init__(self):
+        self.directory = index_directory(self.key, self.k)
 
     @property
     def row0(self) -> int:
@@ -170,7 +187,8 @@ class ShardedWindowIndex:
 
     def nbytes(self) -> int:
         held = self.key.numel() * 8 + self.sa.numel() * 4
-        return held + (self.stage1.nbytes() if self.stage1 else 0)
+        return held + (self.directory.nbytes() if self.directory is not None else 0) \
+            + (self.stage1.nbytes() if self.stage1 else 0)
 
     @classmethod
     def build(cls, strand_data: np.ndarray, k: int, trim: tuple,

@@ -53,16 +53,17 @@
       launch counter set to 0 just before and read just after; requires
       the JSON bytes of all three runs to be equal and every kernel of
       the path to have been launched (the merge-join trim paths' cache
-      hits launch neither KA nor KH; their shards paths pack the probe
-      keys once a run);
+      hits launch neither KA nor KH nor KH's directory; their shards
+      paths pack the probe keys once a run and build one directory a
+      window);
 4. three ``--checkpoint`` paths on the table engine (:func:`run_table_path`):
    ``table`` (the 128 Mbp genome, k = 20), ``table_k25`` (the same genome,
    k = 25: two-word keys) and ``table_repeats`` (a ``--repeats-mbp``
    genome, default 64 Mbp, of :func:`repeat_genome`: more than a quarter of
    its direct 20-mers tied, so that at the default ``tied_cap`` full rounds
    run first), all -RC. Each kernel against its plain version on the path's
-   arrays (KI; KA's doubled mode; the sort; KB with the N flag; KJ, and
-   three ``index_put_``; KK / KL on the first full round where one runs; KE
+   arrays (KI; KA's doubled mode; the sort; KB with the N flag; KJ, the
+   table form of KC's scatter, and three ``index_put_``; KK / KL on the first full round where one runs; KE
    / KF on the first subset round; KM, and torch gathers with the masks; KD
    on the largest chunk), the step-by-step index against
    ``DeviceIndex.build`` and its peak per text row against
@@ -90,7 +91,7 @@
    Each kernel against its plain version at offsets past 2^31 (KI on the
    whole strand; KA on the probe lanes of the chunks past 2^31 and the
    last window's keys past it, with probe-only mode's own bound; KB, KH
-   on 32 M-row slices of the last
+   and its key directory on 32 M-row slices of the last
    window, KC and KE/KF on the whole of it, KD on two chunks against the
    last window's rebased constants); each window's build and stage-1
    peaks against the merge-join fit; two runs with equal JSON, the
@@ -167,11 +168,16 @@
    from the first chunk's record, held to the whole path's host JSON; then
    :func:`nccl_shared_card` prints how NCCL treats two ranks on one card;
 10. prints a {"kernels": [...]} line (each kernel once per path, with the
-   path's name and k; each row's ``ms`` the wrapper's call; KC's, KP's,
-   KQ's and KR's rows also ``kernel_alone_ms`` and ``library_alone_ms``
+   path's name and k; each row's ``ms`` the wrapper's call; KC's, KH's,
+   KJ's, KP's, KQ's and KR's rows also ``kernel_alone_ms`` and
+   ``library_alone_ms``
    (null where no library call computes the function), the launches alone
    (:func:`kernel_ms`), and KQ's ``key_reads`` and ``jax_loop_probes``,
-   counted by the kernel (``kernels.seed.equal_range_reads``);
+   counted by the kernel (``kernels.seed.equal_range_reads``), KH's
+   ``key_reads`` and ``dir_reads``, counted by the kernel
+   (``kernels.merge_join.mj_ranges_reads``), its bound from them, and
+   beside each KH row its directory's (``mj_directory``) against its
+   plain version (:func:`kh_checks`);
    beside KP's rows ``merge_slices``' whole time is printed; KN's
    rows: its time, the plain time and the bound
    on the checked bursts, and beside them its chunk's events, bursts,
@@ -207,7 +213,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 ALU_OPS_PER_S = 67e12      # H100 SXM non-tensor-core rate (data sheet)
 WHOLE = ("unpack_codes", "pack_keys", "group_bounds", "invert_fused",
          "tie_keys", "tie_refine", "scan_core")
-MJ = WHOLE + ("mj_ranges",)  # the merge-join window engine
+# the merge-join window engine: KH and its key directory
+MJ = WHOLE + ("mj_ranges", "mj_directory")
 # the table engine (--checkpoint): its build, then KM and KD per chunk;
 # full rounds (KK, KL) where the first tied count passes tied_cap
 TABLE = ("unpack_codes", "pack_keys", "group_bounds", "invert_tables",
@@ -218,7 +225,11 @@ RECORD_BP = 100_000_000  # record length of the big-window genome
 PLANT_BP = 20_000  # its planted -RC pair
 N_RUN_BP = 30_000  # and its N runs (a chunk break: more than 5000)
 SLICE_ROWS = 1 << 25  # rows of a full-scale check's slices (32 M)
-PLAIN_EVENTS = 50_000  # bursts' events on which KN meets its plain version
+# bursts' events on which KN meets its plain version (the plain version
+# takes ~1 ms an event on whole k = 20's bursts: a large share of the
+# default run's time; whole k = 20's bursts that emit rows and its short
+# quiet ones hold under 38,000)
+PLAIN_EVENTS = 40_000
 PLAIN_BURST = 200  # the longest of the bursts that top them up
 PLAIN_LONGEST = 4_000  # the longest of the others; the longest burst's cut
 # A gapped assembly's N, in Mbp of GRCh38's 24 chromosomes (3088 Mbp laid
@@ -902,6 +913,68 @@ def kernel_checks(fa: str, path: str, settings, device,
     return rows, M
 
 
+def kh_checks(record, tag: str, skey, k: int, pkey, pmask, lane_off,
+              replaces: str, shape: str):
+    """KH's key directory of the sorted keys ``skey`` (:func:`mj_directory
+    <asgart_tpu_torch.kernels.merge_join.mj_directory>`, as the window
+    index builds it) against its plain version, then KH searching from it
+    against its plain version and two ``torch.searchsorted`` calls: the
+    wrapper and the library over ``FINE_REPS`` calls, each alone too
+    (:func:`kernel_ms`), and the bound from the key and directory reads
+    the kernel counts (``mj_ranges_reads``), each capped at the distinct
+    bytes they can touch: 8 B a key read, at most the window's 8 W, and
+    4 B a directory read, at most its 2^bits + 1 words, beside 17 B a lane
+    of keys, mask and ranges. Records both rows and returns KH's (lane_lo,
+    lane_hi, totals)."""
+    import torch
+
+    from asgart_tpu_torch.kernels import mj_directory, mj_ranges
+    from asgart_tpu_torch.kernels.merge_join import (mj_directory_plain,
+                                                     mj_ranges_plain,
+                                                     mj_ranges_reads)
+
+    W, total = skey.numel(), pkey.numel()
+    kd = lambda: mj_directory(skey, k)  # noqa: E731
+    d = kd()
+    pd = lambda: mj_directory_plain(skey, k, d.bits)  # noqa: E731
+    err = max_abs_err((d.table,), (pd().table,))
+    record("mj_directory", "merge_join.cu", f"{replaces} (the directory "
+           "KH searches from)", err, cuda_ms(kd), cuda_ms(pd),
+           f"{shape}: 2^{d.bits} buckets of {W} sorted keys",
+           8 * W + d.nbytes(), 4 * W * max(1, (d.bits + 1) // 2))
+    kh = lambda: mj_ranges(skey, pkey, pmask, lane_off, d)  # noqa: E731
+    ph = lambda: mj_ranges_plain(skey, pkey, pmask, lane_off)  # noqa: E731
+    got = kh()
+    err = max_abs_err(got, ph())
+    sk, pk = skey >> 1, pkey >> 1  # the flag-free keys
+    ends = torch.tensor(lane_off[1:], device=skey.device) - 1
+
+    def lh():  # the two searchsorted calls and the masked sums
+        lo = torch.searchsorted(sk, pk, side="left")
+        hi = torch.searchsorted(sk, pk, side="right")
+        return torch.where(pmask, hi - lo, 0).cumsum(0)[ends]
+
+    csum = lh()
+    if not torch.equal(csum - torch.cat([csum.new_zeros(1), csum[:-1]]),
+                       got[2]):
+        raise AssertionError(f"torch.searchsorted totals differ from KH on "
+                             f"{tag}")
+    reads, dir_reads = mj_ranges_reads(skey, pkey, pmask, lane_off, d)
+    n_masked = int(pmask.sum())
+    record("mj_ranges", "merge_join.cu", replaces, err, cuda_ms(kh, FINE_REPS),
+           cuda_ms(ph), f"{shape}: {total} lanes ({n_masked} masked in) "
+           f"against W={W} from 2^{d.bits} buckets; {reads} key reads, "
+           f"{dir_reads} directory reads (counted by the kernel)",
+           17 * total + 8 * min(reads, W) + 4 * min(dir_reads, d.bits and
+                                                    (1 << d.bits) + 1),
+           4 * (reads + dir_reads),
+           library_ms=cuda_ms(lh, FINE_REPS),
+           alone=(kernel_ms(kh, FINE_REPS), kernel_ms(lh, FINE_REPS)))
+    record.rows[-1]["key_reads"] = reads
+    record.rows[-1]["dir_reads"] = dir_reads
+    return got
+
+
 def mj_kernel_checks(fa: str, path: str, settings, device, trim
                      ) -> tuple[list, int, int]:
     """Each kernel of the merge-join window engine against its plain
@@ -916,10 +989,9 @@ def mj_kernel_checks(fa: str, path: str, settings, device, trim
     from asgart_tpu_torch.fasta import prepare_data
     from asgart_tpu_torch.fused_index import sort_keys
     from asgart_tpu_torch.kernels import (group_bounds, invert_fused,
-                                          mj_ranges, pack_keys)
+                                          pack_keys)
     from asgart_tpu_torch.kernels.group_bounds import group_bounds_plain
     from asgart_tpu_torch.kernels.invert import invert_fused_plain
-    from asgart_tpu_torch.kernels.merge_join import mj_ranges_plain
     from asgart_tpu_torch.kernels.pack_keys import (chunk_tables,
                                                     pack_keys_plain)
 
@@ -1003,32 +1075,10 @@ def mj_kernel_checks(fa: str, path: str, settings, device, trim
     sa = tie_checks(record, tag, sa, rank, tied, W, k, device)
     del rank, tied
 
-    kh = lambda: mj_ranges(skey, pkey, pmask, lane_off)  # noqa: E731
-    ph = lambda: mj_ranges_plain(skey, pkey, pmask, lane_off)  # noqa: E731
-    lane_lo, lane_hi, totals = kh()
-    err = max_abs_err((lane_lo, lane_hi, totals), ph())
-    sk, pk = skey >> 1, pkey >> 1  # the flag-free keys
-    ends = torch.tensor(lane_off[1:], device=device) - 1
-
-    def lh():  # the two searchsorted calls and the masked sums
-        lo = torch.searchsorted(sk, pk, side="left")
-        hi = torch.searchsorted(sk, pk, side="right")
-        return torch.where(pmask, hi - lo, 0).cumsum(0)[ends]
-
-    lib_ms = cuda_ms(lh)
-    csum = lh()
-    if not torch.equal(csum - torch.cat([csum.new_zeros(1), csum[:-1]]),
-                       totals):
-        raise AssertionError(f"torch.searchsorted totals differ from KH on "
-                             f"{tag}")
-    n_masked = int(pmask.sum())
-    steps = max(1, W.bit_length())
-    record("mj_ranges", "merge_join.cu", "asgart_tpu/device_engine.py:788",
-           err, cuda_ms(kh), cuda_ms(ph),
-           f"{total} lanes ({n_masked} masked in) against W={W}",
-           8 * total + 9 * total + 8 * W, n_masked * 4 * steps,
-           library_ms=lib_ms)
-    del sk, pk, skey, pkey
+    lane_lo, lane_hi, _ = kh_checks(
+        record, tag, skey, k, pkey, pmask, lane_off,
+        "asgart_tpu/device_engine.py:788", f"W={W}")
+    del skey, pkey
 
     kd_check(record, s, specs, lane_off, lane_lo, lane_hi, pmask, sa,
              lambda cs, cl: rebased_bases(cs, cl, ws, W))
@@ -1489,9 +1539,15 @@ def run_mj_path(fa: str, n: int, device, path: str, settings,
                                      f"{c['pack_keys']}, mj_ranges "
                                      f"{c['mj_ranges']} launches for "
                                      f"{len(windows)} windows")
-    elif runs["warm"][3]["pack_keys"] or runs["warm"][3]["mj_ranges"]:
-        raise AssertionError(f"{tag} warm run (a cache hit) launched KA or "
-                             "KH")
+            # one key directory a window build
+            if c["mj_directory"] != len(windows):
+                raise AssertionError(f"{tag} {tag2}: mj_directory "
+                                     f"{c['mj_directory']} launches for "
+                                     f"{len(windows)} windows")
+    elif runs["warm"][3]["pack_keys"] or runs["warm"][3]["mj_ranges"] \
+            or runs["warm"][3]["mj_directory"]:
+        raise AssertionError(f"{tag} warm run (a cache hit) launched KA, "
+                             "KH or KH's directory")
     for row in rows:
         row["launches"] = counts[row["name"]]
     if plain_events and not big:
@@ -1930,12 +1986,14 @@ def table_kernel_checks(fa: str, path: str, settings, device
         lib[1].index_put_((sa64,), run_hi)
         lib[2].index_put_((sa64,), run_lo & 0x7FFFFFFF)
 
-    lib_ms = cuda_ms(lj)
+    lib_ms = cuda_ms(lj, FINE_REPS)
     if any(not torch.equal(a, b) for a, b in zip(lib, tables)):
         raise AssertionError(f"index_put_ differs from KJ on {tag}")
-    record("invert_tables", "tables.cu", "asgart_tpu/device_index.py:467",
-           err, cuda_ms(kj), cuda_ms(pj), f"n={n}", 24 * n, 3 * n,
-           library_ms=lib_ms)
+    record("invert_tables", "invert.cu", "asgart_tpu/device_index.py:467",
+           err, cuda_ms(kj, FINE_REPS), cuda_ms(pj),
+           f"n={n}, the table form of KC's scatter", 24 * n, 3 * n,
+           library_ms=lib_ms,
+           alone=(kernel_ms(kj, FINE_REPS), kernel_ms(lj, FINE_REPS)))
     del run_lo, run_hi, sa64, lib
     pos_lo, pos_hi, rank = tables
     del tables
@@ -2223,10 +2281,9 @@ def big_whole_checks(tag: str, strand, chunks, settings, window, src: int,
     from asgart_tpu_torch.device_engine import chunk_specs, rebased_bases
     from asgart_tpu_torch.fused_index import sort_keys
     from asgart_tpu_torch.kernels import (group_bounds, invert_fused,
-                                          mj_ranges, pack_keys)
+                                          mj_directory, mj_ranges, pack_keys)
     from asgart_tpu_torch.kernels.group_bounds import group_bounds_plain
     from asgart_tpu_torch.kernels.invert import invert_fused_plain
-    from asgart_tpu_torch.kernels.merge_join import mj_ranges_plain
     from asgart_tpu_torch.kernels.pack_keys import (chunk_tables,
                                                     pack_keys_plain)
 
@@ -2322,33 +2379,16 @@ def big_whole_checks(tag: str, strand, chunks, settings, window, src: int,
     del rank, tied
     torch.cuda.empty_cache()
 
-    lane_lo, lane_hi, _ = mj_ranges(skey, pkey, pmask, lane_off)
+    # the main path's join: the whole window from its directory
+    lane_lo, lane_hi, _ = mj_ranges(skey, pkey, pmask, lane_off,
+                                    mj_directory(skey, k))
     a = (W - R) // 2  # a slice of the sorted keys, the trailing probes
-    sk, pk, pm = skey[a:a + R], pkey[lane_off[c0]:], pmask[lane_off[c0]:]
-    kh = lambda: mj_ranges(sk, pk, pm, sub_off)  # noqa: E731
-    ph = lambda: mj_ranges_plain(sk, pk, pm, sub_off)  # noqa: E731
-    got = kh()
-    err = max_abs_err(got, ph())
-    skf, pkf = sk >> 1, pk >> 1
-    ends = torch.tensor(sub_off[1:], device=device) - 1
-
-    def lh():  # the two searchsorted calls and the masked sums
-        lo = torch.searchsorted(skf, pkf, side="left")
-        hi = torch.searchsorted(skf, pkf, side="right")
-        return torch.where(pm, hi - lo, 0).cumsum(0)[ends]
-
-    csum = lh()
-    if not torch.equal(csum - torch.cat([csum.new_zeros(1), csum[:-1]]),
-                       got[2]):
-        raise AssertionError(f"torch.searchsorted totals differ from KH on "
-                             f"{tag}")
-    n_masked = int(pm.sum())
-    record("mj_ranges", "merge_join.cu", "asgart_tpu/device_engine.py:788",
-           err, cuda_ms(kh), cuda_ms(ph),
-           f"{nsub} lanes ({n_masked} masked in) against {R} sorted rows "
-           f"of W={W} (from slot {a})", 17 * nsub + 8 * R,
-           n_masked * 4 * max(1, R.bit_length()), library_ms=cuda_ms(lh))
-    del got, skf, pkf, skey, pkey
+    kh_checks(record, tag, skey[a:a + R], k, pkey[lane_off[c0]:],
+              pmask[lane_off[c0]:], sub_off,
+              "asgart_tpu/device_engine.py:788",
+              f"{R} sorted rows of W={W} (from slot {a}), lanes from chunk "
+              f"start {sub[0][0]}")
+    del skey, pkey
     torch.cuda.empty_cache()
 
     def bases(cs, cl):
@@ -2456,7 +2496,8 @@ def run_big_whole(work: str, mbp: float, device, plain_events: int = 0
         raise AssertionError(f"{tag}: the planner did not shard into {S} "
                              f"windows: {said.lines}")
     for tag2, (_, _, _, c) in runs.items():
-        want = {"unpack_codes": 1, "pack_keys": S + 1, "mj_ranges": S}
+        want = {"unpack_codes": 1, "pack_keys": S + 1, "mj_ranges": S,
+                "mj_directory": S}
         if any(c[m] != v for m, v in want.items()):
             raise AssertionError(f"{tag} {tag2}: launches {c}, expected "
                                  f"{want} for {S} merge-join windows")
@@ -2881,9 +2922,10 @@ def run_hosts(fa: str, device, work: str, host: str) -> None:
         raise AssertionError(f"{tag}: no worker held device memory")
 
 
-RANK_KERNELS = ("pack_keys", "mj_ranges", "gather_owned", "scan_core")
+RANK_KERNELS = ("pack_keys", "mj_ranges", "mj_directory", "gather_owned",
+                "scan_core")
 PROBE_KERNELS = ("table_ranges", "scan_core")
-WINDOW_KERNELS = ("pack_keys", "mj_ranges", "scan_core")
+WINDOW_KERNELS = ("pack_keys", "mj_ranges", "mj_directory", "scan_core")
 MESH_KERNELS = WINDOW_KERNELS + ("gather_flat",)  # KP: the probe-axis merge
 MESH_RANKS = 8  # mesh_shards: 8 ranks at --shards 4, the (4, 2) mesh
 
@@ -3027,9 +3069,10 @@ def run_rank_trim(fa: str, n: int, device, trim, host: str) -> list:
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"{tag} main path")
-    if runs["warm"][2].get("pack_keys") or runs["warm"][2].get("mj_ranges"):
-        raise AssertionError(f"{tag} warm run (a cache hit) launched KA or "
-                             "KH")
+    if runs["warm"][2].get("pack_keys") or runs["warm"][2].get("mj_ranges") \
+            or runs["warm"][2].get("mj_directory"):
+        raise AssertionError(f"{tag} warm run (a cache hit) launched KA, "
+                             "KH or KH's directory")
     kt_row(recorder(rows, "rank_trim", 20), check, "largest chunk, 1 rank")
     rows[-1]["launches"] = counts["gather_owned"]
     INDEX_CACHE.clear()
@@ -3144,8 +3187,7 @@ def mesh_checks(fa: str, settings, device, w: int, P: int,
                                                 chunk_specs, merged_index,
                                                 probe_lanes, rebased_bases)
     from asgart_tpu_torch.fasta import prepare_data
-    from asgart_tpu_torch.kernels import gather_flat, mj_ranges, pack_keys
-    from asgart_tpu_torch.kernels.merge_join import mj_ranges_plain
+    from asgart_tpu_torch.kernels import gather_flat, pack_keys
     from asgart_tpu_torch.kernels.slices import gather_flat_plain
     from asgart_tpu_torch.kernels.pack_keys import (chunk_tables,
                                                     pack_keys_plain)
@@ -3182,27 +3224,13 @@ def mesh_checks(fa: str, settings, device, w: int, P: int,
            total * (4 * k + 8))
     rows[-1]["launches"] = r0["pack_keys"]
 
-    kh = lambda: mj_ranges(idx.key, pkey, pmask, lane_off)  # noqa: E731
-    ph = lambda: mj_ranges_plain(idx.key, pkey, pmask, lane_off)  # noqa: E731
-    lane_lo, lane_hi, totals = kh()
-    err = max_abs_err((lane_lo, lane_hi, totals), ph())
-    sk, pk = idx.key >> 1, pkey >> 1
-    ends = torch.tensor(lane_off[1:], device=device) - 1
-
-    def lh():  # the two searchsorted calls and the masked sums
-        lo = torch.searchsorted(sk, pk, side="left")
-        hi = torch.searchsorted(sk, pk, side="right")
-        return torch.where(pmask, hi - lo, 0).cumsum(0)[ends]
-
-    n_masked = int(pmask.sum())
-    record("mj_ranges", "merge_join.cu", "asgart_tpu/device_engine.py:2817 "
-           "(_mesh_ranges_batch's _mj_tail :788; :2788 one chunk)", err,
-           cuda_ms(kh), cuda_ms(ph), f"cell ({w}, 0): {total} lanes "
-           f"({n_masked} masked in) against W={W}",
-           8 * total + 9 * total + 8 * W, n_masked * 4 * max(1, W.bit_length()),
-           library_ms=cuda_ms(lh))
+    lane_lo, lane_hi, _ = kh_checks(
+        record, "mesh_shards k=20", idx.key, k, pkey, pmask, lane_off,
+        "asgart_tpu/device_engine.py:2817 (_mesh_ranges_batch's _mj_tail "
+        ":788; :2788 one chunk)", f"cell ({w}, 0)")
+    rows[-2]["launches"] = r0["mj_directory"]
     rows[-1]["launches"] = r0["mj_ranges"]
-    del sk, pk, pkey
+    del pkey
 
     parts = []
     for p in range(P):  # cell (w, p)'s lanes, as its rank's part()

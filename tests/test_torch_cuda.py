@@ -3,8 +3,11 @@ every transform and k in {8, 20} (one-word keys) and {25, 30} (two-word
 keys), KA's window mode on trim windows (whose suffix order keeps window
 positions, scanned by KD with rebased constants), the merge-join window
 engine's kernels (KA's probe-only mode and window keys, KC with no lanes,
-KH, KD with rebased constants on its window-relative index), KI, the table
-engine's (KA's doubled mode, KB's N flag and run ends, KJ, KK / KL at a
+KH with and without its key directory, the directory against its plain
+version at its edges and on a shard, KD with rebased constants on its
+window-relative index), KI, the table engine's (KA's doubled mode, KB's N
+flag and run ends, KJ, the table form of KC's scatter, also at the
+bucket's and the tile's edges and with its launch counts, KK / KL at a
 small ``tied_cap``, KM, KD on its lanes), and the port's JSON on the GPU
 against the host engine (whole genome, trim windows and ``shards``, on the
 fused build, on the table engine with and without ``--checkpoint``, on
@@ -142,11 +145,12 @@ def test_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse, complement, k):
             n_events += got.n_events
     torch.cuda.synchronize()
     after = launch_counts()
-    # KH runs on the merge-join engine (test_mj_kernels_equal_plain_on_gpu),
+    # KH and its directory run on the merge-join engine
+    # (test_mj_kernels_equal_plain_on_gpu),
     # KI in upload_codes (test_unpack_codes_equal_plain_on_gpu), KJ, KM, KK
     # and KL on the table engine (test_table_kernels_equal_plain_on_gpu)
     assert all(after[name] > before[name] for name in after
-               if name not in ("mj_ranges", "unpack_codes",
+               if name not in ("mj_ranges", "mj_directory", "unpack_codes",
                                *TABLE_KERNELS, *CHAIN_KERNELS,
                                *SLICE_KERNELS, *SEED_KERNELS,
                                *SHARD_KERNELS))
@@ -240,7 +244,7 @@ def test_window_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse,
     torch.cuda.synchronize()
     after = launch_counts()
     assert all(after[name] > before[name] for name in after
-               if name not in ("mj_ranges", "unpack_codes",
+               if name not in ("mj_ranges", "mj_directory", "unpack_codes",
                                *TABLE_KERNELS, *CHAIN_KERNELS,
                                *SLICE_KERNELS, *SEED_KERNELS,
                                *SHARD_KERNELS))
@@ -1678,3 +1682,136 @@ def test_invert_fused_partition_on_gpu(gpu, M, W, n_chunks):
     the lanes); chunk counts at the by-value capacity (256) and one past
     it; 17 buckets; no row (zero totals, no launch)."""
     _kc_equal(gpu, M, W, n_chunks, M + W + n_chunks)
+
+
+@pytest.mark.parametrize("M", [1, 8191, 8193, (1 << 21) + 5, 1 << 24])
+def test_invert_tables_partition_on_gpu(gpu, M):
+    """KJ, the table form of KC's partitioned scatter, against its plain
+    version on a random permutation: one row, off the tile width (2^13)
+    on both sides, off the bucket width (2^21), and 2^24 rows; run_lo
+    with its sign bit set on some rows (KB's N flag). One KJ launch
+    counted, none of KC."""
+    from asgart_tpu_torch.kernels import invert_tables, launch_counts
+    from asgart_tpu_torch.kernels.tables import invert_tables_plain
+
+    rng = np.random.default_rng(M)
+    sa = torch.from_numpy(rng.permutation(M).astype(np.int32)).to(gpu)
+    lo = rng.integers(-(1 << 31), 1 << 31, M, dtype=np.int64)
+    hi = rng.integers(0, 1 << 31, M, dtype=np.int64)
+    lo, hi = (torch.from_numpy(a.astype(np.int32)).to(gpu) for a in (lo, hi))
+    before = launch_counts()
+    got = invert_tables(sa, lo, hi)
+    _equal(got, invert_tables_plain(sa, lo, hi))
+    after = launch_counts()
+    assert after["invert_tables"] == before["invert_tables"] + 1
+    assert after["invert_fused"] == before["invert_fused"]
+
+
+def test_table_build_launch_counts_on_gpu(tmp_path, gpu):
+    """The table build launches KJ once and KC never."""
+    from asgart_tpu_torch.kernels import launch_counts
+    from asgart_tpu_torch.table_index import DeviceIndex
+
+    _, _, strand = prepared(tmp_path, [("chr1", chunked_genome())])
+    for doubled in (True, False):
+        before = launch_counts()
+        DeviceIndex.build(strand.data, 20, doubled, doubled, gpu)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        assert after["invert_tables"] == before["invert_tables"] + 1
+        assert after["invert_fused"] == before["invert_fused"]
+
+
+def _mj_keys(rng, k, W, alphabet):
+    """W sorted one-word window keys (flag 0) of k symbols drawn from
+    ``alphabet`` (3-bit ranks)."""
+    syms = rng.choice(alphabet, size=(W, k))
+    v = np.zeros(W, dtype=np.int64)
+    for t in range(k):
+        v = (v << 3) | syms[:, t]
+    return np.sort(v) << 1
+
+
+# (k, W, alphabet, form): W = 1; every key in one bucket (one repeated
+# key); empty buckets (two symbols of four); '$' and N ranks; k below the
+# directory's symbols; k = 2 and k = 20; the directory's least window (48)
+# and one under it (no directory)
+MJ_CASES = [(20, 1, (1, 2, 3, 5), "random"), (20, 5000, (1,), "random"),
+            (20, 5000, (1, 5), "random"), (8, 3000, (0, 1, 4, 5), "random"),
+            (3, 4000, (1, 2, 3, 5), "random"), (2, 3000, (0, 1, 2, 3, 4, 5),
+                                                "random"),
+            (20, 200_000, (1, 2, 3, 5), "random"),
+            (20, 200_000, (1, 2, 3, 5), "repeats"),
+            (12, 48, (1, 2, 3, 5), "random"), (12, 47, (1, 2, 3, 5),
+                                               "random")]
+
+
+@pytest.mark.parametrize("k,W,alphabet,form", MJ_CASES)
+def test_mj_directory_and_ranges_on_gpu(gpu, k, W, alphabet, form):
+    """KH's key directory against its plain version, and KH searching from
+    it (and without it) against its plain version, with probes from the
+    window, absent ones, masked lanes, a negative key and one past k
+    symbols; its reads counted with and without the directory."""
+    from asgart_tpu_torch.kernels import launch_counts, mj_directory, \
+        mj_ranges
+    from asgart_tpu_torch.kernels.merge_join import (mj_directory_plain,
+                                                     mj_ranges_plain,
+                                                     mj_ranges_reads)
+
+    rng = np.random.default_rng(W + k)
+    skey = _mj_keys(rng, k, W, alphabet)
+    if form == "repeats":  # a quarter of the window one key
+        skey[W // 2: W // 2 + W // 4] = skey[W // 2]
+        skey = np.sort(skey)
+    B = 3 * W + 100
+    pkey = _mj_keys(rng, k, B, alphabet) | 1
+    take = rng.random(B) < 0.5
+    pkey[take] = skey[rng.integers(0, W, B)[take]] | 1
+    pkey[:2] = (-(1 << 40)) | 1, ((1 << (3 * k)) + 5) << 1 | 1
+    mask = rng.random(B) < 0.8
+    mask[:2] = True
+    lane_off = [0, *sorted(rng.integers(0, B + 1, 3).tolist()), B]
+    skey, pkey, mask = (torch.from_numpy(a).to(gpu)
+                        for a in (skey, pkey, mask))
+    before = launch_counts()
+    d = mj_directory(skey, k)
+    if d is not None:
+        assert launch_counts()["mj_directory"] == \
+            before["mj_directory"] + 1
+        assert (1 << d.bits) + 1 <= W // 16
+        _equal((d.table,), (mj_directory_plain(skey, k, d.bits).table,))
+    else:
+        assert W < 48 and launch_counts() == before
+    want = mj_ranges_plain(skey, pkey, mask, lane_off)
+    _equal(mj_ranges(skey, pkey, mask, lane_off, d), want)
+    _equal(mj_ranges(skey, pkey, mask, lane_off), want)
+    reads, dir_reads = mj_ranges_reads(skey, pkey, mask, lane_off, d)
+    reads0, dir0 = mj_ranges_reads(skey, pkey, mask, lane_off)
+    assert dir0 == 0 and reads0 > 0 and reads > 0
+    assert dir_reads == (2 * int(mask[2:].sum()) if d is not None else 0)
+
+
+def test_mj_directory_on_shard_and_refusal_on_gpu(gpu):
+    """A shard's directory (keys[a:b] of 4 shards) equals its plain
+    version, and KH from it equals the plain version on the shard; keys
+    out of order or past k symbols raise."""
+    from asgart_tpu_torch.kernels import mj_directory, mj_ranges
+    from asgart_tpu_torch.kernels.merge_join import (mj_directory_plain,
+                                                     mj_ranges_plain)
+
+    rng = np.random.default_rng(7)
+    W, k = 100_001, 20
+    skey = torch.from_numpy(_mj_keys(rng, k, W, (1, 2, 3, 5))).to(gpu)
+    Wl = -(-W // 4)
+    pkey = skey[rng.integers(0, W, 5000)] | 1
+    mask = torch.ones(5000, dtype=torch.bool, device=gpu)
+    for r in range(4):
+        key = skey[min(W, r * Wl): min(W, (r + 1) * Wl)].clone()
+        d = mj_directory(key, k)
+        _equal((d.table,), (mj_directory_plain(key, k, d.bits).table,))
+        _equal(mj_ranges(key, pkey, mask, [0, 5000], d),
+               mj_ranges_plain(key, pkey, mask, [0, 5000]))
+    with pytest.raises(ValueError, match="below its predecessor"):
+        mj_directory(skey.flip(0).contiguous(), k)
+    with pytest.raises(ValueError, match="outside k symbols"):
+        mj_directory(skey, 8)
