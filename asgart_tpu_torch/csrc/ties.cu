@@ -49,7 +49,14 @@
 // writes 8 B per row; KL reads 16 B per row in order, gathers 4 B of sa and
 // scatters 4 B of rank, and writes 5 B. Both memory-bound, each random
 // access its own sector. Run starts by galloping back (asgart::run_start),
-// as KF finds them.
+// as KF finds them. KL's random store, one DRAM sector a row into a plane
+// larger than the L2, is most of its time, so KL is two steps
+// (kernels/ties.py): here its in-order pass, which writes new_sa, the run
+// start s[r] and tied[r], all coalesced (the gather sa[order[r]] reads near
+// r: the sort is stable and KK's primary key is a run start of the current
+// order); then rank[new_sa] = s through KC's partitioned scatter with no
+// lanes (csrc/invert.cu, asgart_invert_fused with M = W = n), whose random
+// stores all land in shared memory.
 #include "common.cuh"
 
 namespace {
@@ -115,7 +122,7 @@ __global__ void full_round_refine_kernel(const long long* __restrict__ skey,
                                          const int* __restrict__ sa,
                                          long long n, long long direct_bound,
                                          int* __restrict__ new_sa,
-                                         int* __restrict__ rank,
+                                         int* __restrict__ run_start,
                                          uint8_t* __restrict__ tied) {
   for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        r < n; r += (long long)gridDim.x * blockDim.x) {
@@ -124,7 +131,7 @@ __global__ void full_round_refine_kernel(const long long* __restrict__ skey,
     const long long s = asgart::run_start(
         r, [&](long long j) { return __ldg(skey + j) == v; });
     new_sa[r] = p;
-    rank[p] = (int)s;
+    run_start[r] = (int)s;
     tied[r] = (s < r || (r + 1 < n && __ldg(skey + r + 1) == v)) &&
               p < direct_bound;
   }
@@ -166,14 +173,15 @@ ASGART_API int asgart_full_round_keys(const void* sa, const void* rank,
   return (int)cudaGetLastError();
 }
 
+// KL's in-order pass (its scatter is KC's: kernels/ties.py).
 ASGART_API int asgart_full_round_refine(const void* skey, const void* order,
                                         const void* sa, long long n,
                                         long long direct_bound, void* new_sa,
-                                        void* rank, void* tied,
+                                        void* run_start, void* tied,
                                         void* stream) {
   full_round_refine_kernel<<<asgart::grid_for(n), asgart::kThreads, 0,
                              (cudaStream_t)stream>>>(
       (const long long*)skey, (const long long*)order, (const int*)sa, n,
-      direct_bound, (int*)new_sa, (int*)rank, (uint8_t*)tied);
+      direct_bound, (int*)new_sa, (int*)run_start, (uint8_t*)tied);
   return (int)cudaGetLastError();
 }

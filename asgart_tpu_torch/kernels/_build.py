@@ -35,11 +35,12 @@ _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
 # entry point -> argument types (all return int: a cudaError_t)
 SIGNATURES = {
-    # codes, n1, lane_off [n_chunks + 1], x0cl [n_chunks, 2], n_chunks, W,
-    # ws, total, k, reverse, complement, doubled, key, key_lo (None: one
-    # word), lane_mask, stream
-    "asgart_pack_keys": [_P, _I64, _P, _P, _I32, _I64, _I64, _I64, _I32,
-                         _I32, _I32, _I32, _P, _P, _P, _P],
+    # codes, n1, lane_off [n_chunks + 1], tile_off [n_chunks + 1], x0cl
+    # [n_chunks, 2], n_chunks, live_tiles, n_live, W, ws, total, k,
+    # reverse, complement, doubled, key, key_lo (None: one word),
+    # lane_mask, stream
+    "asgart_pack_keys": [_P, _I64, _P, _P, _P, _I32, _I64, _I64, _I64, _I64,
+                         _I64, _I32, _I32, _I32, _I32, _P, _P, _P, _P],
     # skey, skey_lo (None: one word), sa, M, W, n_shift, run_end, run_lo,
     # run_hi, tied, stream
     "asgart_group_bounds": [_P, _P, _P, _I64, _I64, _I32, _I32, _P, _P, _P,
@@ -85,7 +86,7 @@ SIGNATURES = {
                             _P, _P, _P],
     # sa, rank, n, h, direct_bound, key, stream
     "asgart_full_round_keys": [_P, _P, _I64, _I64, _I64, _P, _P],
-    # skey, order, sa, n, direct_bound, new_sa, rank, tied, stream
+    # skey, order, sa, n, direct_bound, new_sa, run_start, tied, stream
     "asgart_full_round_refine": [_P, _P, _P, _I64, _I64, _P, _P, _P, _P],
     # lane_lo, lane_hi, lane_mask, n, gran, totals, stream
     "asgart_granule_totals": [_P, _P, _P, _I64, _I64, _P, _P],

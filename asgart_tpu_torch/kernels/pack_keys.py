@@ -2,8 +2,10 @@
 word (k <= 20) or two words (k = 21..30: int64 ``w1``, int32 ``w0``).
 
 Kernel: ``csrc/pack_keys.cu`` (see its header for the layout, what it
-replaces in the JAX package and how it is bounded). ``pack_keys_plain`` is
-the same function in plain PyTorch.
+replaces in the JAX package and how it is bounded): tiles of direct rows
+and tiles of one chunk's probe lanes, each staged in shared memory and
+rolled (:func:`probe_tiles` is the host's tile table). ``pack_keys_plain``
+is the same function in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -19,6 +21,10 @@ PLANE_MAX = 2**31 - 1  # the JAX pad sentinel of every plane
 PAD_KEY = (PLANE_MAX << 31) | (LO_CLAMP << 1) | 1
 PAD_KEY2 = ((PLANE_MAX << 31) | PLANE_MAX, (LO_CLAMP << 1) | 1)
 MAX_K = 3 * LO_SYMS  # two words hold three 30-bit symbol planes
+# csrc/pack_keys.cu: the direct rows of a tile (kDirectRows) and the probe
+# lanes of one (kProbeLanes)
+KA_DIRECT_TILE = 2048
+KA_PROBE_TILE = 1024
 
 
 def key_words(k: int) -> int:
@@ -40,6 +46,17 @@ def chunk_tables(specs, n1: int, k: int, reverse: bool, complement: bool):
         x0s.append(_probe_x0(cs, cl, n1, k, reverse, complement) - base)
         cls.append(cl)
     return lane_off, x0s, cls
+
+
+def probe_tiles(lane_off) -> list[int]:
+    """Each chunk's first probe tile, then the live tiles' count
+    (n_chunks + 1 ints): chunk c's lanes [lane_off[c], lane_off[c + 1])
+    take ceil(lanes / KA_PROBE_TILE) tiles of their own, so that no tile
+    straddles a chunk."""
+    tiles = [0]
+    for a, b in zip(lane_off, lane_off[1:]):
+        tiles.append(tiles[-1] + -(-(b - a) // KA_PROBE_TILE))
+    return tiles
 
 
 def pack_keys(codes: torch.Tensor, specs, k: int, reverse: bool,
@@ -86,15 +103,22 @@ def pack_keys(codes: torch.Tensor, specs, k: int, reverse: bool,
     if key_words(k) == 2:
         keys.append(torch.empty(W + total, dtype=torch.int32, device=dev))
     lane_mask = torch.empty(total, dtype=torch.bool, device=dev)
-    off_t = torch.tensor(lane_off, dtype=torch.int64, device=dev)
-    x0cl = torch.tensor([v for pair in zip(x0s, cls) for v in pair] or [0],
-                        dtype=torch.int64, device=dev)
+    n_chunks = len(specs)
+    tile_off = probe_tiles(lane_off)
+    # one table: lane_off, tile_off, then the (x0, cl) pairs
+    tab = torch.tensor(lane_off + tile_off + [v for pair in zip(x0s, cls)
+                                              for v in pair],
+                       dtype=torch.int64)
+    if dev.type == "cuda":  # through pinned memory: the host does not wait
+        tab = tab.pin_memory().to(dev, non_blocking=True)  # for the card
+    tp = tab.data_ptr()
     lib = _build.lib()
     pack_keys.launches += 1
     _build.check(lib.asgart_pack_keys(
-        codes.data_ptr(), n1, off_t.data_ptr(), x0cl.data_ptr(),
-        len(specs), W, ws, total, k, int(reverse), int(complement),
-        int(doubled), keys[0].data_ptr(), keys[1].data_ptr() if len(keys) == 2 else None,
+        codes.data_ptr(), n1, tp, tp + 8 * (n_chunks + 1),
+        tp + 16 * (n_chunks + 1), n_chunks, tile_off[-1], lane_off[-1], W,
+        ws, total, k, int(reverse), int(complement), int(doubled),
+        keys[0].data_ptr(), keys[1].data_ptr() if len(keys) == 2 else None,
         lane_mask.data_ptr(), _build.stream_of(codes)), "pack_keys")
     return keys, lane_mask
 

@@ -3,8 +3,10 @@ the tied subset, before and after the round's sort; KK ``full_round_keys``
 and KL ``full_round_refine``: one round over every row of a table build.
 
 Kernels: ``csrc/ties.cu`` (see its header for what they replace in the
-JAX package and how they are bounded). Each ``<name>_plain`` is the same
-function in plain PyTorch.
+JAX package and how they are bounded); KL's random store ``rank[new_sa] =
+s`` runs through KC's partitioned scatter with no lanes
+(``csrc/invert.cu``, its scratch :func:`~.invert.kc_plan` (n, n)). Each
+``<name>_plain`` is the same function in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .invert import kc_plan
 
 
 def _check(name, *pairs):
@@ -164,12 +167,26 @@ def full_round_refine(skey: torch.Tensor, order: torch.Tensor,
     dev = skey.device
     new_sa = torch.empty(n, dtype=torch.int32, device=dev)
     tied = torch.empty(n, dtype=torch.bool, device=dev)
+    if n == 0:
+        return new_sa, tied
+    # KC with no lanes (M = W = n): its scratch, the in-order pass's run
+    # starts in the second partition pass's run_lo plane (the first pass
+    # reads them before the second writes there)
+    plan = kc_plan(n, n)
+    scratch = torch.empty(plan.words, dtype=torch.int32, device=dev)
+    sp = scratch.data_ptr()
+    d1, l1, d2, l2 = (sp + 4 * w for w in (plan.d1_at, plan.l1_at,
+                                           plan.d2_at, plan.l2_at))
+    stream = _build.stream_of(skey)
     lib = _build.lib()
     full_round_refine.launches += 1
     _build.check(lib.asgart_full_round_refine(
         skey.data_ptr(), order.data_ptr(), sa.data_ptr(), n, direct_bound,
-        new_sa.data_ptr(), rank.data_ptr(), tied.data_ptr(),
-        _build.stream_of(skey)), "full_round_refine")
+        new_sa.data_ptr(), l2, tied.data_ptr(), stream), "full_round_refine")
+    _build.check(lib.asgart_invert_fused(
+        new_sa.data_ptr(), l2, l2, None, n, n, None, 0, 0, sp, plan.coarse,
+        plan.tiles, d1, l1, None, 0, d2, l2, None, 0, rank.data_ptr(), None,
+        None, None, stream), "full_round_refine")
     return new_sa, tied
 
 

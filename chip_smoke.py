@@ -168,8 +168,8 @@
    from the first chunk's record, held to the whole path's host JSON; then
    :func:`nccl_shared_card` prints how NCCL treats two ranks on one card;
 10. prints a {"kernels": [...]} line (each kernel once per path, with the
-   path's name and k; each row's ``ms`` the wrapper's call; KC's, KH's,
-   KJ's, KP's, KQ's and KR's rows also ``kernel_alone_ms`` and
+   path's name and k; each row's ``ms`` the wrapper's call; KA's, KC's,
+   KH's, KJ's, KL's, KP's, KQ's and KR's rows also ``kernel_alone_ms`` and
    ``library_alone_ms``
    (null where no library call computes the function), the launches alone
    (:func:`kernel_ms`), and KQ's ``key_reads`` and ``jax_loop_probes``,
@@ -866,9 +866,11 @@ def kernel_checks(fa: str, path: str, settings, device,
         replaces = "asgart_tpu/device_engine.py:904"
     else:
         replaces = "asgart_tpu/device_engine.py:761"
-    record("pack_keys", "pack_keys.cu", replaces, err, cuda_ms(ka),
-           cuda_ms(kp), f"M={M}, W={W}, ws={ws}, {words} key words",
-           n1 + M * kwb + total, M * (4 * k + 8))
+    record("pack_keys", "pack_keys.cu", replaces, err,
+           cuda_ms(ka, FINE_REPS), cuda_ms(kp),
+           f"M={M}, W={W}, ws={ws}, {words} key words",
+           n1 + M * kwb + total, M * (4 * k + 8),
+           alone=(kernel_ms(ka, FINE_REPS), None))
     del codes
 
     ms = cuda_ms(lambda: sort_keys([w.clone() for w in keys]))
@@ -1024,7 +1026,9 @@ def mj_kernel_checks(fa: str, path: str, settings, device, trim
     want_key, want_mask = pap()
     err_p = max_abs_err((pkey, pmask), (*want_key, want_mask))
     del want_key, want_mask
-    times = [cuda_ms(f) for f in (kaw, paw, kap, pap)]
+    times = [cuda_ms(kaw, FINE_REPS), cuda_ms(paw), cuda_ms(kap, FINE_REPS),
+             cuda_ms(pap)]
+    alone = kernel_ms(kaw, FINE_REPS) + kernel_ms(kap, FINE_REPS)
     # probe-only mode's own bound: the strand's codes, 9 B per lane out
     p_bound, p_by = bound(n1 + 9 * total, total * (4 * k + 8))
     print(f"{tag} KA window keys (W={W}, ws={ws}): max_abs_err={err_w} "
@@ -1036,7 +1040,8 @@ def mj_kernel_checks(fa: str, path: str, settings, device, trim
            "asgart_tpu/device_engine.py:904 + asgart_tpu/device_index.py:269",
            max(err_w, err_p), times[0] + times[2], times[1] + times[3],
            f"W={W}, ws={ws} window keys + {total} probe keys",
-           W + 8 * W + n1 + 9 * total, (W + total) * (4 * k + 8))
+           W + 8 * W + n1 + 9 * total, (W + total) * (4 * k + 8),
+           alone=(alone, None))
     del codes
 
     ms = cuda_ms(lambda: sort_keys([key.clone()]))
@@ -1874,8 +1879,9 @@ def table_ties(record, tag: str, sa, rank, tied, n: int, n1: int, k: int,
         got, want = kl(), pl()
         err = max_abs_err((*got, rank_k), (*want, rank_p))
         record("full_round_refine", "ties.cu",
-               "asgart_tpu/device_index.py:769", err, cuda_ms(kl),
-               cuda_ms(pl), f"n={n} rows", 29 * n, 20 * n)
+               "asgart_tpu/device_index.py:769", err,
+               cuda_ms(kl, FINE_REPS), cuda_ms(pl), f"n={n} rows", 29 * n,
+               20 * n, alone=(kernel_ms(kl, FINE_REPS), None))
         del skey, order, rank_k, rank_p, got, want
         torch.cuda.empty_cache()
         before = full_round_keys.launches
@@ -1945,9 +1951,10 @@ def table_kernel_checks(fa: str, path: str, settings, device
     kwb = 8 if words == 1 else 12  # key bytes per row
     record("pack_keys", "pack_keys.cu",
            "asgart_tpu/device_index.py:244 + :269" if words == 1 else
-           "asgart_tpu/device_index.py:244 + :283", err, cuda_ms(ka),
-           cuda_ms(kp), f"n={n} text rows, {words} key words",
-           n1 + n * kwb, n * (4 * k + 8))
+           "asgart_tpu/device_index.py:244 + :283", err,
+           cuda_ms(ka, FINE_REPS), cuda_ms(kp),
+           f"n={n} text rows, {words} key words", n1 + n * kwb,
+           n * (4 * k + 8), alone=(kernel_ms(ka, FINE_REPS), None))
     del codes
     torch.cuda.empty_cache()
 
@@ -2325,7 +2332,9 @@ def big_whole_checks(tag: str, strand, chunks, settings, window, src: int,
     paw = lambda: pack_keys_plain(codes, [0], [], [], k, *rc,  # noqa: E731
                                   R, 0, we + 1 - R)
     err_w = max_abs_err((key[W - R:],), paw()[0])
-    times = [cuda_ms(f) for f in (kaw, paw, kap, pap)]
+    times = [cuda_ms(kaw, FINE_REPS), cuda_ms(paw), cuda_ms(kap, FINE_REPS),
+             cuda_ms(pap)]
+    alone = kernel_ms(kaw, FINE_REPS) + kernel_ms(kap, FINE_REPS)
     # probe-only mode's own bound on the timed lanes: their chunks' codes,
     # 9 B per lane out
     p_bound, p_by = bound(sum(cl for _, cl, _ in sub) + 9 * nsub,
@@ -2343,7 +2352,7 @@ def big_whole_checks(tag: str, strand, chunks, settings, window, src: int,
            f"{R} window rows from {we + 1 - R} + {nsub} probe lanes from "
            f"{sub[0][0]} (of W={W}, {total} lanes)",
            R + 8 * R + sum(cl for _, cl, _ in sub) + 9 * nsub,
-           (R + nsub) * (4 * k + 8))
+           (R + nsub) * (4 * k + 8), alone=(alone, None))
 
     (skey,), sa = sort_keys([key])
     del key
@@ -3219,9 +3228,9 @@ def mesh_checks(fa: str, settings, device, w: int, P: int,
     del want_key, want_mask
     record("pack_keys", "pack_keys.cu", "asgart_tpu/device_engine.py:2817 "
            "(_mesh_ranges_batch's _pack_batch_probe_keys :904; :2788 one "
-           "chunk)", err, cuda_ms(kap), cuda_ms(pap),
+           "chunk)", err, cuda_ms(kap, FINE_REPS), cuda_ms(pap),
            f"cell ({w}, 0): {total} probe keys, probe-only", n1 + 9 * total,
-           total * (4 * k + 8))
+           total * (4 * k + 8), alone=(kernel_ms(kap, FINE_REPS), None))
     rows[-1]["launches"] = r0["pack_keys"]
 
     lane_lo, lane_hi, _ = kh_checks(

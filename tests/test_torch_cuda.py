@@ -8,7 +8,9 @@ version at its edges and on a shard, KD with rebased constants on its
 window-relative index), KI, the table engine's (KA's doubled mode, KB's N
 flag and run ends, KJ, the table form of KC's scatter, also at the
 bucket's and the tile's edges and with its launch counts, KK / KL at a
-small ``tied_cap``, KM, KD on its lanes), and the port's JSON on the GPU
+small ``tied_cap``, KM, KD on its lanes), KA's tiles at their tile,
+chunk and k edges in every mode, KL's in-order pass and KC scatter at
+their edges (rank compared), and the port's JSON on the GPU
 against the host engine (whole genome, trim windows and ``shards``, on the
 fused build, on the table engine with and without ``--checkpoint``, on
 the merge-join engine with its route chosen by free memory alone, and past
@@ -1815,3 +1817,108 @@ def test_mj_directory_on_shard_and_refusal_on_gpu(gpu):
         mj_directory(skey.flip(0).contiguous(), k)
     with pytest.raises(ValueError, match="outside k symbols"):
         mj_directory(skey, 8)
+
+
+def _ka_codes(rng, n, offset, gpu):
+    """Genome codes (A, C, G, T, a few N runs) and the '$', as a view
+    ``offset`` bytes into a larger tensor on the GPU."""
+    g = rng.choice(np.array([1, 2, 3, 5], dtype=np.uint8), n)
+    for _ in range(4):
+        a = int(rng.integers(0, n))
+        g[a:a + int(rng.integers(1, 40))] = 4
+    g = np.concatenate([g, [0]]).astype(np.uint8)
+    buf = torch.zeros(len(g) + 64, dtype=torch.uint8, device=gpu)
+    buf[offset:offset + len(g)] = torch.from_numpy(g).to(gpu)
+    return buf[offset:offset + len(g)]
+
+
+@pytest.mark.parametrize("k", [2, 10, 11, 20, 21, 25, 30])
+@pytest.mark.parametrize("reverse,complement", TRANSFORMS)
+def test_pack_keys_tiles_on_gpu(gpu, reverse, complement, k):
+    """KA against its plain version in every mode at its tile, chunk and k
+    edges: probe-only over chunks of 1023, 3, 1025 and 1024 lanes (tiles
+    of 1024 lanes ending mid-chunk) with pad rows past them, and over
+    chunks with more lanes than their length holds at both ends of the
+    genome (reads past the probe source); fused (whole genome, then the
+    lanes); window keys (W = 2049, a window ending at the '$', W = 1);
+    a fused trim window; the doubled text (R/C runs); codes at aligned and
+    odd addresses. One launch counted a call."""
+    from asgart_tpu_torch.kernels import launch_counts, pack_keys
+    from asgart_tpu_torch.kernels.pack_keys import (chunk_tables,
+                                                    pack_keys_plain)
+
+    rng = np.random.default_rng(k * 4 + 2 * reverse + complement)
+    step = k // 2
+    counts = (1023, 3, 1025, 1024)
+    need = sum(nc * step + k + step + 17 for nc in counts) + 4200
+    for offset in (0, 3):
+        codes = _ka_codes(rng, need, offset, gpu)
+        n1 = codes.numel()
+        specs, pos = [], 5
+        for nc in counts:
+            cl = nc * step + k + step
+            specs.append((pos, cl, nc))
+            pos += cl + 17
+        specs = tuple(specs)
+        live = sum(counts)
+        tail = ((5, 100, 1025), (n1 - 151, 100, 1025))
+        cases = [(specs, 0, live + 1025, 0, False),
+                 (tail, 0, 2050, 0, False),
+                 (specs, n1, live + 3, 0, False),
+                 ((), 2049, 0, 1000, False),
+                 ((), 2048, 0, n1 - 2048, False),
+                 ((), 1, 0, 7, False),
+                 (specs, 4097, live, 333, False),
+                 ((), 0, 2050, 0, False)]
+        if reverse or complement:
+            cases.append(((), 2 * n1 - 1, 0, 0, True))
+        for sp, W, total, ws, doubled in cases:
+            before = launch_counts()["pack_keys"]
+            got = pack_keys(codes, sp, k, reverse, complement, W, total, ws,
+                            doubled)
+            assert launch_counts()["pack_keys"] == before + 1
+            tabs = chunk_tables(sp, n1, k, reverse, complement)
+            want = pack_keys_plain(codes, *tabs, k, reverse, complement, W,
+                                   total, ws, doubled)
+            _equal([*got[0], got[1]], [*want[0], want[1]])
+
+
+def _kl_inputs(rng, n, runs, gpu):
+    """A sorted round key of n rows in runs of the given lengths (cycled),
+    a random permutation ``order`` and a random order ``sa``."""
+    lens = []
+    while sum(lens) < n:
+        lens.append(runs[len(lens) % len(runs)])
+    lens[-1] -= sum(lens) - n
+    skey = np.repeat(np.cumsum(rng.integers(1, 5, len(lens))), lens)
+    order = rng.permutation(n).astype(np.int64)
+    sa = rng.permutation(n).astype(np.int32)
+    rank = rng.integers(0, n, n).astype(np.int32)
+    return (torch.from_numpy(skey.astype(np.int64)).to(gpu),
+            torch.from_numpy(order).to(gpu), torch.from_numpy(sa).to(gpu),
+            torch.from_numpy(rank).to(gpu))
+
+
+@pytest.mark.parametrize("n,runs", [
+    (1, (1,)), (5000, (1, 2, 7)), ((1 << 13) - 1, (1, 3)),
+    ((1 << 13) + 1, (2, 1)), ((1 << 21) + 5, (1, 1, 4, 30)),
+    (20_000, (20_000,)), (20_000, (1,)), (50_000, (10_000, 1, 3))])
+def test_full_round_refine_on_gpu(gpu, n, runs):
+    """KL (its in-order pass, then KC's scatter with M = W = n) against its
+    plain version, rank compared too: one row, below one tile (2^13), off
+    the tile on both sides, off the bucket (2^21), every row tied, none
+    tied, runs longer than a tile. One KL launch counted, none of KC."""
+    from asgart_tpu_torch.kernels import full_round_refine, launch_counts
+    from asgart_tpu_torch.kernels.ties import full_round_refine_plain
+
+    rng = np.random.default_rng(n + len(runs))
+    skey, order, sa, rank = _kl_inputs(rng, n, runs, gpu)
+    bound = n // 2 + 1
+    rank_p = rank.clone()
+    before = launch_counts()
+    got = full_round_refine(skey, order, sa, rank, bound)
+    after = launch_counts()
+    want = full_round_refine_plain(skey, order, sa, rank_p, bound)
+    _equal([*got, rank], [*want, rank_p])
+    assert after["full_round_refine"] == before["full_round_refine"] + 1
+    assert after["invert_fused"] == before["invert_fused"]
