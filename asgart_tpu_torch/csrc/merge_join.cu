@@ -32,18 +32,41 @@
 // at most 0.25 B a window row; bits = 0 is no directory: the whole window
 // is one bucket. A repeat-poor window's
 // buckets hold ~16-32 keys, a span of a few hundred bytes.
-// Build: one block a tile of kThreads rows, grid-stride; each thread
-// reads its row's key and computes its bucket once, into shared memory
-// beside the row before the tile's (its first thread's second bucket), and
-// row i writes dir[b] = i for the buckets (bucket(i - 1), bucket(i)] that
-// start there, consecutive words, by itself when they are fewer than 32,
-// else with its warp (the head and tail of a shard's keys, which cover
-// part of the key space, take 2^bits words in all). A bucket is the
-// digits of the key's first m symbols, looked up a symbol at a time in
-// 32-bit words, with the fill after the first '$', N, 6 or 7 found at
-// once from the symbols' bits. It flags a key outside [0, 2^(3k)) or out
-// of order, which the wrapper reads and raises on.
-//
+// Build: each thread takes kDirRows consecutive rows (two 16-byte key
+// loads where the keys are 16-byte aligned), a warp 32 kDirRows rows, the
+// warps grid-stride over the rows 0..W (row W: past every key, bucket
+// 2^bits). A thread gets the key before its first row from the lane
+// before it (__shfl_up_sync); lane 0 loads it, one load a warp. No shared
+// memory and no block barrier. Row i writes dir[b] = i for the buckets
+// (bucket(i - 1), bucket(i)] that start there (bucket(-1) = -1). Equal
+// top 3m bits (the key's first m = ceil(bits / 2) symbols) give equal
+// buckets, so only the change rows, where those bits differ from the row
+// before's (rows 0 and W among them; about one row in 16-32 at the
+// 0.25 B a row size), can start a bucket. bucket_of is the costly step
+// (m symbol lookups), and a warp that ran it on each lane's own change
+// rows would run it, divergent, for almost every row slot, so the warp
+// finds its change rows by ballots, numbers them in row order and
+// computes their buckets together, one a lane: item 0 is the key before
+// change 0, item y the key of change y - 1 (the key before change t has
+// change t - 1's first symbols), and change t writes (item t, item t +
+// 1]. Each lane finds the change it serves by a binary search over the
+// ballots' counts and reads its key by shuffles; a round of 32 items
+// serves 31 changes. At bits <= 20 (W under 2^25 + 16 rows: the 32 M-row
+// windows and slices) a bucket is computed in one 32-bit word, every
+// digit at once (bucket_narrow). The check of order and range is a
+// compare a row.
+// A short run of buckets is written by its row's thread, a long one (the
+// head and tail of a shard's keys, which cover part of the key space,
+// take 2^bits words in all) by the whole warp, 32 consecutive words at a
+// time. A bucket is the digits of the key's first m symbols, looked up a
+// symbol at a time in 32-bit words, with the fill after the first '$', N,
+// 6 or 7 found at once from the symbols' bits. It flags a key outside
+// [0, 2^(3k)) or below its predecessor in `bad` (zeroed by the entry
+// point), which the wrapper hands on unread: the engine reads it with the
+// join's totals, the one host read it makes after KH
+// (kernels/merge_join.py). Its bound: 8 B a key read once and 4 B a
+// directory word written (0.078 ms at W = 32 M); bucket_of's instructions,
+// not the bytes, set its time.
 // Search: a lane reads its mask and probe key, then the two directory
 // words of its bucket, then descends its bucket for the lower bound; the
 // key at the lower bound is the last one the descent read at or above the
@@ -107,84 +130,182 @@ __device__ __forceinline__ int bucket_of(long long v, int k, int bits) {
   return (int)(d >> (2 * m - bits));
 }
 
-// Row r's flag-free key and bucket into the tile's slot (r = W: past every
-// key, its bucket 2^bits; a key outside [0, 2^(3k)): bucket -2, flagged).
-__device__ __forceinline__ void tile_row(const long long* __restrict__ skey,
-                                         long long W, long long r, int k,
-                                         int bits, long long top,
-                                         long long* s_v, int* s_b, int slot,
-                                         bool& wrong) {
-  long long v = top;
-  int b = 1 << bits;
-  if (r < W) {
-    v = skey[r] >> 1;
-    if (v >= 0 && v < top) {
-      b = bucket_of(v, k, bits);
-    } else {
-      b = -2;
-      wrong = true;
-    }
+// The fields j of 10 3-bit symbol fields (j < 10) with bit s of j set, at
+// bits 3j - (j mod s) of a 32-bit word, two bits each: the 2-bit digits
+// that bucket_narrow moves down by s.
+constexpr unsigned move_mask(int s) {
+  unsigned mask = 0;
+  for (int j = 0; j < 10; ++j) {
+    if (j & s) mask |= 3u << (3 * j - (j & (s - 1)));
   }
-  s_v[slot] = v;
-  s_b[slot] = b;
+  return mask;
+}
+constexpr unsigned kMove1 = move_mask(1), kMove2 = move_mask(2),
+                   kMove4 = move_mask(4), kMove8 = move_mask(8);
+
+// bucket_of for m <= 10 (bits <= 20: the first m symbols in one 32-bit
+// word), every digit at once: a symbol rank r (bits r2 r1 r0) has the
+// digit [r >= 2] + [r >= 3] + [r >= 5] (kDigits), whose high bit is
+// r2 | (r1 & r0) and low bit (a ^ high) | (r2 & (r1 | r0)), a = r2 | r1;
+// then field j's two digit bits move from bit 3j down to bit 2j, by 1, 2,
+// 4 and 8 for the bits of j. The fill after the first '$', N, 6 or 7 as
+// in bucket_of.
+__device__ __forceinline__ int bucket_narrow(long long v, int k, int bits) {
+  constexpr unsigned kOnes = 0x09249249u;  // bit 0 of each of 10 fields
+  const int m = (bits + 1) >> 1;
+  const unsigned x = (unsigned)((unsigned long long)v >> (3 * (k - m)));
+  const unsigned r0 = x & kOnes, r1 = (x >> 1) & kOnes,
+                 r2 = (x >> 2) & kOnes;
+  const unsigned hi = r2 | (r1 & r0);
+  unsigned d = (hi << 1) | (((r2 | r1) ^ hi) | (r2 & (r1 | r0)));
+  d = (d & ~kMove1) | ((d & kMove1) >> 1);
+  d = (d & ~kMove2) | ((d & kMove2) >> 2);
+  d = (d & ~kMove4) | ((d & kMove4) >> 4);
+  d = (d & ~kMove8) | ((d & kMove8) >> 8);
+  const unsigned ones = kOnes & ((1u << (3 * m)) - 1);
+  const unsigned special =
+      (~x & ~(x >> 1) & ones) | ((x >> 2) & (x >> 1) & ones);
+  if (special) {
+    const int j = (31 - __clz(special)) / 3;
+    const unsigned below = (1u << (2 * j)) - 1;
+    const bool dollar = ((x >> (3 * j)) & 7u) == 0;
+    d = dollar ? d & ~below : d | below;
+  }
+  return (int)(d >> (2 * m - bits));
 }
 
+constexpr int kDirRows = 4;  // rows a thread of the directory build
+
+template <bool kVec>
 __global__ void __launch_bounds__(asgart::kThreads)
 mj_directory_kernel(const long long* __restrict__ skey, long long W, int k,
                     int bits, int* __restrict__ dir, int* __restrict__ bad) {
-  constexpr int kT = asgart::kThreads;
-  // slot 0: the row before the tile (bucket -1 before row 0); slot t + 1:
-  // the tile's row t
-  __shared__ long long s_v[kT + 1];
-  __shared__ int s_b[kT + 1];
+  constexpr int R = kDirRows;
+  constexpr long long kTile = 32LL * R;  // rows a warp
   const long long top = 1LL << (3 * k);
+  const int shift = 3 * (k - ((bits + 1) >> 1));  // v >> shift: m symbols
   const int ln = threadIdx.x & 31;
+  const long long warp =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const long long warps = ((long long)gridDim.x * blockDim.x) >> 5;
   bool wrong = false;
-  // the loop bound is uniform over the block, so every thread reaches the
-  // barriers and every warp stays converged for the ballot and shuffles
-  for (long long base = (long long)blockIdx.x * kT; base <= W;
-       base += (long long)gridDim.x * kT) {
-    const long long i = base + threadIdx.x;
-    if (i <= W) tile_row(skey, W, i, k, bits, top, s_v, s_b,
-                         threadIdx.x + 1, wrong);
-    if (threadIdx.x == 0) {
-      if (base > 0) {
-        bool unused = false;  // (row base - 1 is flagged by its own tile)
-        tile_row(skey, W, base - 1, k, bits, top, s_v, s_b, 0, unused);
-      } else {
-        s_b[0] = -1;
+  // the loop bound is uniform over the warp, so every warp stays
+  // converged for the shuffles and ballots
+  for (long long base = warp * kTile; base <= W; base += warps * kTile) {
+    const long long i0 = base + (long long)ln * R;
+    long long v[R];  // flag-free keys; row W and past it: top
+    if (kVec && i0 + R <= W) {
+#pragma unroll
+      for (int j = 0; j < R; j += 2) {
+        const longlong2 a =
+            __ldg(reinterpret_cast<const longlong2*>(skey + i0 + j));
+        v[j] = a.x >> 1;
+        v[j + 1] = a.y >> 1;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        v[j] = i0 + j < W ? __ldg(skey + i0 + j) >> 1 : top;
       }
     }
-    __syncthreads();
-    int b_lo = 1, b_hi = 0;  // the buckets that start at row i
-    if (i <= W) {
-      const int cur = s_b[threadIdx.x + 1], prev = s_b[threadIdx.x];
-      bool ok = cur != -2 && prev != -2;
-      if (ok && i > 0 && i < W && s_v[threadIdx.x] > s_v[threadIdx.x + 1]) {
-        ok = false;
+    // the key before row i0 (-1 before row 0)
+    long long p = __shfl_up_sync(kFull, v[R - 1], 1);
+    if (ln == 0) p = base > 0 ? __ldg(skey + base - 1) >> 1 : -1;
+    // row i0 + j is a change row (bit j) where its first m symbols differ
+    // from its predecessor's: row 0 (after -1), row W (top) and where the
+    // bucket may change; rows past W (top after top) are none
+    unsigned mine = 0;
+    long long q = p;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      // (v < 0 or v >= top: v outside [0, top) as an unsigned number)
+      if (i0 + j < W && ((unsigned long long)v[j] >= (unsigned long long)top
+                         || q > v[j])) {
         wrong = true;
       }
-      if (ok) {
-        b_lo = prev + 1;
-        b_hi = cur;
+      if ((q ^ v[j]) >> shift) mine |= 1u << j;
+      q = v[j];
+    }
+    unsigned M[R];
+    int T = 0;  // the warp's change rows, in row order (lane, then j)
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      M[j] = __ballot_sync(kFull, (mine >> j) & 1u);
+      T += __popc(M[j]);
+    }
+    if (T == 0) continue;  // (uniform) no bucket starts in the tile
+    int before = 0;  // the change rows of the lanes before this one
+#pragma unroll
+    for (int j = 0; j < R; ++j) before += __popc(M[j] & ((1u << ln) - 1u));
+    int b_lo[R], b_hi[R];  // the buckets that start at row i0 + j
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      b_lo[j] = 1;
+      b_hi[j] = 0;
+    }
+    // Change row t writes the buckets (bucket(key before it), bucket(its
+    // key)]; the key before change t + 1 has change t's first symbols, so
+    // item y = 0 is the key before change 0, item y >= 1 change y - 1's
+    // key, and change t takes items t and t + 1. A round computes 32 items
+    // on the 32 lanes, one bucket_of each, for changes [r0, r0 + 31).
+    for (int r0 = 0; r0 < T; r0 += 31) {
+      const int y = r0 + ln;
+      const int z = y == 0 ? 0 : min(y - 1, T - 1);
+      int L = 0;  // the lane that holds change z: the last with
+      for (int step = 16; step > 0; step >>= 1) {  // before <= z
+        if (__shfl_sync(kFull, before, L + step) <= z) L += step;
+      }
+      unsigned f = __shfl_sync(kFull, mine, L);  // lane L's change rows
+      for (int c = z - __shfl_sync(kFull, before, L); c > 0; --c) {
+        f &= f - 1;
+      }
+      const int jz = __ffs(f) - 1;
+      long long w[R + 1];  // lane L's key before its rows, then its keys
+      w[0] = __shfl_sync(kFull, p, L);
+#pragma unroll
+      for (int j = 0; j < R; ++j) w[j + 1] = __shfl_sync(kFull, v[j], L);
+      long long key = w[0];
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        if (jz == j) key = y == 0 ? w[j] : w[j + 1];
+      }
+      const int res = key < 0      ? -1
+                      : key >= top ? 1 << bits
+                      : bits <= 20 ? bucket_narrow(key, k, bits)
+                                   : bucket_of(key, k, bits);
+      int t = before;
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const bool here = (mine >> j) & 1u;
+        const bool now = here && t >= r0 && t < r0 + 31;
+        const int src = now ? t - r0 : 0;
+        const int lo = __shfl_sync(kFull, res, src);
+        const int hi = __shfl_sync(kFull, res, src + 1);
+        if (now) {
+          b_lo[j] = lo + 1;
+          b_hi[j] = hi;
+        }
+        t += here;
       }
     }
-    // a short run of buckets by its row's thread, a long one (the head
-    // and tail of a shard's or a slice's keys, a gap in a skewed key set)
-    // by the whole warp, 32 consecutive words at a time
-    const bool alone = b_hi - b_lo < 32;
-    if (alone) {
-      for (int b = b_lo; b <= b_hi; ++b) dir[b] = (int)i;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const long long i = i0 + j;
+      // a short run of buckets by its row's thread, a long one by the
+      // whole warp, 32 consecutive words at a time
+      const bool alone = b_hi[j] - b_lo[j] < 32;
+      if (alone) {
+        for (int b = b_lo[j]; b <= b_hi[j]; ++b) dir[b] = (int)i;
+      }
+      for (unsigned wide = __ballot_sync(kFull, !alone); wide;
+           wide &= wide - 1) {
+        const int src = __ffs(wide) - 1;
+        const int lo = __shfl_sync(kFull, b_lo[j], src);
+        const int hi = __shfl_sync(kFull, b_hi[j], src);
+        const int row = (int)__shfl_sync(kFull, i, src);
+        for (int b = lo + ln; b <= hi; b += 32) dir[b] = row;
+      }
     }
-    for (unsigned wide = __ballot_sync(kFull, !alone); wide;
-         wide &= wide - 1) {
-      const int src = __ffs(wide) - 1;
-      const int lo = __shfl_sync(kFull, b_lo, src);
-      const int hi = __shfl_sync(kFull, b_hi, src);
-      const int row = (int)__shfl_sync(kFull, i, src);
-      for (int b = lo + ln; b <= hi; b += 32) dir[b] = row;
-    }
-    __syncthreads();  // the tile's slots are read before the next fills
   }
   if (wrong) *bad = 1;
 }
@@ -289,8 +410,10 @@ ASGART_API int asgart_mj_directory(const void* skey, long long W, int k,
   cudaStream_t s = (cudaStream_t)stream;
   const cudaError_t rc = cudaMemsetAsync(bad, 0, sizeof(int), s);
   if (rc != cudaSuccess) return (int)rc;
-  mj_directory_kernel<<<asgart::grid_for(W + 1), asgart::kThreads, 0, s>>>(
-      (const long long*)skey, W, k, bits, (int*)dir, (int*)bad);
+  auto kernel = ((uintptr_t)skey & 15) == 0 ? mj_directory_kernel<true>
+                                             : mj_directory_kernel<false>;
+  kernel<<<asgart::grid_for((W + kDirRows) / kDirRows), asgart::kThreads, 0,
+           s>>>((const long long*)skey, W, k, bits, (int*)dir, (int*)bad);
   return (int)cudaGetLastError();
 }
 

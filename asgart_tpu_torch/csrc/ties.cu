@@ -35,28 +35,37 @@
 // JAX package's _resolve_ties (:807) runs while the tied count exceeds
 // tied_cap (the table build of a repeat-dense text; default n // 8), with
 // the undecimated rank of the port's tables (dec_step = 0).
-//   KK  row i of the current order, p = sa[i]: key[i] = (rank[p] << 32) |
-//       ((p >= direct_bound) << 31) | (sec + 1), sec = rank[p + h] when
-//       p < n - h, else -1 (past the text, the JAX clamp). rank < 2^31 and
-//       sec + 1 < 2^31, so the 63-bit key orders as the JAX (prim, flag,
-//       sec) sort keys.
-//   (the caller sorts key stably: skey, order)
-//   KL  per sorted row r: p = sa[order[r]] into the new order; the run
-//       start s of r in skey; rank[p] = s (a permutation scatter: every
-//       position is written once); tied[r] = the run is longer than one
-//       and p is direct (p < direct_bound).
-// Bound on the H100: KK reads sa in order and two random 4-byte ranks and
-// writes 8 B per row; KL reads 16 B per row in order, gathers 4 B of sa and
-// scatters 4 B of rank, and writes 5 B. Both memory-bound, each random
-// access its own sector. Run starts by galloping back (asgart::run_start),
-// as KF finds them. KL's random store, one DRAM sector a row into a plane
-// larger than the L2, is most of its time, so KL is two steps
-// (kernels/ties.py): here its in-order pass, which writes new_sa, the run
-// start s[r] and tied[r], all coalesced (the gather sa[order[r]] reads near
-// r: the sort is stable and KK's primary key is a run start of the current
-// order); then rank[new_sa] = s through KC's partitioned scatter with no
-// lanes (csrc/invert.cu, asgart_invert_fused with M = W = n), whose random
-// stores all land in shared memory.
+//
+// Precondition (the position-order invariant): within each run of equal
+// rank in the current order sa, the positions ascend. The table build's
+// first sort is stable over keys made in position order, so it holds
+// there; a round is a stable sort whose equal keys share a rank, so it
+// holds after every round. Then the JAX round, a stable sort of (rank[p],
+// flag, sec) in the current order, breaks every tie by position, which is
+// what a stable sort of the same keys made in position order does: the
+// sort's order is the new sa, and a round never reads sa.
+//   KK  row q (a position): key[q] = (rank[q] << 32) | ((q >= direct_bound)
+//       << 31) | (sec + 1), sec = rank[q + h] when q < n - h, else -1
+//       (past the text, the JAX clamp). rank < 2^31 and sec + 1 < 2^31, so
+//       the 63-bit key orders as the JAX (prim, flag, sec) sort keys.
+//   (the caller sorts key stably: skey, order; order is the new sa)
+//   KL  per sorted row r: p = order[r]; new_sa[r] = p; the run start s of r
+//       in skey; rank[p] = s (a permutation scatter: every position is
+//       written once); tied[r] = the run is longer than one and p is direct
+//       (p < direct_bound).
+// Bound on the H100: KK reads rank and writes the key, 12 B a row, both in
+// order (rank[q + h] is the same stream h rows on, from L2 at the rounds'
+// small h); each thread takes kKeyRows consecutive rows with 16-byte loads
+// and stores (scalar loads where the shifted read is not 16-byte aligned,
+// still coalesced across the warp), no gather. KL reads 16 B per row in
+// order, scatters 4 B of rank and writes 5 B. Run starts by galloping back
+// (asgart::run_start), as KF finds them. KL's random store, one DRAM sector
+// a row into a plane larger than the L2, is most of its time, so KL is two
+// steps (kernels/ties.py): here its in-order pass, which writes new_sa, the
+// run start s[r] and tied[r], all coalesced; then rank[new_sa] = s through
+// KC's partitioned scatter with no lanes (csrc/invert.cu,
+// asgart_invert_fused with M = W = n), whose random stores all land in
+// shared memory.
 #include "common.cuh"
 
 namespace {
@@ -102,24 +111,72 @@ __global__ void tie_refine_kernel(const long long* __restrict__ skey,
   }
 }
 
-__global__ void full_round_keys_kernel(const int* __restrict__ sa,
-                                       const int* __restrict__ rank,
+constexpr int kKeyRows = 4;  // KK's rows a thread: one 16-byte rank load
+
+__device__ __forceinline__ long long round_key(int prim, int sec, long long q,
+                                               long long direct_bound) {
+  return ((long long)prim << 32) | ((long long)(q >= direct_bound) << 31) |
+         ((long long)sec + 1);
+}
+
+// kVec: rank and key 16-byte aligned (else scalar loads and stores)
+template <bool kVec>
+__global__ void full_round_keys_kernel(const int* __restrict__ rank,
                                        long long n, long long h,
                                        long long direct_bound,
                                        long long* __restrict__ key) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       i < n; i += (long long)gridDim.x * blockDim.x) {
-    const long long p = sa[i];
-    const long long prim = __ldg(rank + p);
-    const long long sec = p < n - h ? (long long)__ldg(rank + p + h) : -1;
-    key[i] = (prim << 32) | ((long long)(p >= direct_bound) << 31) |
-             (sec + 1);
+  constexpr int R = kKeyRows;
+  const long long inside = n - h;  // rows with a rank h rows on
+  const bool shift_vec = kVec && (h % R) == 0;
+  for (long long q0 = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * R;
+       q0 < n; q0 += (long long)gridDim.x * blockDim.x * R) {
+    int prim[R], sec[R];
+    if (kVec && q0 + R <= n) {
+      const int4 a = __ldg(reinterpret_cast<const int4*>(rank + q0));
+      prim[0] = a.x;
+      prim[1] = a.y;
+      prim[2] = a.z;
+      prim[3] = a.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        prim[j] = q0 + j < n ? __ldg(rank + q0 + j) : 0;
+      }
+    }
+    if (shift_vec && q0 + R <= inside) {
+      const int4 b = __ldg(reinterpret_cast<const int4*>(rank + q0 + h));
+      sec[0] = b.x;
+      sec[1] = b.y;
+      sec[2] = b.z;
+      sec[3] = b.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        sec[j] = q0 + j < inside ? __ldg(rank + q0 + j + h) : -1;
+      }
+    }
+    if (kVec && q0 + R <= n) {
+      longlong2* out = reinterpret_cast<longlong2*>(key + q0);
+      out[0] = make_longlong2(round_key(prim[0], sec[0], q0, direct_bound),
+                              round_key(prim[1], sec[1], q0 + 1,
+                                        direct_bound));
+      out[1] = make_longlong2(round_key(prim[2], sec[2], q0 + 2,
+                                        direct_bound),
+                              round_key(prim[3], sec[3], q0 + 3,
+                                        direct_bound));
+    } else {
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        if (q0 + j < n) {
+          key[q0 + j] = round_key(prim[j], sec[j], q0 + j, direct_bound);
+        }
+      }
+    }
   }
 }
 
 __global__ void full_round_refine_kernel(const long long* __restrict__ skey,
                                          const long long* __restrict__ order,
-                                         const int* __restrict__ sa,
                                          long long n, long long direct_bound,
                                          int* __restrict__ new_sa,
                                          int* __restrict__ run_start,
@@ -127,10 +184,10 @@ __global__ void full_round_refine_kernel(const long long* __restrict__ skey,
   for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        r < n; r += (long long)gridDim.x * blockDim.x) {
     const long long v = skey[r];
-    const int p = __ldg(sa + order[r]);
+    const long long p = order[r];
     const long long s = asgart::run_start(
         r, [&](long long j) { return __ldg(skey + j) == v; });
-    new_sa[r] = p;
+    new_sa[r] = (int)p;
     run_start[r] = (int)s;
     tied[r] = (s < r || (r + 1 < n && __ldg(skey + r + 1) == v)) &&
               p < direct_bound;
@@ -163,25 +220,27 @@ ASGART_API int asgart_tie_refine(const void* skey, const void* order,
   return (int)cudaGetLastError();
 }
 
-ASGART_API int asgart_full_round_keys(const void* sa, const void* rank,
-                                      long long n, long long h,
-                                      long long direct_bound, void* key,
-                                      void* stream) {
-  full_round_keys_kernel<<<asgart::grid_for(n), asgart::kThreads, 0,
-                           (cudaStream_t)stream>>>(
-      (const int*)sa, (const int*)rank, n, h, direct_bound, (long long*)key);
+// rank: int32 [n]; key: int64 [n]; 0 <= h <= n.
+ASGART_API int asgart_full_round_keys(const void* rank, long long n,
+                                      long long h, long long direct_bound,
+                                      void* key, void* stream) {
+  const bool vec = (((uintptr_t)rank | (uintptr_t)key) & 15) == 0;
+  auto kernel = vec ? full_round_keys_kernel<true>
+                    : full_round_keys_kernel<false>;
+  kernel<<<asgart::grid_for((n + kKeyRows - 1) / kKeyRows), asgart::kThreads,
+           0, (cudaStream_t)stream>>>((const int*)rank, n, h, direct_bound,
+                                      (long long*)key);
   return (int)cudaGetLastError();
 }
 
 // KL's in-order pass (its scatter is KC's: kernels/ties.py).
 ASGART_API int asgart_full_round_refine(const void* skey, const void* order,
-                                        const void* sa, long long n,
-                                        long long direct_bound, void* new_sa,
-                                        void* run_start, void* tied,
-                                        void* stream) {
+                                        long long n, long long direct_bound,
+                                        void* new_sa, void* run_start,
+                                        void* tied, void* stream) {
   full_round_refine_kernel<<<asgart::grid_for(n), asgart::kThreads, 0,
                              (cudaStream_t)stream>>>(
-      (const long long*)skey, (const long long*)order, (const int*)sa, n,
-      direct_bound, (int*)new_sa, (int*)run_start, (uint8_t*)tied);
+      (const long long*)skey, (const long long*)order, n, direct_bound,
+      (int*)new_sa, (int*)run_start, (uint8_t*)tied);
   return (int)cudaGetLastError();
 }

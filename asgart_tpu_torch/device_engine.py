@@ -77,6 +77,7 @@ from .host_helpers import (SLICE_GRAN, _bucket, _merge_shard_events,
                            _plan_slices, _slice_budget)
 from .kernels import (gather_flat, gather_owned, granule_totals, mj_ranges,
                       pack_keys, scan_core, table_ranges)
+from .kernels.merge_join import read_totals, totals_with_flag
 from .kernels.scan_core import ScanResult, fused_bases
 from .kernels.sharded import csr_offsets
 from .table_index import DeviceIndex
@@ -384,17 +385,22 @@ class DeviceWindowEngine:
                            str(self.device)), pack))
         lane_lo, lane_hi, totals = self.join(idx.key, pkey, mask, lane_off,
                                              idx.directory)
-        offs = {(cs, cl): (off, int(t)) for (cs, cl, _), off, t in
-                zip(specs, lane_off, totals.tolist())}
+        # the totals' one host read carries the directory's flag: keys out
+        # of order raise here, before the ranges are used
+        offs = {(cs, cl): (off, t) for (cs, cl, _), off, t in
+                zip(specs, lane_off, read_totals(totals))}
         idx.stage1 = WindowRanges(lane_lo=lane_lo, lane_hi=lane_hi,
                                   lane_mask=mask, specs=specs, offs=offs)
         return idx.stage1
 
     @staticmethod
     def join(key, pkey, mask, lane_off, directory):
-        """KH: (lane_lo, lane_hi, per-chunk totals) of the probe keys in
-        the sorted window keys ``key``, searched from their ``directory``."""
-        return mj_ranges(key, pkey, mask, lane_off, directory)
+        """KH: (lane_lo, lane_hi, per-chunk totals and the directory's flag:
+        :func:`totals_with_flag`) of the probe keys in the sorted window
+        keys ``key``, searched from their ``directory``."""
+        lane_lo, lane_hi, totals = mj_ranges(key, pkey, mask, lane_off,
+                                             directory)
+        return lane_lo, lane_hi, totals_with_flag(totals, directory)
 
     def run_chunks(self, chunks) -> list:
         """Raw families (native-engine format, chunk-relative left
@@ -551,11 +557,12 @@ class ShardedWindowEngine(DeviceWindowEngine):
     @staticmethod
     def join(key, pkey, mask, lane_off, directory):
         """KH against this rank's keys (from their directory), summed over
-        the ranks."""
+        the ranks; the directories' flags too, so that keys out of order
+        on any shard raise on every rank."""
         lane_lo, lane_hi, totals = mj_ranges(key, pkey, mask, lane_off,
                                              directory)
         return (distributed.psum(lane_lo), distributed.psum(lane_hi),
-                distributed.psum(totals))
+                distributed.psum(totals_with_flag(totals, directory)))
 
     def scan_results(self, chunks):
         """KD's result for each chunk, in order (:func:`scan_lanes` with

@@ -84,10 +84,10 @@ SIGNATURES = {
     # n_chunks, k, total, lane_lo, lane_hi, lane_mask, totals, stream
     "asgart_table_ranges": [_P, _P, _I64, _P, _P, _I32, _I32, _I64, _P, _P,
                             _P, _P, _P],
-    # sa, rank, n, h, direct_bound, key, stream
-    "asgart_full_round_keys": [_P, _P, _I64, _I64, _I64, _P, _P],
-    # skey, order, sa, n, direct_bound, new_sa, run_start, tied, stream
-    "asgart_full_round_refine": [_P, _P, _P, _I64, _I64, _P, _P, _P, _P],
+    # rank, n, h, direct_bound, key, stream
+    "asgart_full_round_keys": [_P, _I64, _I64, _I64, _P, _P],
+    # skey, order, n, direct_bound, new_sa, run_start, tied, stream
+    "asgart_full_round_refine": [_P, _P, _I64, _I64, _P, _P, _P, _P],
     # lane_lo, lane_hi, lane_mask, n, gran, totals, stream
     "asgart_granule_totals": [_P, _P, _P, _I64, _I64, _P, _P],
     # table [2 n_src + 1] (the sources' pointers, then their offsets; on

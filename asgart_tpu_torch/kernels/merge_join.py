@@ -7,6 +7,13 @@ same function in plain PyTorch, by the JAX package's method: a co-sort, a
 cumsum and a cummax, then a scatter back into lane order;
 ``mj_directory_plain`` builds the directory by ``torch.searchsorted``
 over the bucket boundaries.
+
+The directory kernel flags keys out of order (or outside k symbols) on
+the card, and its wrapper does not wait to read the flag: the directory
+carries it (``MjDirectory.flag``), and whoever uses the directory reads it
+with a host read it makes anyway: an engine with KH's chunk totals
+(:func:`totals_with_flag`, :func:`read_totals`), a check alone with
+:meth:`MjDirectory.check`. The plain version raises at once.
 """
 
 from __future__ import annotations
@@ -34,15 +41,26 @@ class MjDirectory(NamedTuple):
     (int32 [2^bits + 1]) holds, for each bucket b, the first row whose
     bucket is at least b (the bucket: the top ``bits`` bits of the 2-bit
     digits of a key's first symbols, :func:`bucket_of`), and W last.
-    ``bits`` >= 1; a window too small for one is given none (None)."""
+    ``bits`` >= 1; a window too small for one is given none (None).
+    ``flag``: the kernel's int32 [1], nonzero when a key lies outside k
+    symbols or below its predecessor (then ``table`` means nothing), not
+    yet read; None where the keys were checked on the host."""
 
     table: torch.Tensor
     k: int
     bits: int
     W: int
+    flag: torch.Tensor | None = None
 
     def nbytes(self) -> int:
         return self.table.numel() * 4
+
+    def check(self) -> "MjDirectory":
+        """Reads the flag (one host read) and raises ``ValueError`` if it is
+        set; returns the directory."""
+        if self.flag is not None and self.flag.item():
+            raise ValueError(_UNSORTED)
+        return self
 
 
 def mj_directory_bits(W: int, k: int) -> int:
@@ -96,9 +114,12 @@ def mj_directory(skey: torch.Tensor, k: int,
                  bits: int | None = None) -> MjDirectory | None:
     """The directory of the sorted window keys ``skey`` (int64 [W], k
     symbols, flag bit 0), at ``bits`` (default :func:`mj_directory_bits`;
-    1 to that); None when that is 0 (under 48 keys). Raises
-    ``ValueError`` for a flag-free key outside [0, 2^(3k)) or below its
-    predecessor."""
+    1 to that); None when that is 0 (under 48 keys). A flag-free key
+    outside [0, 2^(3k)) or below its predecessor sets the directory's
+    ``flag`` on the card, which this makes no host read of (the plain
+    version raises ``ValueError`` at once): read it with the totals of a
+    join from it (:func:`read_totals`) or with :meth:`MjDirectory.check`
+    before the directory's result is used."""
     bits = _check_keys("mj_directory", skey, k, bits)
     W = skey.numel()
     if bits == 0:
@@ -107,15 +128,13 @@ def mj_directory(skey: torch.Tensor, k: int,
         return mj_directory_plain(skey, k, bits)
     table = torch.empty((1 << bits) + 1, dtype=torch.int32,
                         device=skey.device)
-    bad = torch.empty(1, dtype=torch.int32, device=skey.device)
+    flag = torch.empty(1, dtype=torch.int32, device=skey.device)
     lib = _build.lib()
     mj_directory.launches += 1
     _build.check(lib.asgart_mj_directory(
-        skey.data_ptr(), W, k, bits, table.data_ptr(), bad.data_ptr(),
+        skey.data_ptr(), W, k, bits, table.data_ptr(), flag.data_ptr(),
         _build.stream_of(skey)), "mj_directory")
-    if bad.item():  # one 4-byte read: the host waits for the kernel
-        raise ValueError(_UNSORTED)
-    return MjDirectory(table, k, bits, W)
+    return MjDirectory(table, k, bits, W, flag)
 
 
 mj_directory.launches = 0
@@ -126,6 +145,28 @@ def index_directory(skey: torch.Tensor, k: int) -> MjDirectory | None:
     of its keys on the card; None on the CPU, where KH's plain version
     co-sorts and reads no directory."""
     return mj_directory(skey, k) if _build.on_cuda(skey) else None
+
+
+def totals_with_flag(totals: torch.Tensor,
+                     directory: MjDirectory | None) -> torch.Tensor:
+    """KH's chunk totals (int64 [n_chunks]) with the flag of the directory
+    it searched appended (0 without a flag): int64 [n_chunks + 1], which
+    an engine reads back in one host read (:func:`read_totals`), summed
+    over the ranks where each searched its own shard's directory."""
+    flag = directory.flag if directory is not None else None
+    if flag is None:
+        flag = torch.zeros(1, dtype=torch.int32, device=totals.device)
+    return torch.cat([totals, flag.to(torch.int64)])
+
+
+def read_totals(totals_flag: torch.Tensor) -> list[int]:
+    """The chunk totals of :func:`totals_with_flag`'s tensor, read in one
+    host read; raises ``ValueError`` when the directory's flag is set (its
+    keys were out of order), before any result of the join is used."""
+    *totals, flag = totals_flag.tolist()
+    if flag:
+        raise ValueError(_UNSORTED)
+    return totals
 
 
 def mj_directory_plain(skey, k: int, bits: int) -> MjDirectory:

@@ -111,59 +111,60 @@ def tie_refine_plain(skey, order, slots, ps, sa, rank):
     return p_sorted, rs, still
 
 
-def full_round_keys(sa: torch.Tensor, rank: torch.Tensor, h: int,
+def full_round_keys(rank: torch.Tensor, h: int,
                     direct_bound: int) -> torch.Tensor:
-    """Round keys of every row of the order ``sa`` (int32 [n]) over the
-    position ranks ``rank`` (int32 [n]): ``(rank[p] << 32) | ((p >=
-    direct_bound) << 31) | (sec + 1)`` for p = sa[i], sec = rank[p + h] when
-    p < n - h, else -1 (int64 [n])."""
-    n = sa.numel()
-    _check("full_round_keys", (sa, torch.int32), (rank, torch.int32))
-    if rank.numel() != n or not 0 <= h <= n or not 0 <= direct_bound <= n:
-        raise ValueError("full_round_keys: bad shapes, h or direct_bound")
-    if not _build.on_cuda(sa, rank):
-        return full_round_keys_plain(sa, rank, h, direct_bound)
-    key = torch.empty(n, dtype=torch.int64, device=sa.device)
+    """Round keys of every position q of the text over its ranks ``rank``
+    (int32 [n]), in position order: ``(rank[q] << 32) | ((q >=
+    direct_bound) << 31) | (sec + 1)``, sec = rank[q + h] when q < n - h,
+    else -1 (int64 [n]). Sorted stably, they give the round's new order
+    (the sort's permutation) where the current order keeps each run of
+    equal rank in ascending positions (``ties.full_rounds``)."""
+    n = rank.numel()
+    _check("full_round_keys", (rank, torch.int32))
+    if not 0 <= h <= n or not 0 <= direct_bound <= n:
+        raise ValueError("full_round_keys: bad h or direct_bound")
+    if not _build.on_cuda(rank):
+        return full_round_keys_plain(rank, h, direct_bound)
+    key = torch.empty(n, dtype=torch.int64, device=rank.device)
     lib = _build.lib()
     full_round_keys.launches += 1
     _build.check(lib.asgart_full_round_keys(
-        sa.data_ptr(), rank.data_ptr(), n, h, direct_bound, key.data_ptr(),
-        _build.stream_of(sa)), "full_round_keys")
+        rank.data_ptr(), n, h, direct_bound, key.data_ptr(),
+        _build.stream_of(rank)), "full_round_keys")
     return key
 
 
 full_round_keys.launches = 0
 
 
-def full_round_keys_plain(sa, rank, h, direct_bound):
+def full_round_keys_plain(rank, h, direct_bound):
     """Plain PyTorch version of the KK kernel (the JAX ``_full_round``'s
-    sort keys, packed)."""
-    n = sa.numel()
-    p = sa.long()
-    inside = p < n - h
-    sec = torch.where(inside, rank[torch.where(inside, p + h, 0)].long(),
-                      -1)
-    return (rank[p].long() << 32) | ((p >= direct_bound).long() << 31) \
+    sort keys, packed, in position order)."""
+    n = rank.numel()
+    q = torch.arange(n, device=rank.device)
+    sec = torch.full((n,), -1, dtype=torch.int64, device=rank.device)
+    sec[:n - h] = rank[h:].long()
+    return (rank.long() << 32) | ((q >= direct_bound).long() << 31) \
         | (sec + 1)
 
 
 def full_round_refine(skey: torch.Tensor, order: torch.Tensor,
-                      sa: torch.Tensor, rank: torch.Tensor,
-                      direct_bound: int):
+                      rank: torch.Tensor, direct_bound: int):
     """Apply one sorted full round (``skey`` int64 [n] sorted, ``order``
-    int64 [n] its source rows) to the order ``sa`` (int32 [n]): the new
-    order ``sa[order]``, each position's new rank, the slot of its run
-    start in ``skey``, written into ``rank`` (int32 [n]) in place.
+    int64 [n] its source rows: positions, since KK's keys are in position
+    order): the new order ``order`` as int32, each position's new rank,
+    the slot of its run start in ``skey``, written into ``rank`` (int32
+    [n]) in place.
 
     Returns (new_sa int32 [n], tied bool [n]): tied marks rows of runs
     longer than one whose position is below ``direct_bound``."""
     n = skey.numel()
     _check("full_round_refine", (skey, torch.int64), (order, torch.int64),
-           (sa, torch.int32), (rank, torch.int32))
-    if order.numel() != n or sa.numel() != n or rank.numel() != n:
+           (rank, torch.int32))
+    if order.numel() != n or rank.numel() != n:
         raise ValueError("full_round_refine: arrays differ in length")
-    if not _build.on_cuda(skey, order, sa, rank):
-        return full_round_refine_plain(skey, order, sa, rank, direct_bound)
+    if not _build.on_cuda(skey, order, rank):
+        return full_round_refine_plain(skey, order, rank, direct_bound)
     dev = skey.device
     new_sa = torch.empty(n, dtype=torch.int32, device=dev)
     tied = torch.empty(n, dtype=torch.bool, device=dev)
@@ -181,7 +182,7 @@ def full_round_refine(skey: torch.Tensor, order: torch.Tensor,
     lib = _build.lib()
     full_round_refine.launches += 1
     _build.check(lib.asgart_full_round_refine(
-        skey.data_ptr(), order.data_ptr(), sa.data_ptr(), n, direct_bound,
+        skey.data_ptr(), order.data_ptr(), n, direct_bound,
         new_sa.data_ptr(), l2, tied.data_ptr(), stream), "full_round_refine")
     _build.check(lib.asgart_invert_fused(
         new_sa.data_ptr(), l2, l2, None, n, n, None, 0, 0, sp, plan.coarse,
@@ -193,18 +194,18 @@ def full_round_refine(skey: torch.Tensor, order: torch.Tensor,
 full_round_refine.launches = 0
 
 
-def full_round_refine_plain(skey, order, sa, rank, direct_bound):
+def full_round_refine_plain(skey, order, rank, direct_bound):
     """Plain PyTorch version of the KL kernel (the JAX ``_full_round``'s
     cummax of run starts, inverse-permutation scatter and tied flags)."""
     n = skey.numel()
-    new_sa = sa[order]
+    new_sa = order.to(torch.int32)
     new_run = torch.ones(n, dtype=torch.bool, device=skey.device)
     new_run[1:] = skey[1:] != skey[:-1]
     iota = torch.arange(n, device=skey.device)
     rs = torch.cummax(torch.where(new_run, iota, 0), 0).values
-    rank[new_sa.long()] = rs.to(torch.int32)
+    rank[order] = rs.to(torch.int32)
     same = rs[1:] == rs[:-1]
     tied = torch.zeros(n, dtype=torch.bool, device=skey.device)
     tied[:-1] |= same
     tied[1:] |= same
-    return new_sa, tied & (new_sa < direct_bound)
+    return new_sa, tied & (order < direct_bound)

@@ -7,9 +7,12 @@ Counterpart of ``_resolve_ties`` (asgart_tpu/device_index.py:807) with
 keys, KF ``tie_refine`` (kernels/ties.py), then a compaction of the
 entries still tied. A table build (table_index.py) passes ``tied_cap``:
 while more than that many rows are tied, a full round (``_full_round``,
-:769) runs first: KK ``full_round_keys``, the stable sort, KL
-``full_round_refine``, over every row, appended ones included, so that the
-order of the appended half's rows is the JAX package's too.
+:769) runs first: KK ``full_round_keys`` (every position's keys, in
+position order), the stable sort, KL ``full_round_refine``, over every
+row, appended ones included, so that the order of the appended half's
+rows is the JAX package's too. They rest on the position-order invariant
+(:func:`full_rounds`): within each run of equal rank, the order ascends
+by position.
 
 Tied slots are direct rows whose k-mer (key) group has more than one
 direct entry. Manber-Myers rounds refine them: sort each tied group by
@@ -42,17 +45,29 @@ def full_rounds(sa: torch.Tensor, rank: torch.Tensor, tied_slot: torch.Tensor,
     """Full-array rounds over the n rows of a table build (``sa``, ``rank``
     int32 [n], ``rank`` updated in place) while more than ``tied_cap`` rows
     are tied, as the JAX ``_resolve_ties`` runs them. Returns (sa,
-    tied_slot, h): the new order, its tied rows and the next round's
-    h."""
-    n = sa.numel()
+    tied_slot, h): the new order, its tied rows and the next round's h.
+
+    Precondition: within each run of equal rank, ``sa`` ascends by
+    position. The build's first sort is stable over keys made in position
+    order, and every round is a stable sort whose equal keys share a rank,
+    so the property holds for the order each round starts from. The JAX
+    round sorts (rank, flag, sec) stably in the current order; with the
+    precondition, its ties fall in position order, so sorting the same
+    keys made in position order (KK) gives the same result, and the sort's
+    permutation is the new order. A round thus never reads ``sa``: once
+    the first round runs, ``sa`` and ``tied_slot`` are emptied in place
+    (``set_()``), so that their memory is free for the sort whatever
+    references the caller holds, and the returned ones replace them."""
+    n = rank.numel()
     n_tied = int(tied_slot.sum())
     h = k
     while n_tied > tied_cap and h < 2 * n:
-        key = full_round_keys(sa, rank, min(h, n), direct_bound)
+        key = full_round_keys(rank, min(h, n), direct_bound)
+        sa.set_()
+        tied_slot.set_()
         skey, order = torch.sort(key, stable=True)
         del key
-        sa, tied_slot = full_round_refine(skey, order, sa, rank,
-                                          direct_bound)
+        sa, tied_slot = full_round_refine(skey, order, rank, direct_bound)
         del skey, order
         h = min(2 * h, 2 * n)
         n_tied = int(tied_slot.sum())
@@ -64,7 +79,8 @@ def resolve_ties(sa: torch.Tensor, rank: torch.Tensor,
                  tied_cap: int | None = None, direct_bound: int | None = None
                  ) -> torch.Tensor:
     """Refine ``sa`` (int32 [M], updated in place and returned unless full
-    rounds replace it) until no direct suffix is tied. ``rank`` (int32,
+    rounds replace it: they empty it and ``tied_slot``, see
+    :func:`full_rounds`) until no direct suffix is tied. ``rank`` (int32,
     plain position layout, updated in place) holds each position's group
     start slot: [W] for the fused and merge-join builds; [M] for a table
     build, which passes ``tied_cap`` (full rounds first while more rows

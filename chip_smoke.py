@@ -169,15 +169,16 @@
    :func:`nccl_shared_card` prints how NCCL treats two ranks on one card;
 10. prints a {"kernels": [...]} line (each kernel once per path, with the
    path's name and k; each row's ``ms`` the wrapper's call; KA's, KC's,
-   KH's, KJ's, KL's, KP's, KQ's and KR's rows also ``kernel_alone_ms`` and
-   ``library_alone_ms``
+   KH's and its directory's, KJ's, KK's, KL's, KP's, KQ's and KR's rows
+   also ``kernel_alone_ms`` and ``library_alone_ms``
    (null where no library call computes the function), the launches alone
    (:func:`kernel_ms`), and KQ's ``key_reads`` and ``jax_loop_probes``,
    counted by the kernel (``kernels.seed.equal_range_reads``), KH's
    ``key_reads`` and ``dir_reads``, counted by the kernel
    (``kernels.merge_join.mj_ranges_reads``), its bound from them, and
    beside each KH row its directory's (``mj_directory``) against its
-   plain version (:func:`kh_checks`);
+   plain version, with ``with_flag_read_ms``, the wrapper and the read of
+   its flag (:func:`kh_checks`);
    beside KP's rows ``merge_slices``' whole time is printed; KN's
    rows: its time, the plain time and the bound
    on the checked bursts, and beside them its chunk's events, bursts,
@@ -937,13 +938,18 @@ def kh_checks(record, tag: str, skey, k: int, pkey, pmask, lane_off,
 
     W, total = skey.numel(), pkey.numel()
     kd = lambda: mj_directory(skey, k)  # noqa: E731
-    d = kd()
+    kf = lambda: mj_directory(skey, k).check()  # noqa: E731  (flag read)
+    d = kf()
     pd = lambda: mj_directory_plain(skey, k, d.bits)  # noqa: E731
     err = max_abs_err((d.table,), (pd().table,))
+    flag_ms = cuda_ms(kf, FINE_REPS)
     record("mj_directory", "merge_join.cu", f"{replaces} (the directory "
-           "KH searches from)", err, cuda_ms(kd), cuda_ms(pd),
-           f"{shape}: 2^{d.bits} buckets of {W} sorted keys",
-           8 * W + d.nbytes(), 4 * W * max(1, (d.bits + 1) // 2))
+           "KH searches from)", err, cuda_ms(kd, FINE_REPS), cuda_ms(pd),
+           f"{shape}: 2^{d.bits} buckets of {W} sorted keys; with its flag "
+           f"read {flag_ms:.4f} ms", 8 * W + d.nbytes(),
+           4 * W * max(1, (d.bits + 1) // 2),
+           alone=(kernel_ms(kd, FINE_REPS), None))
+    record.rows[-1]["with_flag_read_ms"] = flag_ms
     kh = lambda: mj_ranges(skey, pkey, pmask, lane_off, d)  # noqa: E731
     ph = lambda: mj_ranges_plain(skey, pkey, pmask, lane_off)  # noqa: E731
     got = kh()
@@ -1863,24 +1869,25 @@ def table_ties(record, tag: str, sa, rank, tied, n: int, n1: int, k: int,
           flush=True)
     rounds, h = 0, k
     if first > cap:
-        kk = lambda: full_round_keys(sa, rank, h, n1)  # noqa: E731
-        pk = lambda: full_round_keys_plain(sa, rank, h, n1)  # noqa: E731
+        kk = lambda: full_round_keys(rank, h, n1)  # noqa: E731
+        pk = lambda: full_round_keys_plain(rank, h, n1)  # noqa: E731
         key = kk()
         err = max_abs_err((key,), (pk(),))
         record("full_round_keys", "ties.cu",
-               "asgart_tpu/device_index.py:769", err, cuda_ms(kk),
-               cuda_ms(pk), f"n={n} rows, h={h}", 20 * n, 8 * n)
+               "asgart_tpu/device_index.py:769", err, cuda_ms(kk, FINE_REPS),
+               cuda_ms(pk), f"n={n} rows, h={h}, keys in position order",
+               12 * n, 8 * n, alone=(kernel_ms(kk, FINE_REPS), None))
         skey, order = torch.sort(key, stable=True)
         del key
         rank_k, rank_p = rank.clone(), rank.clone()
-        kl = lambda: full_round_refine(skey, order, sa, rank_k, n1)  # noqa: E731
-        pl = lambda: full_round_refine_plain(skey, order, sa,  # noqa: E731
+        kl = lambda: full_round_refine(skey, order, rank_k, n1)  # noqa: E731
+        pl = lambda: full_round_refine_plain(skey, order,  # noqa: E731
                                              rank_p, n1)
         got, want = kl(), pl()
         err = max_abs_err((*got, rank_k), (*want, rank_p))
         record("full_round_refine", "ties.cu",
                "asgart_tpu/device_index.py:769", err,
-               cuda_ms(kl, FINE_REPS), cuda_ms(pl), f"n={n} rows", 29 * n,
+               cuda_ms(kl, FINE_REPS), cuda_ms(pl), f"n={n} rows", 25 * n,
                20 * n, alone=(kernel_ms(kl, FINE_REPS), None))
         del skey, order, rank_k, rank_p, got, want
         torch.cuda.empty_cache()
@@ -2390,7 +2397,7 @@ def big_whole_checks(tag: str, strand, chunks, settings, window, src: int,
 
     # the main path's join: the whole window from its directory
     lane_lo, lane_hi, _ = mj_ranges(skey, pkey, pmask, lane_off,
-                                    mj_directory(skey, k))
+                                    mj_directory(skey, k).check())
     a = (W - R) // 2  # a slice of the sorted keys, the trailing probes
     kh_checks(record, tag, skey[a:a + R], k, pkey[lane_off[c0]:],
               pmask[lane_off[c0]:], sub_off,

@@ -25,7 +25,7 @@ card from the seed.
 
 KL ``full_round_refine`` on the first full round of the table build of
 the ``--repeats-mbp`` repeat-dense genome (chip_smoke's table_repeats,
-k = 20): KL whole; KL with the identity order and positions (where KL is
+k = 20): KL whole; KL with the identity order (where KL is
 one kernel, its in-order part: every read and store in order, the rank
 store too; where it is an in-order pass and a scatter, the profile of
 one call splits them); how
@@ -250,15 +250,15 @@ def kl_probe(cs, fa, device):
     del run_lo, run_hi
     first = int(tied.sum())
     del tied
-    key = full_round_keys(sa, rank, k, n1)
+    key = full_round_keys(rank, k, n1)
     skey, order = torch.sort(key, stable=True)
     del key
     torch.cuda.empty_cache()
     tag = f"table_repeats first full round k={k} n={n} ({first} tied)"
     rank_k, rank_p = rank.clone(), rank.clone()
-    kl = lambda: full_round_refine(skey, order, sa, rank_k, n1)  # noqa: E731
+    kl = lambda: full_round_refine(skey, order, rank_k, n1)  # noqa: E731
     new_sa, tied_k = kl()
-    want_sa, want_tied = full_round_refine_plain(skey, order, sa, rank_p, n1)
+    want_sa, want_tied = full_round_refine_plain(skey, order, rank_p, n1)
     if not (torch.equal(new_sa, want_sa) and torch.equal(tied_k, want_tied)
             and torch.equal(rank_k, rank_p)):
         raise AssertionError(f"{tag}: KL differs from its plain version")
@@ -277,11 +277,10 @@ def kl_probe(cs, fa, device):
           f"within 2^21 {float((d < (1 << 21)).double().mean()):.6f}",
           flush=True)
     del d
-    ident32 = torch.arange(n, dtype=torch.int32, device=device)
     ident64 = torch.arange(n, dtype=torch.int64, device=device)
     rank_i = torch.empty_like(rank)
-    inorder = lambda: full_round_refine(skey, ident64, ident32,  # noqa: E731
-                                        rank_i, n1)
+    inorder = lambda: full_round_refine(skey, ident64, rank_i,  # noqa: E731
+                                        n1)
     empty_mask = torch.zeros(0, dtype=torch.bool, device=device)
     kc = lambda: invert_fused(new_sa, s, s, empty_mask, n, [0])  # noqa: E731
     rank_c = kc()[0]
@@ -309,7 +308,7 @@ def kl_probe(cs, fa, device):
                 f"({t[a + '2'][1]})")
 
     print(f"{tag}: KL full_round_refine {pair('kl')} ms; KL with the "
-          f"identity order and positions (the in-order part) "
+          f"identity order (the in-order part) "
           f"{pair('inorder')}; KC invert_fused M = W = n on (new_sa, run "
           f"start) {pair('kc')}; index_put_ rank[new_sa] = s {pair('lib')}; "
           f"KL's bound {b_ms:.4f} ms ({b_by})", flush=True)

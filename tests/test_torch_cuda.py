@@ -10,7 +10,9 @@ flag and run ends, KJ, the table form of KC's scatter, also at the
 bucket's and the tile's edges and with its launch counts, KK / KL at a
 small ``tied_cap``, KM, KD on its lanes), KA's tiles at their tile,
 chunk and k edges in every mode, KL's in-order pass and KC scatter at
-their edges (rank compared), and the port's JSON on the GPU
+their edges (rank compared), KK's keys in position order at its row and
+alignment edges, the directory kernel at its thread, warp and block edges
+(its flag read by ``check``), and the port's JSON on the GPU
 against the host engine (whole genome, trim windows and ``shards``, on the
 fused build, on the table engine with and without ``--checkpoint``, on
 the merge-join engine with its route chosen by free memory alone, and past
@@ -665,13 +667,13 @@ def test_table_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse,
     pos_lo, pos_hi, rank = tables
     h = k
     for _ in range(2):
-        key = full_round_keys(sa, rank, h, n1)
-        _equal((key,), (full_round_keys_plain(sa, rank, h, n1),))
+        key = full_round_keys(rank, h, n1)
+        _equal((key,), (full_round_keys_plain(rank, h, n1),))
         skey, order = torch.sort(key, stable=True)
         rank_p = rank.clone()
-        got = full_round_refine(skey, order, sa, rank, n1)
-        _equal((*got, rank), (*full_round_refine_plain(skey, order, sa,
-                                                       rank_p, n1), rank_p))
+        got = full_round_refine(skey, order, rank, n1)
+        _equal((*got, rank), (*full_round_refine_plain(skey, order, rank_p,
+                                                       n1), rank_p))
         sa = got[0]
         h *= 2
     # the whole build, full rounds and subset rounds, against the CPU's
@@ -1778,6 +1780,7 @@ def test_mj_directory_and_ranges_on_gpu(gpu, k, W, alphabet, form):
     before = launch_counts()
     d = mj_directory(skey, k)
     if d is not None:
+        d.check()
         assert launch_counts()["mj_directory"] == \
             before["mj_directory"] + 1
         assert (1 << d.bits) + 1 <= W // 16
@@ -1809,14 +1812,69 @@ def test_mj_directory_on_shard_and_refusal_on_gpu(gpu):
     mask = torch.ones(5000, dtype=torch.bool, device=gpu)
     for r in range(4):
         key = skey[min(W, r * Wl): min(W, (r + 1) * Wl)].clone()
-        d = mj_directory(key, k)
+        d = mj_directory(key, k).check()
         _equal((d.table,), (mj_directory_plain(key, k, d.bits).table,))
         _equal(mj_ranges(key, pkey, mask, [0, 5000], d),
                mj_ranges_plain(key, pkey, mask, [0, 5000]))
     with pytest.raises(ValueError, match="below its predecessor"):
-        mj_directory(skey.flip(0).contiguous(), k)
+        mj_directory(skey.flip(0).contiguous(), k).check()
     with pytest.raises(ValueError, match="outside k symbols"):
-        mj_directory(skey, 8)
+        mj_directory(skey, 8).check()
+
+
+# (k, W, form, offset): the directory kernel's edges. A thread takes 4
+# rows, a warp 128, a block 1024: W = 48 (the least directory), rows at
+# the thread, warp and block edges, the grid-stride's second sweep (past
+# 4.3 M rows), long bucket runs (a sparse key set: the warp writes them),
+# '$' and N, keys in 8-byte alignment only (offset 1: no 16-byte loads),
+# tiles of more than 31 change rows (several rounds of bucket_of)
+DIR_EDGES = [(20, 48, "random", 0), (20, 127, "random", 0),
+             (20, 128, "random", 1), (20, 129, "sparse", 0),
+             (20, 1023, "random", 0), (20, 1024, "sparse", 1),
+             (20, 1025, "dollar_n", 0), (12, 4099, "dollar_n", 1),
+             (20, 5_000_003, "random", 0), (20, 5_000_003, "random", 1),
+             (20, 200_001, "sparse", 0), (4, 100_000, "random", 0),
+             (20, 5000, "dollar_n", 0)]
+
+
+def _dir_keys(rng, k, W, form):
+    if form == "sparse":  # few distinct keys far apart in the key space
+        v = np.sort(rng.integers(0, 1 << (3 * k), 7)) // 8 * 8
+        return np.sort(v[rng.integers(0, 7, W)]) << 1
+    alphabet = (0, 1, 2, 3, 4, 5) if form == "dollar_n" else (1, 2, 3, 5)
+    return _mj_keys(rng, k, W, alphabet)
+
+
+@pytest.mark.parametrize("k,W,form,offset", DIR_EDGES)
+def test_mj_directory_edges_on_gpu(gpu, k, W, form, offset):
+    """The directory kernel (4 rows a thread, a warp's predecessor from the
+    lane before, its bucket computed only where a key's first symbols
+    change) against its plain version at its thread, warp and block edges,
+    over two grid sweeps, on long bucket runs and on keys without 16-byte
+    alignment; its wrapper reads nothing back (the flag stays on the card
+    until ``check``); one key out of order at a warp edge, and one past k
+    symbols in the last row, flag it."""
+    from asgart_tpu_torch.kernels import mj_directory
+    from asgart_tpu_torch.kernels.merge_join import mj_directory_plain
+
+    rng = np.random.default_rng(W + offset)
+    key = _dir_keys(rng, k, W, form)
+    buf = torch.zeros(W + 2, dtype=torch.int64, device=gpu)
+    skey = buf[offset:offset + W]
+    skey.copy_(torch.from_numpy(key))
+    d = mj_directory(skey, k)
+    assert d.flag.device.type == "cuda"
+    assert d.check() is d
+    _equal((d.table,), (mj_directory_plain(skey, k, d.bits).table,))
+    for at in sorted({min(W - 1, 128), min(W - 1, 1024), W // 2}):
+        bad = skey.clone()
+        bad[at - 1], bad[at] = int(skey[at]) + 2, int(skey[at - 1])
+        with pytest.raises(ValueError, match="below its predecessor"):
+            mj_directory(bad, k).check()
+    bad = skey.clone()
+    bad[-1] = (1 << (3 * k)) << 1
+    with pytest.raises(ValueError, match="outside k symbols"):
+        mj_directory(bad, k).check()
 
 
 def _ka_codes(rng, n, offset, gpu):
@@ -1885,40 +1943,72 @@ def test_pack_keys_tiles_on_gpu(gpu, reverse, complement, k):
 
 def _kl_inputs(rng, n, runs, gpu):
     """A sorted round key of n rows in runs of the given lengths (cycled),
-    a random permutation ``order`` and a random order ``sa``."""
+    a random permutation ``order`` and random ranks."""
     lens = []
     while sum(lens) < n:
         lens.append(runs[len(lens) % len(runs)])
     lens[-1] -= sum(lens) - n
     skey = np.repeat(np.cumsum(rng.integers(1, 5, len(lens))), lens)
     order = rng.permutation(n).astype(np.int64)
-    sa = rng.permutation(n).astype(np.int32)
     rank = rng.integers(0, n, n).astype(np.int32)
     return (torch.from_numpy(skey.astype(np.int64)).to(gpu),
-            torch.from_numpy(order).to(gpu), torch.from_numpy(sa).to(gpu),
-            torch.from_numpy(rank).to(gpu))
+            torch.from_numpy(order).to(gpu), torch.from_numpy(rank).to(gpu))
 
 
+@pytest.mark.parametrize("whole", [False, True])
 @pytest.mark.parametrize("n,runs", [
     (1, (1,)), (5000, (1, 2, 7)), ((1 << 13) - 1, (1, 3)),
     ((1 << 13) + 1, (2, 1)), ((1 << 21) + 5, (1, 1, 4, 30)),
     (20_000, (20_000,)), (20_000, (1,)), (50_000, (10_000, 1, 3))])
-def test_full_round_refine_on_gpu(gpu, n, runs):
+def test_full_round_refine_on_gpu(gpu, n, runs, whole):
     """KL (its in-order pass, then KC's scatter with M = W = n) against its
     plain version, rank compared too: one row, below one tile (2^13), off
     the tile on both sides, off the bucket (2^21), every row tied, none
-    tied, runs longer than a tile. One KL launch counted, none of KC."""
+    tied, runs longer than a tile; half the positions direct, or all
+    (``direct_bound = n``). One KL launch counted, none of KC."""
     from asgart_tpu_torch.kernels import full_round_refine, launch_counts
     from asgart_tpu_torch.kernels.ties import full_round_refine_plain
 
     rng = np.random.default_rng(n + len(runs))
-    skey, order, sa, rank = _kl_inputs(rng, n, runs, gpu)
-    bound = n // 2 + 1
+    skey, order, rank = _kl_inputs(rng, n, runs, gpu)
+    bound = n if whole else n // 2 + 1
     rank_p = rank.clone()
     before = launch_counts()
-    got = full_round_refine(skey, order, sa, rank, bound)
+    got = full_round_refine(skey, order, rank, bound)
     after = launch_counts()
-    want = full_round_refine_plain(skey, order, sa, rank_p, bound)
+    want = full_round_refine_plain(skey, order, rank_p, bound)
     _equal([*got, rank], [*want, rank_p])
     assert after["full_round_refine"] == before["full_round_refine"] + 1
     assert after["invert_fused"] == before["invert_fused"]
+
+
+@pytest.mark.parametrize("ranks", ["random", "tied", "distinct"])
+@pytest.mark.parametrize("n", [1, (1 << 13) - 1, (1 << 13) + 1,
+                               (1 << 21) + 5, 5_000_003])
+def test_full_round_keys_on_gpu(gpu, n, ranks):
+    """KK (4 rows a thread, 16-byte loads and stores, the shifted read as
+    one load where h is a multiple of 4) against its plain version, past
+    the grid's first sweep (4.3 M rows) too: h = 0 (one row), 1, 20, 25,
+    n - 1 and n; direct_bound 0, n / 2 and n; every position tied (one rank), none (every rank distinct);
+    ranks in 4-byte alignment only (a view at offset 1: scalar loads). One
+    launch a call."""
+    from asgart_tpu_torch.kernels import full_round_keys, launch_counts
+    from asgart_tpu_torch.kernels.ties import full_round_keys_plain
+
+    rng = np.random.default_rng(n)
+    if ranks == "random":
+        r = rng.integers(0, 1 << 31, n)
+    elif ranks == "tied":
+        r = np.zeros(n)
+    else:
+        r = rng.permutation(n)
+    for offset in (0, 1):
+        buf = torch.zeros(n + 4, dtype=torch.int32, device=gpu)
+        rank = buf[offset:offset + n]
+        rank.copy_(torch.from_numpy(r.astype(np.int32)))
+        for h in sorted({min(n, x) for x in (1, 20, 25, n - 1, n)}):
+            for bound in (0, n // 2, n):
+                before = launch_counts()["full_round_keys"]
+                got = full_round_keys(rank, h, bound)
+                assert launch_counts()["full_round_keys"] == before + 1
+                _equal((got,), (full_round_keys_plain(rank, h, bound),))

@@ -140,6 +140,7 @@ if r == 0:
         fh.write("\n".join(lines[:2]) + "\n")
 distributed.all_min(0.0)  # a barrier
 resumed = run(inf, fa=fa2, checkpoint=journal)
+distributed.all_min(0.0)  # a barrier: rank 0 has written the journal
 res["checkpoint"] = dict(resumed, cold=cold["json"], records=len(lines) - 1,
                          same=open(journal).read().splitlines() == lines)
 # each rank its own journal: rank 0's holds the first record, rank 1's both

@@ -399,10 +399,9 @@ def test_full_round_refine_launch(monkeypatch, n):
                         or real(*a, **kw))
     skey = torch.zeros(n, dtype=torch.int64)
     order = torch.zeros(n, dtype=torch.int64)
-    sa = torch.zeros(n, dtype=torch.int32)
     rank = torch.zeros(n, dtype=torch.int32)
     before = (ties.full_round_refine.launches, invert.invert_fused.launches)
-    new_sa, tied = ties.full_round_refine(skey, order, sa, rank, 5)
+    new_sa, tied = ties.full_round_refine(skey, order, rank, 5)
     after = (ties.full_round_refine.launches, invert.invert_fused.launches)
     assert after == (before[0] + (n > 0), before[1])
     assert new_sa.dtype == torch.int32 and tied.dtype == torch.bool
@@ -417,10 +416,9 @@ def test_full_round_refine_launch(monkeypatch, n):
     assert (tag1, tag2) == ("order", "scatter")
     sp = a2[9]  # the scratch: its cursors first
     l2 = sp + 4 * p.l2_at
-    (skey_p, order_p, sa_p, n1, bound, new_sa_p, run_start, tied_p,
-     _) = a1
-    assert (skey_p, order_p, sa_p, n1, bound) == (
-        skey.data_ptr(), order.data_ptr(), sa.data_ptr(), n, 5)
+    (skey_p, order_p, n1, bound, new_sa_p, run_start, tied_p, _) = a1
+    assert (skey_p, order_p, n1, bound) == (
+        skey.data_ptr(), order.data_ptr(), n, 5)
     assert (new_sa_p, run_start, tied_p) == (new_sa.data_ptr(), l2,
                                              tied.data_ptr())
     (sa2, run_lo, run_hi, mask, M, W, off, n_chunks, cap, cursor, coarse,

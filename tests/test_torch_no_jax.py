@@ -20,7 +20,9 @@ SOURCES = sorted(
     os.path.relpath(f, REPO) for f in
     glob.glob(os.path.join(REPO, "asgart_tpu_torch", "**", "*.py"),
               recursive=True)) + ["chip_smoke.py", "scripts/kd_kc_probe.py",
-                                  "scripts/kj_kh_probe.py"]
+                                  "scripts/kj_kh_probe.py",
+                                  "scripts/ka_kl_probe.py",
+                                  "scripts/kk_dir_probe.py"]
 # bench.py is the JAX package's benchmark script
 FORBIDDEN = ("jax", "jaxlib", "asgart_tpu", "bench")
 

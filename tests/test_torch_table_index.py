@@ -165,9 +165,9 @@ def test_full_round_equals_jax(doubled):
     for _ in range(2):
         jsa, jrank, jtied = di._full_round(jsa, jrank, jnp.int32(h),
                                            jnp.int32(n1))
-        key = full_round_keys(sa, rank, h, n1)
+        key = full_round_keys(rank, h, n1)
         skey, order = torch.sort(key, stable=True)
-        sa, tied = full_round_refine(skey, order, sa, rank, n1)
+        sa, tied = full_round_refine(skey, order, rank, n1)
         assert np.array_equal(sa.numpy(), np.asarray(jsa))
         assert np.array_equal(rank.numpy(), np.asarray(jrank))
         assert np.array_equal(tied.numpy(), np.asarray(jtied))
