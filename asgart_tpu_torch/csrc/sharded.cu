@@ -21,10 +21,19 @@
 // Bound on the H100: memory. 9 B read per lane (lo, hi, mask), 8 B (off)
 // per lane that has entries, 4 B per flat entry written, and 4 B per owned
 // entry read from sa_local; the owned rows of one lane are one contiguous
-// span. One warp per lane (grid-stride over lanes): its threads write the
-// lane's entries, zeros and owned span alike, at consecutive addresses, and
-// read the owned span at consecutive addresses, so both coalesce. Lanes
-// with no match (most of them) cost one read of their bounds.
+// span. A chunk has millions of lanes, and most have no entry (rank_trim4's
+// largest chunk: 24,127 of 6.4 M), so the lane stream sets the time.
+//
+// Design: one thread a lane reads the lane stream, so lo, hi and mask are
+// read once, coalesced, with every load of a warp in flight together. A
+// warp ballot finds the lanes with entries; the warp then serves them one
+// after another, their bounds and offsets passed by shuffles, its 32
+// threads writing a lane's entries (zeros and owned rows alike) at
+// consecutive addresses and reading the owned rows at consecutive
+// addresses, so a lane of any length stays coalesced. The loop's bound is
+// uniform over the warp, so every warp stays converged for the ballot and
+// the shuffles. Each entry is written once: a memset of the buffer first
+// would write the owned entries twice and add a launch.
 #include "common.cuh"
 
 namespace {
@@ -37,17 +46,34 @@ __global__ void gather_owned_kernel(const int* __restrict__ lane_lo,
                                     const int* __restrict__ sa_local,
                                     long long row0, long long n_local,
                                     int* __restrict__ flat) {
+  const unsigned kFull = 0xFFFFFFFFu;
   const int t0 = threadIdx.x & 31;
-  const long long warps = ((long long)gridDim.x * blockDim.x) >> 5;
-  for (long long l = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-       l < n; l += warps) {
-    if (!lane_mask[l]) continue;
-    const long long lo = lane_lo[l];
-    const long long cnt = (long long)lane_hi[l] - lo;
-    int* out = flat + off[l];
-    for (long long t = t0; t < cnt; t += 32) {
-      const long long row = lo + t - row0;
-      out[t] = (row >= 0 && row < n_local) ? __ldg(sa_local + row) : 0;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  // base: the warp's first lane, the same for its 32 threads
+  for (long long base = (long long)blockIdx.x * blockDim.x + threadIdx.x - t0;
+       base < n; base += stride) {
+    const long long l = base + t0;
+    int lo = 0, cnt = 0;
+    if (l < n) {
+      const int a = __ldg(lane_lo + l), b = __ldg(lane_hi + l);
+      if (__ldg(lane_mask + l)) {
+        lo = a;
+        cnt = b - a;
+      }
+    }
+    unsigned live = __ballot_sync(kFull, cnt > 0);
+    if (!live) continue;
+    const long long o = cnt > 0 ? __ldg(off + l) : 0;
+    while (live) {
+      const int src = __ffs(live) - 1;
+      live &= live - 1;
+      const long long lo_s = __shfl_sync(kFull, lo, src);
+      const int cnt_s = __shfl_sync(kFull, cnt, src);
+      int* out = flat + __shfl_sync(kFull, o, src);
+      for (int t = t0; t < cnt_s; t += 32) {
+        const long long row = lo_s + t - row0;
+        out[t] = (row >= 0 && row < n_local) ? __ldg(sa_local + row) : 0;
+      }
     }
   }
 }
@@ -63,9 +89,7 @@ ASGART_API int asgart_gather_owned(const void* lane_lo, const void* lane_hi,
                                    long long row0, long long n_local,
                                    void* flat, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  long long blocks = (n * 32 + asgart::kThreads - 1) / asgart::kThreads;
-  if (blocks > 132LL * 32) blocks = 132LL * 32;
-  gather_owned_kernel<<<(unsigned)blocks, asgart::kThreads, 0,
+  gather_owned_kernel<<<asgart::grid_for(n), asgart::kThreads, 0,
                         (cudaStream_t)stream>>>(
       (const int*)lane_lo, (const int*)lane_hi, (const uint8_t*)lane_mask,
       (const long long*)off, n, (const int*)sa_local, row0, n_local,

@@ -573,11 +573,13 @@ class ShardedWindowEngine(DeviceWindowEngine):
                           lambda cs, cl: rebased_bases(cs, cl, ws, W),
                           gather=self.gather)
 
-    def gather(self, lane_lo, lane_hi, lane_mask):
+    def gather(self, lane_lo, lane_hi, lane_mask, total=None):
         """(lane_lo', lane_hi', src) for KD: the lanes' windows gathered
         into one flat buffer ``src`` (KT on this rank's rows, summed over
-        the ranks), each lane's window [lane_lo', lane_hi') of it."""
-        off, total = csr_offsets(lane_lo, lane_hi, lane_mask)
+        the ranks), each lane's window [lane_lo', lane_hi') of it.
+        ``total``, the masked lanes' summed window lengths where the
+        caller holds it, spares a host read of the buffer's length."""
+        off, total = csr_offsets(lane_lo, lane_hi, lane_mask, total)
         idx = self.index
         flat = distributed.psum(gather_owned(
             lane_lo, lane_hi, lane_mask, off, total, idx.sa, idx.row0))
@@ -676,8 +678,10 @@ def scan_lanes(settings, lanes, sa: torch.Tensor | None, chunks, bases,
     ``ScanResult``, or a :class:`Sliced` when the chunk's exact raw total
     reaches the slice budget (``ASGART_DEVICE_SLICE_LANES``, read at each
     call); ``scan_lanes.sliced`` counts those chunks. ``gather(lane_lo,
-    lane_hi, lane_mask)``, when given, returns what KD reads in place of
-    the lanes and ``sa`` (the rank-sharded engine's gathered windows);
+    lane_hi, lane_mask, total)``, when given, returns what KD reads in
+    place of the lanes and ``sa`` (the rank-sharded engine's gathered
+    windows; ``total`` is the lanes' exact raw total for a whole chunk,
+    None for a slice);
     ``part(n_lanes)`` = (a, b) restricts each chunk to its lanes [a, b)
     (a probe-axis rank's), whose raw total then decides the slicing.
 
@@ -704,18 +708,19 @@ def scan_lanes(settings, lanes, sa: torch.Tensor | None, chunks, bases,
             total = int(torch.where(mask, hi - lo, 0).sum())
         consts = bases(*chunk)
 
-        def scan(lane0, n, lo=lo, hi=hi, mask=mask, consts=consts, a=a):
+        def scan(lane0, n, total=None, lo=lo, hi=hi, mask=mask,
+                 consts=consts, a=a):
             sl = (lo[lane0: lane0 + n], hi[lane0: lane0 + n],
                   mask[lane0: lane0 + n])
             lo_s, hi_s, src = (*sl[:2], sa) if gather is None else \
-                gather(*sl)
+                gather(*sl, total)
             # j0: the slice's lane offset within the chunk
             return scan_core(lo_s, hi_s, sl[2], src, *consts,
                              s.max_cardinality, a + lane0, s.probe_size,
                              s.reverse)
 
-        if total < budget:
-            yield scan(0, nc)
+        if total < budget:  # the whole chunk: its exact total is known
+            yield scan(0, nc, total)
             continue
         scan_lanes.sliced += 1
         yield Sliced(scan, slice_plan(lo, hi, mask, budget))

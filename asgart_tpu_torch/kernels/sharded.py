@@ -15,12 +15,16 @@ from . import _build
 
 
 def csr_offsets(lane_lo: torch.Tensor, lane_hi: torch.Tensor,
-                lane_mask: torch.Tensor) -> tuple[torch.Tensor, int]:
+                lane_mask: torch.Tensor, total: int | None = None
+                ) -> tuple[torch.Tensor, int]:
     """(off int64 [n], total): each masked lane's exclusive offset in the
-    flat buffer of all masked lanes' windows, and that buffer's length."""
+    flat buffer of all masked lanes' windows, and that buffer's length.
+    A caller that holds the exact length passes it as ``total``, and the
+    length is not read back from the card."""
     cnt = torch.where(lane_mask, lane_hi - lane_lo, 0).to(torch.int64)
     csum = torch.cumsum(cnt, 0)
-    total = int(csum[-1]) if csum.numel() else 0
+    if total is None:
+        total = int(csum[-1]) if csum.numel() else 0
     return csum - cnt, total
 
 

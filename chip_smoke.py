@@ -169,8 +169,8 @@
    :func:`nccl_shared_card` prints how NCCL treats two ranks on one card;
 10. prints a {"kernels": [...]} line (each kernel once per path, with the
    path's name and k; each row's ``ms`` the wrapper's call; KA's, KC's,
-   KH's and its directory's, KJ's, KK's, KL's, KP's, KQ's and KR's rows
-   also ``kernel_alone_ms`` and ``library_alone_ms``
+   KH's and its directory's, KI's, KJ's, KK's, KL's, KP's, KQ's, KR's and
+   KT's rows also ``kernel_alone_ms`` and ``library_alone_ms``
    (null where no library call computes the function), the launches alone
    (:func:`kernel_ms`), and KQ's ``key_reads`` and ``jax_loop_probes``,
    counted by the kernel (``kernels.seed.equal_range_reads``), KH's
@@ -554,9 +554,12 @@ def ki_check(record, tag: str, strand_data, device):
     if not torch.equal(codes, want):
         raise AssertionError(f"KI's codes differ from CODE[strand] on {tag}")
     del want
+    n4 = p.numel()
     record("unpack_codes", "codes.cu", "asgart_tpu/device_index.py:98", err,
-           cuda_ms(ki), cuda_ms(pi), f"n1={n1}, {n_exc} exceptions",
-           n1 // 4 + n1 + 10 * n_exc, 4 * n1, library_ms=cuda_ms(li))
+           cuda_ms(ki), cuda_ms(pi),
+           f"n1={n1}, n4 % 4 = {n4 % 4}, {n_exc} exceptions",
+           n4 + n1 + 10 * n_exc, 4 * n1, library_ms=cuda_ms(li),
+           alone=(kernel_ms(ki, FINE_REPS), None))
     torch.cuda.empty_cache()
     return codes
 
@@ -3001,6 +3004,7 @@ def kt_check(fa: str, settings, device, D: int) -> list:
             "rows": [shard.row0, shard.sa.numel()],
             "max_abs_err": max_abs_err([got], [want]),
             "ms": cuda_ms(lambda: gather_owned(*args)),
+            "alone": kernel_ms(lambda: gather_owned(*args), FINE_REPS),
             "plain_ms": cuda_ms(lambda: gather_owned_plain(*args)),
             "nbytes": 9 * n_lanes[chunk] + 8 * live + 4 * total
             + 4 * owned, "ops": 2 * total})
@@ -3017,7 +3021,8 @@ def kt_row(record, check: dict, tag: str) -> None:
            f"{tag}: {check['lanes']} lanes ({check['live']} with entries), "
            f"{check['total']} entries, {check['owned']} owned (rows "
            f"{check['rows'][0]}.."
-           f"+{check['rows'][1]})", check["nbytes"], check["ops"])
+           f"+{check['rows'][1]})", check["nbytes"], check["ops"],
+           alone=(check["alone"], None))
 
 
 def collective_summary(stats) -> str:

@@ -490,31 +490,63 @@ def test_gpu_natural_route_ballast(tmp_path, gpu):
 
 def test_unpack_codes_equal_plain_on_gpu(gpu):
     """KI against its plain version and ``CODE[strand]``: $, N and IUPAC
-    exceptions, no exception, n1 % 4 from 0 to 3 (the vectorised and the
-    byte-wise unpack), through ``upload_codes`` too."""
+    exceptions, no exception, n1 % 4 from 0 to 3, n4 % 4 from 0 to 3
+    (every quarter at its own alignment), strands under a tile and under
+    16 bytes, through ``upload_codes`` too; ``packed`` as views at byte
+    offsets 1-15, and the entry point writing into ``codes`` views at byte
+    offsets 1-15 (the wrapper's own buffer is aligned)."""
     import numpy as np
 
     from asgart_tpu_torch.codes import pack_codes, upload_codes
-    from asgart_tpu_torch.kernels import launch_counts, unpack_codes
+    from asgart_tpu_torch.kernels import _build, launch_counts, unpack_codes
     from asgart_tpu_torch.kernels.codes import unpack_codes_plain
 
     before = launch_counts()["unpack_codes"]
     rng = np.random.default_rng(5)
-    for n, exc in ((1 << 20, b"N"), ((1 << 20) + 1, b"NRYKM"),
-                   ((1 << 20) + 2, b""), ((1 << 20) + 3, b"N"), (7, b"N")):
+
+    def strand(n, exc):
         g = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, n)].copy()
         if exc:
             hit = rng.random(n) < 0.003
             g[hit] = np.frombuffer(exc, np.uint8)[
                 rng.integers(0, len(exc), hit.sum())]
             g[-1] = ord("$")
+        return g
+
+    cases = [(1 << 20, b"N"), ((1 << 20) + 1, b"NRYKM"),
+             ((1 << 20) + 2, b""), ((1 << 20) + 3, b"N"), (7, b"N")]
+    # n4 = ceil(n1 / 4) at each residue mod 4, and short strands
+    cases += [(4 * ((1 << 20) + r) - 1, b"N") for r in range(4)]
+    cases += [(n, b"N") for n in (1, 15, 16, 17, 4095, 4 * 4096 + 5)]
+    for n, exc in cases:
+        g = strand(n, exc)
         packed = [torch.from_numpy(a).to(gpu) for a in pack_codes(g)]
         got = unpack_codes(*packed, n)
         _equal((got,), (unpack_codes_plain(*packed, n),))
         _equal((got,), (torch.from_numpy(CODE[g]),))
         _equal((upload_codes(g, gpu),), (torch.from_numpy(CODE[g]),))
+    lib = _build.lib()
+    for mis in range(1, 16):
+        n = (1 << 18) + 4 * mis + mis % 4
+        g = strand(n, b"N")
+        want = torch.from_numpy(CODE[g])
+        p, pos, code = (torch.from_numpy(a).to(gpu) for a in pack_codes(g))
+        buf = torch.zeros(p.numel() + 32, dtype=torch.uint8, device=gpu)
+        o = (mis - buf.data_ptr()) % 16
+        view = buf[o: o + p.numel()]
+        view.copy_(p)
+        _equal((unpack_codes(view, pos, code, n),), (want,))
+        out = torch.full((n + 32,), 255, dtype=torch.uint8, device=gpu)
+        o = ((16 - mis) - out.data_ptr()) % 16
+        _build.check(lib.asgart_unpack_codes(
+            view.data_ptr(), view.numel(), n, pos.data_ptr(),
+            code.data_ptr(), pos.numel(), out[o:].data_ptr(),
+            _build.stream_of(view)), "unpack_codes")
+        _equal((out[o: o + n],), (want,))
+        assert bool((out[:o] == 255).all()) and bool((out[o + n:] == 255)
+                                                     .all())
     torch.cuda.synchronize()
-    assert launch_counts()["unpack_codes"] >= before + 10
+    assert launch_counts()["unpack_codes"] >= before + 2 * len(cases) + 15
 
 
 @pytest.mark.parametrize("k", [20, 8])
@@ -1402,7 +1434,9 @@ def test_gather_owned_equals_plain_on_gpu(gpu, W, n_ranks):
     of a W-row order (lanes that end at a shard boundary, span three
     shards, are empty or masked), every shard including those that own no
     row (W = 5 over 8 ranks); the shards' buffers sum to the windows. An
-    empty buffer launches nothing."""
+    empty buffer launches nothing. Then a chunk shaped like rank_trim4's
+    largest: 6.4 M lanes, about 0.4% of them with entries, and one lane
+    spanning three shards."""
     from asgart_tpu_torch.kernels import gather_owned, launch_counts
     from asgart_tpu_torch.kernels.sharded import (csr_offsets,
                                                   gather_owned_plain)
@@ -1436,6 +1470,23 @@ def test_gather_owned_equals_plain_on_gpu(gpu, W, n_ranks):
     empty = gather_owned(*(x[:0] for x in t), off[:0], 0, shard, 0)
     assert empty.numel() == 0
     assert launch_counts()["gather_owned"] == before + n_ranks
+    # a chunk shaped like rank_trim4's largest: 6.4 M lanes, about 0.4% of
+    # them with entries (1 to 4 each), and one lane of 3 Wl + 5 entries
+    n = 6_400_000
+    lo = rng.integers(0, W, n)
+    hi = np.where(rng.random(n) < 0.004,
+                  np.minimum(W, lo + rng.integers(1, 5, n)), lo)
+    lo[n // 2], hi[n // 2] = 0, min(W, 3 * Wl + 5)
+    mask = rng.random(n) >= 0.05
+    mask[n // 2] = True
+    t = [torch.from_numpy(a).to(gpu) for a in
+         (lo.astype(np.int32), hi.astype(np.int32), mask)]
+    off, total = csr_offsets(*t)
+    for r in range(n_ranks):
+        a, b = min(W, r * Wl), min(W, (r + 1) * Wl)
+        shard = torch.from_numpy(sa[a:b].copy()).to(gpu)
+        _equal([gather_owned(*t, off, total, shard, a)],
+               [gather_owned_plain(*t, off, total, shard, a)])
 
 
 def test_gpu_rank_sharded_json_equals_host(tmp_path, gpu, monkeypatch):

@@ -22,7 +22,8 @@ SOURCES = sorted(
               recursive=True)) + ["chip_smoke.py", "scripts/kd_kc_probe.py",
                                   "scripts/kj_kh_probe.py",
                                   "scripts/ka_kl_probe.py",
-                                  "scripts/kk_dir_probe.py"]
+                                  "scripts/kk_dir_probe.py",
+                                  "scripts/kt_ki_probe.py"]
 # bench.py is the JAX package's benchmark script
 FORBIDDEN = ("jax", "jaxlib", "asgart_tpu", "bench")
 
