@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .fused_index import FusedIndex
+from .kernels.tables import decimated_index, decimated_size
 from .table_index import DeviceIndex
 from .window_index import DeviceWindowIndex
 
@@ -26,7 +27,7 @@ def rank_from_decimated(rank_dec: np.ndarray, step: int, W: int
     decimated tables pos_lo and pos_hi share the layout."""
     C = len(rank_dec) // step
     p = np.arange(W)
-    return np.asarray(rank_dec)[(p % step) * C + p // step]
+    return np.asarray(rank_dec)[decimated_index(p, step, C)]
 
 
 def fused_index_from_numpy(sa, lane_lo, lane_hi, lane_mask, specs, offs,
@@ -78,18 +79,31 @@ def window_index_from_numpy(key_hi, key_lo, sa, k: int, n: int,
         win_end=int(win_end), reverse=reverse, complement=complement)
 
 
+def relaid_decimated(tab_dec: np.ndarray, step: int, n: int) -> np.ndarray:
+    """A JAX decimated, padded table (row r = the positions p = r mod step,
+    its row length len(tab_dec) // step) in the port's decimated layout:
+    the same rows cut to C = ceil(n / step) columns (position p at
+    :func:`decimated_index`; the slots past the n positions hold the JAX
+    padding's zeros)."""
+    tab = np.asarray(tab_dec)
+    C, _ = decimated_size(n, step)
+    return tab.reshape(step, len(tab) // step)[:, :C].reshape(-1)
+
+
 def table_index_from_numpy(sa, pos_lo, pos_hi, k: int, n: int,
                            first_len: int, reverse: bool, complement: bool,
                            device: torch.device) -> DeviceIndex:
     """The port's DeviceIndex from a JAX DeviceIndex's suffix order and
-    decimated, padded tables: the tables in plain position layout [n]
-    (:func:`rank_from_decimated`), the N flag kept in pos_lo's sign bit."""
+    decimated, padded tables: the tables re-laid at C = ceil(n / step)
+    columns (:func:`relaid_decimated`), the N flag kept in pos_lo's sign
+    bit."""
     step = k // 2
 
-    def dev(a, plain=True):
-        a = rank_from_decimated(np.asarray(a), step, n) if plain else a
+    def dev(a):
         return torch.tensor(np.asarray(a), dtype=torch.int32, device=device)
 
-    return DeviceIndex(sa=dev(sa, plain=False), pos_lo=dev(pos_lo),
-                       pos_hi=dev(pos_hi), k=k, n=n, first_len=first_len,
-                       reverse=reverse, complement=complement)
+    return DeviceIndex(sa=dev(sa), pos_lo=dev(relaid_decimated(pos_lo, step,
+                                                               n)),
+                       pos_hi=dev(relaid_decimated(pos_hi, step, n)), k=k,
+                       n=n, first_len=first_len, reverse=reverse,
+                       complement=complement)

@@ -18,7 +18,12 @@
 // it is a permutation scatter, and rank stays in plain position layout.
 // The table form is the case W = 0 (every row a "probe" row, its position
 // the lane) with a third output, rank, written from the same tile as
-// pos_lo; it takes no lane mask and computes no totals.
+// pos_lo; it takes no lane mask and computes no totals. Its pos_lo and
+// pos_hi keep the JAX tables' decimated layout (position d at (d % step)
+// * C + d / step, C = ceil(n / step), step = k / 2, unpadded), in which
+// KM reads a chunk's probes as one contiguous run (csrc/tables.cu): the
+// fill writes a tile's positions residue by residue, each a contiguous
+// run of ~2^kTile / step entries.
 // The totals are exact int64 sums of (lane_hi - lane_lo) over masked
 // lanes per chunk (the JAX float32 sums are exact only below 2^24).
 //
@@ -220,12 +225,17 @@ invert_partition_kernel(Planes in, long long M, long long W, int shift,
 }
 
 // One block a tile of 2^kTile destinations: its region of the second
-// pass's planes into shared memory, then out in order; lane_rank (the
-// table form's rank, null in KC's) beside lane_lo.
+// pass's planes into shared memory, then out in order. The table form
+// (lane_rank, its rank, not null; W = 0) writes rank in order and lane_lo
+// and lane_hi decimated (position d at (d % step) * C + d / step): the
+// tile's positions of one residue are one contiguous run there, so it
+// writes them residue by residue, and the last tile zeroes each plane's
+// slots past the M positions (one a residue at most).
 __global__ void __launch_bounds__(kFillThreads)
 invert_fill_kernel(Planes in, long long M, long long W,
                    int* __restrict__ rank, int* __restrict__ lane_lo,
-                   int* __restrict__ lane_hi, int* __restrict__ lane_rank) {
+                   int* __restrict__ lane_hi, int* __restrict__ lane_rank,
+                   int step, long long C) {
   extern __shared__ int smem[];
   int* t_lo = smem;
   int* t_hi = smem + (1 << kTile);
@@ -241,15 +251,35 @@ invert_fill_kernel(Planes in, long long M, long long W,
     if (lanes && d >= W) t_hi[off] = __ldcs(in.hi + (s - in.hi_first));
   }
   __syncthreads();
+  if (lane_rank) {
+    for (int p = threadIdx.x; p < n; p += kFillThreads) {
+      lane_rank[start + p] = t_lo[p] & 0x7FFFFFFF;
+    }
+    const int s0 = (int)(start % step);
+    for (int r = 0; r < step; ++r) {
+      const int q0 = (r - s0 + step) % step;  // its first offset here
+      if (q0 >= n) continue;
+      const int cnt = (n - 1 - q0) / step + 1;
+      const long long out0 = r * C + (start + q0) / step;
+      for (int m = threadIdx.x; m < cnt; m += kFillThreads) {
+        lane_lo[out0 + m] = t_lo[q0 + m * step];
+        lane_hi[out0 + m] = t_hi[q0 + m * step];
+      }
+    }
+    if (start + n == M && threadIdx.x < step &&
+        threadIdx.x + (C - 1) * step >= M) {
+      lane_lo[threadIdx.x * C + C - 1] = 0;
+      lane_hi[threadIdx.x * C + C - 1] = 0;
+    }
+    return;
+  }
   for (int p = threadIdx.x; p < n; p += kFillThreads) {
     const long long d = start + p;
     if (d < W) {
       rank[d] = t_lo[p];
     } else {
-      const int lo = t_lo[p];
-      lane_lo[d - W] = lo;
+      lane_lo[d - W] = t_lo[p];
       lane_hi[d - W] = t_hi[p];
-      if (lane_rank) lane_rank[d - W] = lo & 0x7FFFFFFF;
     }
   }
 }
@@ -303,18 +333,20 @@ __global__ void lane_totals_table_kernel(
 }
 
 // The partitioned scatter of M rows (W direct) into rank [W], lane_lo and
-// lane_hi [M - W] and, in the table form, lane_rank [M - W] (else null):
-// scratch as in asgart_invert_fused.
+// lane_hi [M - W] and, in the table form (W = 0), lane_rank [M] (else
+// null), lane_lo and lane_hi then decimated by step: scratch as in
+// asgart_invert_fused.
 cudaError_t scatter(const void* sa, const void* run_lo, const void* run_hi,
                     long long M, long long W, void* cursor, int n_coarse,
                     int n_tiles, void* d1, void* l1, void* h1,
                     long long h1_first, void* d2, void* l2, void* h2,
                     long long h2_first, void* rank, void* lane_lo,
-                    void* lane_hi, void* lane_rank, cudaStream_t s) {
+                    void* lane_hi, void* lane_rank, int step,
+                    cudaStream_t s) {
   if (M <= 0) return cudaSuccess;
   if (n_coarse != (M + (1LL << kCoarse) - 1) >> kCoarse ||
       n_tiles != (M + (1LL << kTile) - 1) >> kTile ||
-      n_coarse > kMaxBuckets) {
+      n_coarse > kMaxBuckets || step < 1 || step > kFillThreads) {
     return cudaErrorInvalidValue;
   }
   cudaError_t rc;
@@ -358,7 +390,8 @@ cudaError_t scatter(const void* sa, const void* run_lo, const void* run_hi,
   const Planes in3{(const int*)d2, (const int*)l2, out2.hi, h2_first};
   invert_fill_kernel<<<(unsigned)n_tiles, kFillThreads,
                        sizeof(int) << (kTile + lanes), s>>>(
-      in3, M, W, (int*)rank, (int*)lane_lo, (int*)lane_hi, (int*)lane_rank);
+      in3, M, W, (int*)rank, (int*)lane_lo, (int*)lane_hi, (int*)lane_rank,
+      step, (M + step - 1) / step);
   return cudaGetLastError();
 }
 
@@ -386,7 +419,7 @@ ASGART_API int asgart_invert_fused(const void* sa, const void* run_lo,
   }
   cudaError_t rc = scatter(sa, run_lo, run_hi, M, W, cursor, n_coarse,
                            n_tiles, d1, l1, h1, h1_first, d2, l2, h2,
-                           h2_first, rank, lane_lo, lane_hi, nullptr, s);
+                           h2_first, rank, lane_lo, lane_hi, nullptr, 1, s);
   if (rc != cudaSuccess) return (int)rc;
   if (n_chunks == 0) return (int)cudaSuccess;
   rc = cudaMemsetAsync(totals, 0, sizeof(unsigned long long) * n_chunks, s);
@@ -409,14 +442,16 @@ ASGART_API int asgart_invert_fused(const void* sa, const void* run_lo,
 
 // KJ, the table form: the scatter of n rows with W = 0 (scratch laid out
 // by kc_plan(n, 0): every plane of n slots, h1_first = h2_first = 0);
-// pos_lo, pos_hi and rank int32 [n].
+// pos_lo and pos_hi int32 [step * C], decimated by step (C = ceil(n /
+// step); 1: in order), rank int32 [n] in order.
 ASGART_API int asgart_invert_tables(const void* sa, const void* run_lo,
                                     const void* run_hi, long long n,
                                     void* cursor, int n_coarse, int n_tiles,
                                     void* d1, void* l1, void* h1, void* d2,
                                     void* l2, void* h2, void* pos_lo,
-                                    void* pos_hi, void* rank, void* stream) {
+                                    void* pos_hi, void* rank, int step,
+                                    void* stream) {
   return (int)scatter(sa, run_lo, run_hi, n, 0, cursor, n_coarse, n_tiles,
                       d1, l1, h1, 0, d2, l2, h2, 0, nullptr, pos_lo, pos_hi,
-                      rank, (cudaStream_t)stream);
+                      rank, step, (cudaStream_t)stream);
 }

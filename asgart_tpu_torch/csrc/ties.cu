@@ -18,18 +18,31 @@
 //       caller raises). The JAX package clamps the read silently.
 //   (the caller sorts key stably: skey, order)
 //   KF  per sorted entry r: p = ps[order[r]]; the sub-run start s of r in
-//       skey; sa[slots[r]] = p, rank[p] = slots[s]; outputs p, slots[s]
-//       and still[r] = the sub-run is longer than one.
+//       skey; sa[slots[r]] = p, rank[p] = slots[s]; r is still tied when
+//       its sub-run is longer than one. The still-tied entries' next
+//       (slots[r], p, slots[s]) are written compacted, in r order (so
+//       slots ascend, as the JAX stable partition keeps them), and their
+//       count into *count: the whole tail of one_round in one launch.
 //
 // Bound on the H100: KE reads 12 B per entry in order plus one random
 // 4-byte rank gather and writes 8 B; KF reads 8 B of keys and 8 B of
-// order in order, gathers ps, and scatters 4 B into sa (slots ascending,
-// so nearly coalesced) and 4 B into rank (random). Both are memory-bound
-// with a random access per entry. The JAX cummax scan over sub-run starts
-// is a cross-block dependency on a GPU; KF finds each entry's sub-run
-// start by galloping back over the sorted keys (asgart::run_start), so
-// entries deep in long runs (the repeat-dense case) pay O(log run) cached
-// reads and nothing crosses blocks. One thread per entry, grid-stride.
+// order in order, gathers ps, scatters 4 B into sa (slots ascending, so
+// nearly coalesced) and 4 B into rank (random), and writes 12 B a
+// still-tied entry. Both are memory-bound with a random access per entry.
+// The JAX cummax scan over sub-run starts is a cross-block dependency on
+// a GPU; KF finds each entry's sub-run start by galloping back over the
+// sorted keys (asgart::run_start), so entries deep in long runs (the
+// repeat-dense case) pay O(log run) cached reads and nothing crosses
+// blocks. Its compaction is a single-pass scan with decoupled look-back:
+// a block takes the next tile of kRefTile entries in launch order (a
+// counter), ranks its still-tied entries by warp ballots and __popc,
+// publishes the tile's count, and its first warp sums the counts of the
+// tiles before it, 32 at a time, back to the nearest tile whose
+// inclusive prefix is out. A tile only waits on tiles that took their
+// numbers before it, so the wait ends. Once the tie loop's set is a few
+// thousand entries a round is launch-bound, and the JAX round's
+// compaction (a cumsum, a where, three scatters and the count read) is
+// this one launch.
 //
 // KK and KL replace asgart_tpu/device_index.py:769 _full_round, which the
 // JAX package's _resolve_ties (:807) runs while the tied count exceeds
@@ -87,27 +100,110 @@ __global__ void tie_keys_kernel(const int* __restrict__ ps,
   }
 }
 
-__global__ void tie_refine_kernel(const long long* __restrict__ skey,
-                                  const long long* __restrict__ order,
-                                  const int* __restrict__ slots,
-                                  const int* __restrict__ ps, long long n,
-                                  int* __restrict__ sa,
-                                  int* __restrict__ rank,
-                                  int* __restrict__ p_sorted,
-                                  int* __restrict__ rs_out,
-                                  uint8_t* __restrict__ still) {
-  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       r < n; r += (long long)gridDim.x * blockDim.x) {
+constexpr unsigned kFull = 0xFFFFFFFFu;
+// KF: one entry a thread, a tile a block. An entry's work is a chain of
+// dependent loads (order, ps, the gallop back, slots), so a thread takes
+// one: with four, a late round's few dozen blocks ran four chains one
+// after another, 0.019 ms a round on an H100 against the unfused
+// kernel's 0.007.
+constexpr int kRefTile = 256;
+constexpr int kRefWarps = kRefTile / 32;
+// a tile's status word: its count in the low 32 bits, above them what the
+// count is (0: nothing yet, 1: the tile's own, 2: through this tile)
+constexpr unsigned long long kAggregate = 1ull << 32;
+constexpr unsigned long long kInclusive = 2ull << 32;
+
+__device__ __forceinline__ unsigned long long load_status(
+    const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
+}
+
+// scratch: [0] the tile counter, then n_tiles status words; zeroed before
+// the launch
+__global__ void __launch_bounds__(kRefTile)
+tie_refine_kernel(const long long* __restrict__ skey,
+                  const long long* __restrict__ order,
+                  const int* __restrict__ slots, const int* __restrict__ ps,
+                  long long n, int* __restrict__ sa, int* __restrict__ rank,
+                  int* __restrict__ out_slots, int* __restrict__ out_ps,
+                  int* __restrict__ out_prims, int* __restrict__ count,
+                  unsigned long long* __restrict__ scratch, int n_tiles) {
+  __shared__ int s_tile;
+  __shared__ int s_off[kRefWarps];
+  __shared__ long long s_base;
+  const int ln = threadIdx.x & 31, w = threadIdx.x >> 5;
+  if (threadIdx.x == 0) s_tile = (int)atomicAdd(scratch, 1ull);
+  __syncthreads();
+  const int tile = s_tile;
+  unsigned long long* status = scratch + 1;
+  const long long r = (long long)tile * kRefTile + threadIdx.x;
+  int sl = 0, p = 0, rs = 0;
+  bool still = false;
+  if (r < n) {
+    // the in-order loads first, together
     const long long v = skey[r];
-    const int p = __ldg(ps + order[r]);
+    const long long o = order[r];
+    const bool next = r + 1 < n && __ldg(skey + r + 1) == v;
+    sl = __ldg(slots + r);
+    p = __ldg(ps + o);
     const long long s = asgart::run_start(
-        r, [&](long long j) { return __ldg(skey + j) == v; });
-    const int rs = __ldg(slots + s);
-    sa[__ldg(slots + r)] = p;
+        r, [&](long long i) { return __ldg(skey + i) == v; });
+    rs = s == r ? sl : __ldg(slots + s);
+    sa[sl] = p;
     rank[p] = rs;
-    p_sorted[r] = p;
-    rs_out[r] = rs;
-    still[r] = s < r || (r + 1 < n && __ldg(skey + r + 1) == v);
+    still = s < r || next;
+  }
+  const unsigned b = __ballot_sync(kFull, still);
+  const int at = __popc(b & ((1u << ln) - 1u));
+  if (ln == 0) s_off[w] = __popc(b);
+  __syncthreads();
+  if (w == 0) {
+    // the warps' counts, scanned in entry order
+    const int c = ln < kRefWarps ? s_off[ln] : 0;
+    int x = c;
+#pragma unroll
+    for (int o = 1; o < kRefWarps; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, x, o);
+      if (ln >= o) x += y;
+    }
+    if (ln < kRefWarps) s_off[ln] = x - c;
+    const int agg = __shfl_sync(kFull, x, kRefWarps - 1);
+    long long base = 0;
+    if (tile == 0) {
+      if (ln == 0) atomicExch(status, kInclusive | (unsigned)agg);
+    } else {
+      if (ln == 0) atomicExch(status + tile, kAggregate | (unsigned)agg);
+      for (int look = tile - 1;;) {
+        const int t = look - ln;
+        unsigned long long st = kInclusive;  // before tile 0: nothing
+        do {
+          if (t >= 0) st = load_status(status + t);
+        } while (__any_sync(kFull, (st >> 32) == 0));
+        const unsigned inc = __ballot_sync(kFull, (st >> 32) == 2);
+        const int first = inc ? __ffs(inc) - 1 : 32;
+        long long v = ln <= first ? (long long)(st & 0xFFFFFFFFu) : 0;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
+        base += __shfl_sync(kFull, v, 0);
+        if (inc) break;
+        look -= 32;
+      }
+      if (ln == 0) {
+        atomicExch(status + tile,
+                   kInclusive | (unsigned)(base + agg));
+      }
+    }
+    if (ln == 0) {
+      s_base = base;
+      if (tile == n_tiles - 1) *count = (int)(base + agg);
+    }
+  }
+  __syncthreads();
+  if (still) {
+    const long long o = s_base + s_off[w] + at;
+    out_slots[o] = sl;
+    out_ps[o] = p;
+    out_prims[o] = rs;
   }
 }
 
@@ -207,16 +303,25 @@ ASGART_API int asgart_tie_keys(const void* ps, const void* prims,
   return (int)cudaGetLastError();
 }
 
+// KF: outputs int32 [n] each (their first *count entries written);
+// scratch: n_tiles + 1 words (kernels/ties.py TIE_TILE entries a tile).
 ASGART_API int asgart_tie_refine(const void* skey, const void* order,
                                  const void* slots, const void* ps,
                                  long long n, void* sa, void* rank,
-                                 void* p_sorted, void* rs, void* still,
-                                 void* stream) {
-  tie_refine_kernel<<<asgart::grid_for(n), asgart::kThreads, 0,
-                      (cudaStream_t)stream>>>(
+                                 void* out_slots, void* out_ps,
+                                 void* out_prims, void* count, void* scratch,
+                                 int n_tiles, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (n <= 0 || n_tiles != (n + kRefTile - 1) / kRefTile) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t rc = cudaMemsetAsync(
+      scratch, 0, sizeof(unsigned long long) * (n_tiles + 1), s);
+  if (rc != cudaSuccess) return (int)rc;
+  tie_refine_kernel<<<(unsigned)n_tiles, kRefTile, 0, s>>>(
       (const long long*)skey, (const long long*)order, (const int*)slots,
-      (const int*)ps, n, (int*)sa, (int*)rank, (int*)p_sorted, (int*)rs,
-      (uint8_t*)still);
+      (const int*)ps, n, (int*)sa, (int*)rank, (int*)out_slots, (int*)out_ps,
+      (int*)out_prims, (int*)count, (unsigned long long*)scratch, n_tiles);
   return (int)cudaGetLastError();
 }
 

@@ -47,8 +47,10 @@ SIGNATURES = {
                             _P],
     # ps, prims, rank, n, W, h, key, bad, stream
     "asgart_tie_keys": [_P, _P, _P, _I64, _I64, _I64, _P, _P, _P],
-    # skey, order, slots, ps, n, sa, rank, p_sorted, rs, still, stream
-    "asgart_tie_refine": [_P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P],
+    # skey, order, slots, ps, n, sa, rank, out_slots, out_ps, out_prims,
+    # count, scratch, n_tiles, stream
+    "asgart_tie_refine": [_P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P,
+                          _I32, _P],
     # sa, run_lo, run_hi, lane_mask, M, W, lane_off [n_chunks + 1] (on
     # the host, passed by value, or on the card when cap is 0), n_chunks,
     # cap, cursor, n_coarse, n_tiles, d1, l1, h1 (None: no probe rows),
@@ -77,13 +79,14 @@ SIGNATURES = {
     # packed, n4, n1, exc_pos, exc_code, n_exc, codes, stream
     "asgart_unpack_codes": [_P, _I64, _I64, _P, _P, _I64, _P, _P],
     # sa, run_lo, run_hi, n, cursor, n_coarse, n_tiles, d1, l1, h1, d2,
-    # l2, h2 (kc_plan(n, 0)), pos_lo, pos_hi, rank, stream
+    # l2, h2 (kc_plan(n, 0)), pos_lo, pos_hi, rank, step, stream
     "asgart_invert_tables": [_P, _P, _P, _I64, _P, _I32, _I32, _P, _P, _P,
-                             _P, _P, _P, _P, _P, _P, _P],
-    # pos_lo, pos_hi, n, lane_off [n_chunks + 1], x0cl [n_chunks, 2],
-    # n_chunks, k, total, lane_lo, lane_hi, lane_mask, totals, stream
-    "asgart_table_ranges": [_P, _P, _I64, _P, _P, _I32, _I32, _I64, _P, _P,
-                            _P, _P, _P],
+                             _P, _P, _P, _P, _P, _P, _I32, _P],
+    # pos_lo, pos_hi, table [3 n_chunks + 1] (on the host, passed by value,
+    # or on the card when cap is 0), n_chunks, cap, total, lane_lo,
+    # lane_hi, lane_mask, totals, stream
+    "asgart_table_ranges": [_P, _P, _P, _I32, _I32, _I64, _P, _P, _P, _P,
+                            _P],
     # rank, n, h, direct_bound, key, stream
     "asgart_full_round_keys": [_P, _I64, _I64, _I64, _P, _P],
     # skey, order, n, direct_bound, new_sa, run_start, tied, stream

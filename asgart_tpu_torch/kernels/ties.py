@@ -58,45 +58,59 @@ def tie_keys_plain(ps, prims, rank, h, bad):
     return (prims.long() << 32) | (sec + 1)
 
 
+# csrc/ties.cu kRefTile: KF's entries a tile of its compaction scan
+TIE_TILE = 256
+
+
 def tie_refine(skey: torch.Tensor, order: torch.Tensor, slots: torch.Tensor,
-               ps: torch.Tensor, sa: torch.Tensor, rank: torch.Tensor):
+               ps: torch.Tensor, sa: torch.Tensor, rank: torch.Tensor,
+               count: torch.Tensor):
     """Apply one sorted round (``skey`` int64 [n] sorted, ``order`` int64
     [n] its source entries) to the tied entries at ``slots`` (int32 [n],
     ascending) with positions ``ps`` (int32 [n]): writes ``sa[slots[r]] =
     ps[order[r]]`` and each position's new rank, the slot of its sub-run
-    start, into ``rank``, both in place.
+    start, into ``rank``, both in place; an entry is still tied when its
+    sub-run is longer than one.
 
-    Returns (p_sorted int32 [n], rs int32 [n], still bool [n]): the sorted
-    positions, their new ranks, and whether each sub-run is still tied
-    (longer than one)."""
+    Returns the still-tied entries' next (slots, ps, prims), int32 [n]
+    each, compacted in entry order (slots ascending) into their first
+    ``m`` entries, and writes m into ``count`` (int32 [1]) on the device:
+    the caller reads it with the round's other flag."""
     n = skey.numel()
     _check("tie_refine", (skey, torch.int64), (order, torch.int64),
            (slots, torch.int32), (ps, torch.int32), (sa, torch.int32),
-           (rank, torch.int32))
-    if order.numel() != n or slots.numel() != n or ps.numel() != n:
+           (rank, torch.int32), (count, torch.int32))
+    if order.numel() != n or slots.numel() != n or ps.numel() != n \
+            or count.numel() != 1:
         raise ValueError("tie_refine: entry arrays differ in length")
-    if not _build.on_cuda(skey, order, slots, ps, sa, rank):
-        return tie_refine_plain(skey, order, slots, ps, sa, rank)
+    if not _build.on_cuda(skey, order, slots, ps, sa, rank, count):
+        return tie_refine_plain(skey, order, slots, ps, sa, rank, count)
     dev = skey.device
-    p_sorted = torch.empty(n, dtype=torch.int32, device=dev)
-    rs = torch.empty(n, dtype=torch.int32, device=dev)
-    still = torch.empty(n, dtype=torch.bool, device=dev)
+    outs = tuple(torch.empty(n, dtype=torch.int32, device=dev)
+                 for _ in range(3))
+    if n == 0:
+        count.zero_()
+        return outs
+    tiles = -(-n // TIE_TILE)
+    scratch = torch.empty(tiles + 1, dtype=torch.int64, device=dev)
     lib = _build.lib()
     tie_refine.launches += 1
     _build.check(lib.asgart_tie_refine(
         skey.data_ptr(), order.data_ptr(), slots.data_ptr(), ps.data_ptr(),
-        n, sa.data_ptr(), rank.data_ptr(), p_sorted.data_ptr(),
-        rs.data_ptr(), still.data_ptr(), _build.stream_of(skey)),
+        n, sa.data_ptr(), rank.data_ptr(), *(t.data_ptr() for t in outs),
+        count.data_ptr(), scratch.data_ptr(), tiles, _build.stream_of(skey)),
         "tie_refine")
-    return p_sorted, rs, still
+    return outs
 
 
 tie_refine.launches = 0
 
 
-def tie_refine_plain(skey, order, slots, ps, sa, rank):
+def tie_refine_plain(skey, order, slots, ps, sa, rank, count):
     """Plain PyTorch version of the KF kernel (the JAX package's cummax
-    of sub-run start slots)."""
+    of sub-run start slots, then its stable partition of the still-tied
+    entries; the outputs past the count are zeros)."""
+    n = skey.numel()
     p_sorted = ps[order]
     new_run = torch.ones_like(skey, dtype=torch.bool)
     new_run[1:] = skey[1:] != skey[:-1]
@@ -108,7 +122,13 @@ def tie_refine_plain(skey, order, slots, ps, sa, rank):
     still = torch.zeros_like(new_run)
     still[:-1] |= same
     still[1:] |= same
-    return p_sorted, rs, still
+    outs = tuple(torch.zeros(n, dtype=torch.int32, device=skey.device)
+                 for _ in range(3))
+    for out, x in zip(outs, (slots, p_sorted, rs)):
+        kept = x[still]
+        out[:kept.numel()] = kept
+    count.fill_(int(still.sum()))
+    return outs
 
 
 def full_round_keys(rank: torch.Tensor, h: int,

@@ -22,9 +22,12 @@ appended position is then the window of its group's direct positions,
 which is all a probe reads (its table position lies in the appended
 half), and only direct rows are tied. Without an appended half, pos_hi is
 the group's end. pos_lo's sign bit marks positions whose k-mer starts
-with N. Unlike the JAX package, the tables keep plain position layout [n]
-(not decimated and padded for the TPU's contiguous row reads), and the
-rank seed is dropped after the build.
+with N. As in the JAX package, pos_lo and pos_hi are decimated by step =
+k // 2: position x at (x % step) * C + x // step, C = ceil(n / step) (no
+TPU padding; the step * C - n slots past the text hold 0), so that the
+probes of a chunk, x = x0 + j * step, are one contiguous run of each
+plane (KM ``table_ranges``). The rank seed keeps position order (the tie
+rounds read it so) and is dropped after the build.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from .codes import upload_codes
 from .fused_index import probe_span, sort_keys
 from .kernels import group_bounds, invert_tables, pack_keys
 from .kernels.pack_keys import MAX_K
+from .kernels.tables import decimated_index, decimated_size
 from .ties import resolve_ties
 
 
@@ -46,14 +50,25 @@ class DeviceIndex:
     """Device-resident table index of the whole (doubled) text."""
 
     sa: torch.Tensor      # int32 [n] suffix order of the text
-    pos_lo: torch.Tensor  # int32 [n] per-position range start (N flag in
-    #                       the sign bit)
-    pos_hi: torch.Tensor  # int32 [n] per-position range end
+    pos_lo: torch.Tensor  # int32 [step * C] per-position range start (N
+    #                       flag in the sign bit), decimated
+    pos_hi: torch.Tensor  # int32 [step * C] per-position range end,
+    #                       decimated
     k: int
     n: int                # text length (2 n1 - 1 for R/C runs)
     first_len: int        # genome + '$' length
     reverse: bool
     complement: bool
+
+    @property
+    def step(self) -> int:
+        """k // 2: the decimation of pos_lo and pos_hi."""
+        return self.k // 2
+
+    @property
+    def C(self) -> int:
+        """ceil(n / step): the columns of pos_lo and pos_hi."""
+        return decimated_size(self.n, self.step)[0]
 
     def nbytes(self) -> int:
         return 12 * self.n
@@ -82,7 +97,7 @@ class DeviceIndex:
         run_lo, run_hi, tied = group_bounds(skeys, sa, n1, flag_n_k=k,
                                             run_end=not doubled)
         del skeys
-        pos_lo, pos_hi, rank = invert_tables(sa, run_lo, run_hi)
+        pos_lo, pos_hi, rank = invert_tables(sa, run_lo, run_hi, k // 2)
         del run_lo, run_hi
         sa = resolve_ties(sa, rank, tied, n, k, tied_cap=tied_cap,
                           direct_bound=n1)
@@ -90,8 +105,9 @@ class DeviceIndex:
                    first_len=n1, reverse=reverse, complement=complement)
 
     def to_host_arrays(self) -> tuple[np.ndarray, np.ndarray]:
-        """(sa, ranges [n, 2]) as numpy, the N flag stripped: the JAX
-        ``DeviceIndex.to_host_arrays`` (device_index.py:1247)."""
-        lo = self.pos_lo.cpu().numpy() & 0x7FFFFFFF
-        return (self.sa.cpu().numpy(),
-                np.stack([lo, self.pos_hi.cpu().numpy()], axis=1))
+        """(sa, ranges [n, 2]) as numpy in position order, the N flag
+        stripped: the JAX ``DeviceIndex.to_host_arrays``
+        (device_index.py:1247)."""
+        at = decimated_index(np.arange(self.n), self.step, self.C)
+        lo, hi = (t.cpu().numpy()[at] for t in (self.pos_lo, self.pos_hi))
+        return self.sa.cpu().numpy(), np.stack([lo & 0x7FFFFFFF, hi], axis=1)

@@ -4,8 +4,9 @@ after full-array rounds while a table build's tied set is large.
 Counterpart of ``_resolve_ties`` (asgart_tpu/device_index.py:807) with
 ``_extract_tied`` (:642), ``_slot_payload`` (:682) and ``_doubling_rounds``
 (:696). Each round is KE ``tie_keys``, a stable library sort of the round
-keys, KF ``tie_refine`` (kernels/ties.py), then a compaction of the
-entries still tied. A table build (table_index.py) passes ``tied_cap``:
+keys and KF ``tie_refine`` (kernels/ties.py), which also compacts the
+entries still tied and counts them on the device, as the JAX round's
+stable partition does. A table build (table_index.py) passes ``tied_cap``:
 while more than that many rows are tied, a full round (``_full_round``,
 :769) runs first: KK ``full_round_keys`` (every position's keys, in
 position order), the stable sort, KL ``full_round_refine``, over every
@@ -28,8 +29,8 @@ Reads of ``rank[p + h]`` stay inside the direct text: two distinct
 suffixes tied on their first h symbols contain no '$' there (it is
 unique; the k-mer keys pad with its rank 0), so p + h <= W - 1. The JAX
 package clamps the read instead; here KE flags a violation on the device,
-the flag is read once per round together with the still-tied count (the
-round's one host sync), and a violation raises.
+the flag is read once per round together with KF's still-tied count
+(the round's one host sync), and a violation raises.
 """
 
 from __future__ import annotations
@@ -97,31 +98,22 @@ def resolve_ties(sa: torch.Tensor, rank: torch.Tensor,
     ps = sa[slots]
     prims = rank[ps.long()]
     slots = slots.to(torch.int32)
-    bad = torch.zeros(1, dtype=torch.int32, device=sa.device)
+    # KE's bad flag and KF's still-tied count: the round's one host read
+    flags = torch.zeros(2, dtype=torch.int32, device=sa.device)
     while h < 2 * M:
-        key = tie_keys(ps, prims, rank, min(h, M), bad)
+        key = tie_keys(ps, prims, rank, min(h, M), flags[:1])
         skey, order = torch.sort(key, stable=True)
         del key
-        ps, prims, still = tie_refine(skey, order, slots, ps, sa, rank)
+        slots, ps, prims = tie_refine(skey, order, slots, ps, sa, rank,
+                                      flags[1:])
         del skey, order
-        pos = torch.cumsum(still, 0)
-        n_still, violated = torch.stack((pos[-1], bad[0].long())).tolist()
+        violated, n_still = flags.tolist()
         if violated:
             raise RuntimeError(
                 "tie resolution read past the direct text (a tied suffix "
                 "spans the unique '$'); the strand is not genome + '$'")
         if n_still == 0:
             break
-        dest = torch.where(still, pos - 1, n_still)
-        slots, ps, prims = (_compact(x, dest, n_still)
-                            for x in (slots, ps, prims))
+        slots, ps, prims = (x[:n_still] for x in (slots, ps, prims))
         h = min(2 * h, 2 * M)
     return sa
-
-
-def _compact(x: torch.Tensor, dest: torch.Tensor, n: int) -> torch.Tensor:
-    """The entries of ``x`` whose ``dest`` is below ``n``, at ``dest`` (an
-    order-keeping compaction; the rest land in a dropped last slot)."""
-    out = torch.empty(n + 1, dtype=x.dtype, device=x.device)
-    out.scatter_(0, dest, x)
-    return out[:n]

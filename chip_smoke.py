@@ -28,7 +28,8 @@
       build of the genome, or of window 2 of the shards, or of the trim
       window, and its largest chunk's scan, a window's, fused or
       merge-join, with the rebased constants on its window-relative
-      order; KE/KF on the first, largest tie round; KA's probe-only mode
+      order; KE/KF on the first, largest tie round, KF's compacted
+      still-tied entries and count included; KA's probe-only mode
       with its own bound), requires
       equal outputs (tolerance 0: all integers), times
       both with CUDA events after a warm-up, and gives each kernel its
@@ -37,7 +38,8 @@
       PyTorch call (for KI, the same ops with a gather for the LUT) that
       computes the same function, where one exists; times the key sort
       and the whole tie resolution with KE/KF against the same rounds on
-      their plain versions, and the host side of the codes upload (the
+      their plain versions (then once more with KF held to its plain
+      version in every round), and the host side of the codes upload (the
       2-bit pack against the ``CODE`` LUT and pinned copy it replaces);
    b. the sharded path measures each window's build peak per fused row;
       the merge-join paths each window's build peak per window row and its
@@ -63,8 +65,10 @@
    its direct 20-mers tied, so that at the default ``tied_cap`` full rounds
    run first), all -RC. Each kernel against its plain version on the path's
    arrays (KI; KA's doubled mode; the sort; KB with the N flag; KJ, the
-   table form of KC's scatter, and three ``index_put_``; KK / KL on the first full round where one runs; KE
-   / KF on the first subset round; KM, and torch gathers with the masks; KD
+   table form of KC's scatter writing the decimated planes, and three
+   ``index_put_``; KK / KL on the first full round where one runs; KE / KF
+   on the first subset round and KF on every round; KM over the decimated
+   planes, and torch gathers with the masks; KD
    on the largest chunk), the step-by-step index against
    ``DeviceIndex.build`` and its peak per text row against
    ``TABLE_PEAK_BYTES_PER_ROW``; the host engine with a journal; then
@@ -169,8 +173,8 @@
    :func:`nccl_shared_card` prints how NCCL treats two ranks on one card;
 10. prints a {"kernels": [...]} line (each kernel once per path, with the
    path's name and k; each row's ``ms`` the wrapper's call; KA's, KC's,
-   KH's and its directory's, KI's, KJ's, KK's, KL's, KP's, KQ's, KR's and
-   KT's rows also ``kernel_alone_ms`` and ``library_alone_ms``
+   KF's, KH's and its directory's, KI's, KJ's, KK's, KL's, KM's, KP's,
+   KQ's, KR's and KT's rows also ``kernel_alone_ms`` and ``library_alone_ms``
    (null where no library call computes the function), the launches alone
    (:func:`kernel_ms`), and KQ's ``key_reads`` and ``jax_loop_probes``,
    counted by the kernel (``kernels.seed.equal_range_reads``), KH's
@@ -425,10 +429,12 @@ def recorder(rows: list, path: str, k: int):
 def tie_checks(record, tag: str, sa, rank, tied, M: int, k: int, device,
                h: int | None = None):
     """KE / KF on the first tie round (the largest tied set; ``h``: its
-    prefix length, k by default) against their plain versions, then the
-    whole tie resolution with KE/KF and with their plain versions in the
-    same rounds, in turns (plain, kernel, kernel, plain). Returns the
-    resolved ``sa``."""
+    prefix length, k by default) against their plain versions, KF's
+    compacted still-tied entries and their count included; then the whole
+    tie resolution with KE/KF and with their plain versions in the same
+    rounds, in turns (plain, kernel, kernel, plain), and once more with KF
+    held to its plain version in every round. Returns the resolved
+    ``sa``."""
     import torch
 
     from asgart_tpu_torch import ties as ties_mod
@@ -457,17 +463,42 @@ def tie_checks(record, tag: str, sa, rank, tied, M: int, k: int, device,
            8 * n_tied)
     skey, order = torch.sort(key, stable=True)
     del key
+
+    errs = []
+
+    def checked_refine(skey, order, slots, ps, sa_k, rank_k, cnt_k):
+        """KF, held to its plain version on copies of ``sa_k`` and
+        ``rank_k`` taken before it (its max_abs_err in ``errs``): sa, rank,
+        the count and the compacted entries."""
+        sa_p, rank_p = sa_k.clone(), rank_k.clone()
+        cnt_p = torch.zeros(1, dtype=torch.int32, device=device)
+        want = tie_refine_plain(skey, order, slots, ps, sa_p, rank_p, cnt_p)
+        got = tie_refine(skey, order, slots, ps, sa_k, rank_k, cnt_k)
+        m = int(cnt_p)
+        errs.append(max_abs_err(
+            (cnt_k, sa_k, rank_k, *(t[:m] for t in got)),
+            (cnt_p, sa_p, rank_p, *(t[:m] for t in want))))
+        return got
+
     sa_k, rank_k, sa_p, rank_p = sa.clone(), rank.clone(), sa.clone(), \
         rank.clone()
-    kf = lambda: tie_refine(skey, order, slots, ps, sa_k, rank_k)  # noqa: E731
+    cnt_k = torch.zeros(1, dtype=torch.int32, device=device)
+    cnt_p = torch.zeros(1, dtype=torch.int32, device=device)
+    checked_refine(skey, order, slots, ps, sa_k, rank_k, cnt_k)
+    err, m = errs.pop(), int(cnt_k)
+    kf = lambda: tie_refine(skey, order, slots, ps, sa_k,  # noqa: E731
+                            rank_k, cnt_k)
     pf = lambda: tie_refine_plain(skey, order, slots, ps,  # noqa: E731
-                                  sa_p, rank_p)
-    got, want = kf(), pf()
-    err = max_abs_err((*got, sa_k, rank_k), (*want, sa_p, rank_p))
+                                  sa_p, rank_p, cnt_p)
+    # KF's bytes: skey and order (8 + 8), slots and the ps gather (4 + 4),
+    # the sa and rank stores (4 + 4) an entry; 12 B a still-tied entry
     record("tie_refine", "ties.cu", "asgart_tpu/device_index.py:696", err,
-           cuda_ms(kf), cuda_ms(pf), f"{n_tied} tied entries", 41 * n_tied,
-           20 * n_tied)
-    del skey, order, sa_k, rank_k, sa_p, rank_p, got, want, ps, prims, slots
+           cuda_ms(kf), cuda_ms(pf), f"{n_tied} tied entries, {m} still "
+           "tied (compacted)", 32 * n_tied + 12 * m, 20 * n_tied,
+           alone=(kernel_ms(kf, FINE_REPS), None))
+    kf_row = record.rows[-1]
+    del skey, order, sa_k, rank_k, sa_p, rank_p, ps, prims, slots
+    torch.cuda.empty_cache()
 
     def resolve(plain: bool):
         if plain:
@@ -492,10 +523,22 @@ def tie_checks(record, tag: str, sa, rank, tied, M: int, k: int, device,
     if not torch.equal(finals[True], finals[False]):
         raise AssertionError(f"tie resolution with KE/KF differs from its "
                              f"plain rounds on {tag}")
+    # every round's KF against its plain version (the launches of this run
+    # are checks)
+    ties_mod.tie_refine = checked_refine
+    try:
+        t, out = resolve(False)
+    finally:
+        ties_mod.tie_refine = tie_refine
+    if max(errs) != 0 or not torch.equal(out, finals[False]):
+        raise AssertionError(f"KF differs from its plain version in a tie "
+                             f"round on {tag} (max_abs_err {max(errs)})")
+    kf_row["max_abs_err"] = max(err, *errs)
     print(f"{tag} tie resolution of {n_tied} tied rows: KE/KF "
           f"{' / '.join(f'{t:.4f}' for t in times[False])} s, plain rounds "
           f"{' / '.join(f'{t:.4f}' for t in times[True])} s (host clock + "
-          "sync)", flush=True)
+          f"sync); KF held to its plain version in each of its {len(errs)} "
+          "rounds: max_abs_err 0", flush=True)
     return finals[False]
 
 
@@ -1933,7 +1976,9 @@ def table_kernel_checks(fa: str, path: str, settings, device
     from asgart_tpu_torch.kernels.group_bounds import (group_bounds_plain,
                                                        n_flag_shift)
     from asgart_tpu_torch.kernels.pack_keys import pack_keys_plain
-    from asgart_tpu_torch.kernels.tables import (invert_tables_plain,
+    from asgart_tpu_torch.kernels.tables import (decimated_index,
+                                                 decimated_size,
+                                                 invert_tables_plain,
                                                  table_ranges_plain,
                                                  table_x0s)
     from asgart_tpu_torch.table_index import DeviceIndex
@@ -1990,17 +2035,21 @@ def table_kernel_checks(fa: str, path: str, settings, device
     del skeys
     torch.cuda.empty_cache()
 
-    kj = lambda: invert_tables(sa, run_lo, run_hi)  # noqa: E731
-    pj = lambda: invert_tables_plain(sa, run_lo, run_hi)  # noqa: E731
+    step = k // 2
+    kj = lambda: invert_tables(sa, run_lo, run_hi, step)  # noqa: E731
+    pj = lambda: invert_tables_plain(sa, run_lo, run_hi, step)  # noqa: E731
     tables = kj()
     err = max_abs_err(tables, pj())
+    C, _ = decimated_size(n, step)
     sa64 = sa.long()
-    lib = [torch.empty(n, dtype=torch.int32, device=device)
-           for _ in range(3)]
+    dec64 = decimated_index(sa64, step, C)  # the planes' decimated index
+    lib = [torch.zeros(step * C, dtype=torch.int32, device=device)
+           for _ in range(2)] + [torch.empty(n, dtype=torch.int32,
+                                             device=device)]
 
     def lj():  # three index_put_ calls (and the sign mask)
-        lib[0].index_put_((sa64,), run_lo)
-        lib[1].index_put_((sa64,), run_hi)
+        lib[0].index_put_((dec64,), run_lo)
+        lib[1].index_put_((dec64,), run_hi)
         lib[2].index_put_((sa64,), run_lo & 0x7FFFFFFF)
 
     lib_ms = cuda_ms(lj, FINE_REPS)
@@ -2008,10 +2057,10 @@ def table_kernel_checks(fa: str, path: str, settings, device
         raise AssertionError(f"index_put_ differs from KJ on {tag}")
     record("invert_tables", "invert.cu", "asgart_tpu/device_index.py:467",
            err, cuda_ms(kj, FINE_REPS), cuda_ms(pj),
-           f"n={n}, the table form of KC's scatter", 24 * n, 3 * n,
-           library_ms=lib_ms,
+           f"n={n}, the table form of KC's scatter, pos_lo / pos_hi "
+           f"decimated by step {step}", 24 * n, 3 * n, library_ms=lib_ms,
            alone=(kernel_ms(kj, FINE_REPS), kernel_ms(lj, FINE_REPS)))
-    del run_lo, run_hi, sa64, lib
+    del run_lo, run_hi, sa64, dec64, lib
     pos_lo, pos_hi, rank = tables
     del tables
     torch.cuda.empty_cache()
@@ -2023,15 +2072,16 @@ def table_kernel_checks(fa: str, path: str, settings, device
 
     km = lambda: table_ranges(pos_lo, pos_hi, specs, n1, k, *rc)  # noqa: E731
     tabs = table_x0s(specs, n1, k, *rc)
-    pm = lambda: table_ranges_plain(pos_lo, pos_hi, *tabs, k)  # noqa: E731
+    pm = lambda: table_ranges_plain(pos_lo, pos_hi, *tabs, k,  # noqa: E731
+                                    n)
     lane_lo, lane_hi, lane_mask, totals, lane_off = km()
     err = max_abs_err((lane_lo, lane_hi, lane_mask, totals), pm())
     total = lane_off[-1]
-    step = k // 2
     x = torch.cat([torch.arange(nc, device=device) * step + x0
                    for x0, (_, _, nc) in zip(tabs[1], specs)])
     live = torch.cat([torch.arange(nc, device=device) * step < cl - k - step
-                      for (_, cl, nc) in specs])
+                      for (_, cl, nc) in specs]) & (x < n)
+    x = torch.where(live, decimated_index(x, step, C), 0)
 
     def lm():  # gathers at the probe positions, then the masks
         lo = pos_lo.index_select(0, x)
@@ -2039,14 +2089,15 @@ def table_kernel_checks(fa: str, path: str, settings, device
         return (torch.where(mask, lo & 0x7FFFFFFF, 0),
                 torch.where(mask, pos_hi.index_select(0, x), 0), mask)
 
-    lib_ms = cuda_ms(lm)
+    lib_ms = cuda_ms(lm, FINE_REPS)
     if any(not torch.equal(a, b) for a, b in zip(lm(), (lane_lo, lane_hi,
                                                         lane_mask))):
         raise AssertionError(f"torch gathers differ from KM on {tag}")
     record("table_ranges", "tables.cu", "asgart_tpu/device_engine.py:202",
-           err, cuda_ms(km), cuda_ms(pm), f"{total} lanes of "
-           f"{len(specs)} chunks, step {step}", 17 * total, 12 * total,
-           library_ms=lib_ms)
+           err, cuda_ms(km, FINE_REPS), cuda_ms(pm), f"{total} lanes of "
+           f"{len(specs)} chunks, step {step}, decimated planes",
+           17 * total, 12 * total, library_ms=lib_ms,
+           alone=(kernel_ms(km, FINE_REPS), kernel_ms(lm, FINE_REPS)))
     del x, live
     kd_check(record, s, specs, lane_off, lane_lo, lane_hi, lane_mask, sa)
     # the chunks whose raw totals reach the slice budget: each one's slice

@@ -246,7 +246,7 @@ def kl_probe(cs, fa, device):
     run_lo, run_hi, tied = group_bounds(skeys, sa, n1, flag_n_k=k,
                                         run_end=False)
     del skeys
-    _, _, rank = invert_tables(sa, run_lo, run_hi)
+    _, _, rank = invert_tables(sa, run_lo, run_hi, k // 2)
     del run_lo, run_hi
     first = int(tied.sum())
     del tied

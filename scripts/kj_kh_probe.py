@@ -95,7 +95,8 @@ def kj_probe(cs_mod, fa, device):
                                         run_end=False)
     del skeys, tied
     torch.cuda.empty_cache()
-    kj = lambda: invert_tables(sa, run_lo, run_hi)  # noqa: E731
+    # step 1: the planes in position order, KC's with W = 0
+    kj = lambda: invert_tables(sa, run_lo, run_hi, 1)  # noqa: E731
     pos_lo, pos_hi, rank = kj()
     sa64 = sa.long()
     lib = [torch.empty(n, dtype=torch.int32, device=device)

@@ -103,7 +103,7 @@ def table_state(fa, device, k):
     run_lo, run_hi, tied = group_bounds(skeys, sa, n1, flag_n_k=k,
                                         run_end=False)
     del skeys
-    _, _, rank = invert_tables(sa, run_lo, run_hi)
+    _, _, rank = invert_tables(sa, run_lo, run_hi, k // 2)
     return sa, rank, tied, n, n1
 
 

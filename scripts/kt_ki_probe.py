@@ -1,8 +1,7 @@
-"""KT, KI and the tie rounds (KE, KF) on one H100, apart from chip_smoke.py's
-paths.
+"""KT and KI on one H100, apart from chip_smoke.py's paths.
 
     python3 scripts/kt_ki_probe.py [--root DIR] [--mbp 128] [--big-mbp 3100]
-                                   [--parts kt,ki,ties]
+                                   [--parts kt,ki]
 
 ``--root`` is the checkout whose ``asgart_tpu_torch`` is measured (default:
 this one), so that two versions are compared in one call; the helpers
@@ -28,13 +27,8 @@ on a ``--big-mbp`` strand (random packed bytes and one exception every
 100 kb, made on the card): n4 % 4 and the path the package's design takes
 there, against its plain version, beside its bound, a store-only
 ``fill_`` floor of its n1 output bytes and ``packed.repeat(4)``, a library
-copy that reads and writes the kernel's bytes.
-
-KE ``tie_keys`` and KF ``tie_refine`` round by round over the whole k = 20
--RC fused build of the ``--mbp`` genome (``ties.resolve_ties``' loop):
-for each round the tied count, KE, the stable sort, KF, the cumsum, the
-compaction (three ``scatter_``) and the host read (host clock around
-the read, after a synchronize). Prints one line per measurement, the
+copy that reads and writes the kernel's bytes. (The tie rounds are
+measured by scripts/km_kf_probe.py.) Prints one line per measurement, the
 card first. Needs a CUDA GPU.
 """
 
@@ -234,109 +228,6 @@ def ki_probe(cs, fa, big_mbp, device, root):
     torch.cuda.empty_cache()
 
 
-def fused_tie_state(fa, device):
-    """(sa, rank, tied, M) of the whole k = 20 -RC fused build, before its
-    tie resolution."""
-    from asgart_tpu_torch.codes import upload_codes
-    from asgart_tpu_torch.device_engine import chunk_specs
-    from asgart_tpu_torch.fasta import prepare_data
-    from asgart_tpu_torch.fused_index import fused_layout, sort_keys
-    from asgart_tpu_torch.kernels import group_bounds, invert_fused, pack_keys
-
-    s = settings()
-    _, chunks, strand = prepare_data([fa], s.skip_masked, None)
-    specs = chunk_specs(chunks, s)
-    n1 = len(strand.data)
-    W, total, lane_off = fused_layout(n1, specs)
-    codes = upload_codes(strand.data, device)
-    keys, lane_mask = pack_keys(codes, specs, K, True, True, W, total, 0)
-    del codes
-    skeys, sa = sort_keys(keys)
-    run_lo, run_hi, tied = group_bounds(skeys, sa, W)
-    del skeys
-    rank, _, _, _ = invert_fused(sa, run_lo, run_hi, lane_mask, W, lane_off)
-    return sa, rank, tied, W + total
-
-
-def tie_probe(cs, fa, device):
-    """``ties.resolve_ties``' loop (fused form), each step of each round
-    timed on that round's state before the round advances."""
-    import torch
-
-    from asgart_tpu_torch.kernels import tie_keys, tie_refine
-
-    sa, rank, tied, M = fused_tie_state(fa, device)
-    slots = torch.nonzero(tied).flatten()
-    ps = sa[slots]
-    prims = rank[ps.long()]
-    slots = slots.to(torch.int32)
-    bad = torch.zeros(1, dtype=torch.int32, device=device)
-    print(f"tie rounds of the whole k={K} -RC fused build (M={M}, "
-          f"{slots.numel()} tied rows)", flush=True)
-    h, rnd, sums = K, 0, {}
-    while h < 2 * M:
-        rnd += 1
-        n_t = ps.numel()
-        ke = lambda: tie_keys(ps, prims, rank, min(h, M), bad)  # noqa: E731
-        key = ke()
-        sort = lambda: torch.sort(key, stable=True)  # noqa: E731
-        skey, order = sort()
-        # KF reads neither sa nor rank, so its calls write the same values
-        kf = lambda: tie_refine(skey, order, slots, ps, sa, rank)  # noqa: E731
-
-        def step(name, fn, nb=0, ops=0):
-            ms = cs.cuda_ms(fn, REPS)
-            a = alone_ms(cs, fn)
-            sums[name] = sums.get(name, 0.0) + (ms if a is None else a)
-            bnd = f", bound {cs.bound(nb, ops)[0]:.4f}" if nb else ""
-            line.append(f"{name} {ms:.4f} ("
-                        + ("waits" if a is None else f"alone {a:.4f}")
-                        + f"{bnd})")
-
-        line = []
-        step("KE", ke, 20 * n_t, 8 * n_t)
-        step("sort", sort)
-        step("KF", kf, 41 * n_t, 20 * n_t)
-        ps2, prims2, still = kf()
-        cum = lambda: torch.cumsum(still, 0)  # noqa: E731
-        pos = cum()
-        step("cumsum", cum)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        n_still, violated = torch.stack((pos[-1], bad[0].long())).tolist()
-        read = (time.perf_counter() - t0) * 1e3
-        sums["read"] = sums.get("read", 0.0) + read
-        line.append(f"host read {read:.4f} (host clock)")
-        if violated:
-            raise AssertionError("a tie round read past the direct text")
-        if n_still:
-            dest = torch.where(still, pos - 1, n_still)
-
-            def compact():
-                out = []
-                for x in (slots, ps2, prims2):
-                    o = torch.empty(n_still + 1, dtype=x.dtype,
-                                    device=x.device)
-                    o.scatter_(0, dest, x)
-                    out.append(o[:n_still])
-                return out
-
-            step("compaction", compact)
-        print(f"round {rnd} h={min(h, M)} tied {n_t} still {n_still}: "
-              + "; ".join(line), flush=True)
-        if n_still == 0:
-            break
-        slots, ps, prims = compact()
-        del key, skey, order, ps2, prims2, still, pos, dest
-        h = min(2 * h, 2 * M)
-    print(f"tie rounds: {rnd}; sums over the rounds (alone where the step "
-          f"does not wait; the reads on the host clock): "
-          + ", ".join(f"{k} {v:.4f} ms" for k, v in sums.items()),
-          flush=True)
-    del sa, rank, tied
-    torch.cuda.empty_cache()
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=HERE,
@@ -344,8 +235,8 @@ def main(argv=None) -> int:
     ap.add_argument("--mbp", type=float, default=128.0)
     ap.add_argument("--big-mbp", type=float, default=3100.0,
                     help="KI's second strand in Mbp (0: none)")
-    ap.add_argument("--parts", default="kt,ki,ties",
-                    help="what to measure, of kt, ki and ties")
+    ap.add_argument("--parts", default="kt,ki",
+                    help="what to measure, of kt and ki")
     args = ap.parse_args(argv)
     parts = set(args.parts.split(","))
     import numpy as np
@@ -381,8 +272,6 @@ def main(argv=None) -> int:
         kt_probe(cs, fa, n, device)
     if "ki" in parts:
         ki_probe(cs, fa, args.big_mbp, device, root)
-    if "ties" in parts:
-        tie_probe(cs, fa, device)
     print(cs.smi_line())
     return 0
 

@@ -132,9 +132,12 @@ def test_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse, complement, k):
     skey, order = torch.sort(key, stable=True)
     sa_k, rank_k, sa_p, rank_p = sa.clone(), rank.clone(), sa.clone(), \
         rank.clone()
-    got = tie_refine(skey, order, slots, ps, sa_k, rank_k)
-    want = tie_refine_plain(skey, order, slots, ps, sa_p, rank_p)
-    _equal((*got, sa_k, rank_k), (*want, sa_p, rank_p))
+    cnt = [torch.zeros(1, dtype=torch.int32, device=gpu) for _ in "kp"]
+    got = tie_refine(skey, order, slots, ps, sa_k, rank_k, cnt[0])
+    want = tie_refine_plain(skey, order, slots, ps, sa_p, rank_p, cnt[1])
+    m = int(cnt[1])
+    _equal((cnt[0], sa_k, rank_k, *(t[:m] for t in got)),
+           (cnt[1], sa_p, rank_p, *(t[:m] for t in want)))
     sa = resolve_ties(sa, rank, tied, W + total, k)
     n_events = 0
     for c, (cs, cl, nc) in enumerate(specs):
@@ -694,8 +697,8 @@ def test_table_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse,
                                       not doubled))
     run_lo, run_hi, tied = bounds
     assert bool((run_lo < 0).any())  # the genome's N probes
-    tables = invert_tables(sa, run_lo, run_hi)
-    _equal(tables, invert_tables_plain(sa, run_lo, run_hi))
+    tables = invert_tables(sa, run_lo, run_hi, k // 2)
+    _equal(tables, invert_tables_plain(sa, run_lo, run_hi, k // 2))
     pos_lo, pos_hi, rank = tables
     h = k
     for _ in range(2):
@@ -721,7 +724,7 @@ def test_table_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse,
                        complement)
     want = table_ranges_plain(idx.pos_lo, idx.pos_hi,
                               *table_x0s(specs, n1, k, reverse, complement),
-                              k)
+                              k, n)
     _equal(got[:4], want)
     lane_lo, lane_hi, mask, _, lane_off = got
     n_events = 0
@@ -1755,8 +1758,8 @@ def test_invert_tables_partition_on_gpu(gpu, M):
     hi = rng.integers(0, 1 << 31, M, dtype=np.int64)
     lo, hi = (torch.from_numpy(a.astype(np.int32)).to(gpu) for a in (lo, hi))
     before = launch_counts()
-    got = invert_tables(sa, lo, hi)
-    _equal(got, invert_tables_plain(sa, lo, hi))
+    got = invert_tables(sa, lo, hi, 1)
+    _equal(got, invert_tables_plain(sa, lo, hi, 1))
     after = launch_counts()
     assert after["invert_tables"] == before["invert_tables"] + 1
     assert after["invert_fused"] == before["invert_fused"]
@@ -2063,3 +2066,179 @@ def test_full_round_keys_on_gpu(gpu, n, ranks):
                 got = full_round_keys(rank, h, bound)
                 assert launch_counts()["full_round_keys"] == before + 1
                 _equal((got,), (full_round_keys_plain(rank, h, bound),))
+
+
+def _tie_round(rng, n, ties):
+    """One tie round's inputs for KF: sorted keys (every key distinct,
+    one key, or runs of 1-40 entries), their source order, ascending slots
+    in an sa of 4 n rows, distinct positions in a rank of 2 n + 1."""
+    if ties == "none":
+        skey = np.arange(n, dtype=np.int64)
+    elif ties == "all":
+        skey = np.zeros(n, dtype=np.int64)
+    else:
+        skey = np.repeat(np.arange(n), rng.integers(1, 41, n))[:n]
+    slots = np.sort(rng.choice(4 * n, n, replace=False)).astype(np.int32)
+    ps = rng.choice(2 * n + 1, n, replace=False).astype(np.int32)
+    order = rng.permutation(n).astype(np.int64)
+    sa = rng.integers(0, 2 * n + 1, 4 * n).astype(np.int32)
+    rank = rng.integers(0, 4 * n, 2 * n + 1).astype(np.int32)
+    return skey, order, slots, ps, sa, rank
+
+
+@pytest.mark.parametrize("ties", ["none", "all", "runs"])
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 1025, 33 * 256 + 7,
+                               1_220_234])
+def test_tie_refine_compacts_on_gpu(gpu, n, ties):
+    """KF's single-pass compaction (tiles of 256 entries, decoupled
+    look-back) against its plain version: no entry still tied, every
+    entry still tied, sub-runs across the tiles' edges, one entry, a tile
+    and one entry past it, more than 32 tiles (a look-back window) and the
+    whole k = 20 build's first round size; sa, rank, the count on the
+    device and the compacted entries. One launch a call."""
+    from asgart_tpu_torch.kernels import launch_counts, tie_refine
+    from asgart_tpu_torch.kernels.ties import tie_refine_plain
+
+    rng = np.random.default_rng(n)
+    arrays = _tie_round(rng, n, ties)
+    g = [torch.from_numpy(a).to(gpu) for a in arrays]
+    p = [t.clone() for t in g]
+    cnt = [torch.full((1,), -1, dtype=torch.int32, device=gpu)
+           for _ in "kp"]
+    before = launch_counts()["tie_refine"]
+    got = tie_refine(*g, cnt[0])
+    assert launch_counts()["tie_refine"] == before + 1
+    want = tie_refine_plain(*p, cnt[1])
+    m = int(cnt[1])
+    assert m == {"none": 0, "all": n if n > 1 else 0}.get(ties, m)
+    _equal((cnt[0], g[4], g[5], *(t[:m] for t in got)),
+           (cnt[1], p[4], p[5], *(t[:m] for t in want)))
+
+
+@pytest.mark.parametrize("step", [1, 10, 12, 15])
+@pytest.mark.parametrize("M", [1, 8191, 8192, 8193, (1 << 21) + 5])
+def test_invert_tables_decimated_on_gpu(gpu, M, step):
+    """KJ writing pos_lo and pos_hi decimated by ``step`` (residue by
+    residue from each tile; the last tile zeroes the slots past M) against
+    its plain version on a random permutation, at and off the tile width
+    (2^13) and the bucket width (2^21); rank in position order."""
+    from asgart_tpu_torch.kernels import invert_tables
+    from asgart_tpu_torch.kernels.tables import invert_tables_plain
+
+    rng = np.random.default_rng(M + step)
+    sa = torch.from_numpy(rng.permutation(M).astype(np.int32)).to(gpu)
+    lo = rng.integers(-(1 << 31), 1 << 31, M, dtype=np.int64)
+    hi = rng.integers(0, 1 << 31, M, dtype=np.int64)
+    lo, hi = (torch.from_numpy(a.astype(np.int32)).to(gpu) for a in (lo, hi))
+    got = invert_tables(sa, lo, hi, step)
+    assert got[0].numel() == step * -(-M // step) and got[2].numel() == M
+    _equal(got, invert_tables_plain(sa, lo, hi, step))
+
+
+def _km_case(rng, n, k, n_chunks):
+    """Decimated planes of an n-position text (pos_lo's sign bit set on a
+    tenth of the positions) and chunk specs of a direct-only run (x0 =
+    chunk start + step): empty chunks, one-lane chunks, chunks whose lanes
+    pass their lane bound, and chunks whose probes pass n."""
+    from asgart_tpu_torch.kernels.tables import decimated_size
+
+    step = k // 2
+    C, size = decimated_size(n, step)
+    lo = rng.integers(0, 1 << 30, size)
+    hi = lo + rng.integers(0, 1000, size)
+    lo = np.where(rng.random(size) < 0.1, lo | (1 << 31), lo)
+    specs = []
+    for c in range(n_chunks):
+        cs = int(rng.integers(0, n))
+        cl = int(rng.integers(1, 3000))
+        kind = (c + 2) % 5
+        nc = (0 if kind == 0 else 1 if kind == 1 else
+              max(0, (cl - k - step) // step) + int(rng.integers(0, 40)))
+        specs.append((cs, cl, nc))
+    planes = [torch.from_numpy(a.astype(np.uint32).view(np.int32))
+              for a in (lo, hi)]
+    return planes, specs
+
+
+@pytest.mark.parametrize("k", [4, 20, 25, 30])
+@pytest.mark.parametrize("n_chunks", [1, 5, 256, 257, 700])
+def test_table_ranges_edges_on_gpu(gpu, n_chunks, k):
+    """KM over decimated planes against its plain version: its chunk table
+    by value (up to 256 chunks) and on the card past it; empty and
+    one-lane chunks, lanes past the lane bound and past n, N-flagged
+    lanes, n % step from 0 to step - 1. One launch a call, none without a
+    lane; the call does not wait for the card."""
+    from asgart_tpu_torch.kernels import launch_counts, table_ranges
+    from asgart_tpu_torch.kernels.tables import (table_ranges_plain,
+                                                 table_x0s)
+
+    step = k // 2
+    live = False
+    for r in range(step):
+        n = 50_000 + r
+        rng = np.random.default_rng(n * n_chunks + k)
+        planes, specs = _km_case(rng, n, k, n_chunks)
+        lo, hi = (t.to(gpu) for t in planes)
+        before = launch_counts()["table_ranges"]
+        got = table_ranges(lo, hi, specs, n, k, False, False)
+        total = got[4][-1]
+        assert launch_counts()["table_ranges"] == before + (total > 0)
+        want = table_ranges_plain(lo.cpu(), hi.cpu(), *table_x0s(
+            specs, n, k, False, False), k, n)
+        _equal(got[:4], want)
+        live |= bool(got[2].any())
+    assert live
+    # queued behind a busy-wait, the call returns before the card reaches it
+    start = torch.cuda.Event()
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    table_ranges(lo, hi, specs, n, k, False, False)
+    assert not start.query()
+    torch.cuda.synchronize()
+
+
+def test_resolve_ties_reads_once_a_round_on_gpu(tmp_path, gpu, monkeypatch):
+    """On the GPU a tie round of the table build launches KE, the sort and
+    KF, makes one host read (``tolist`` of KE's flag and KF's count), and
+    runs no cumsum, scatter_, where or stack; the resolved order is the
+    one the same rounds give on the CPU."""
+    from asgart_tpu_torch import ties as ties_mod
+    from asgart_tpu_torch.fused_index import sort_keys
+    from asgart_tpu_torch.kernels import (group_bounds, invert_tables,
+                                          launch_counts, pack_keys)
+
+    _, _, strand = prepared(tmp_path, [("chr1", vocab_genome())])
+    k, n1 = 20, len(strand.data)
+    n = 2 * n1 - 1
+    codes = torch.from_numpy(CODE[strand.data]).to(gpu)
+    keys, _ = pack_keys(codes, (), k, True, True, n, 0, doubled=True)
+    skeys, sa = sort_keys(keys)
+    run_lo, run_hi, tied = group_bounds(skeys, sa, n1, flag_n_k=k,
+                                        run_end=False)
+    _, _, rank = invert_tables(sa, run_lo, run_hi, k // 2)
+    cpu = [t.cpu() for t in (sa, rank, tied)]
+    reads = []
+    real = torch.Tensor.tolist
+
+    def tolist(t):
+        reads.append(t.numel())
+        return real(t)
+
+    def refused(*a, **kw):
+        raise AssertionError("a tie round ran a compaction op")
+
+    before = launch_counts()
+    with monkeypatch.context() as mp:
+        mp.setattr(torch.Tensor, "tolist", tolist)
+        for name in ("cumsum", "where", "stack"):
+            mp.setattr(torch, name, refused)
+        mp.setattr(torch.Tensor, "scatter_", refused)
+        got = ties_mod.resolve_ties(sa, rank, tied, n, k, tied_cap=n,
+                                    direct_bound=n1)
+    after = launch_counts()
+    rounds = after["tie_refine"] - before["tie_refine"]
+    assert rounds > 1 and after["tie_keys"] - before["tie_keys"] == rounds
+    assert reads == [2] * rounds
+    want = ties_mod.resolve_ties(*cpu[:2], cpu[2], n, k, tied_cap=n,
+                                 direct_bound=n1)
+    _equal((got,), (want,))

@@ -74,8 +74,8 @@ class _KjLib:
 
     def asgart_invert_tables(self, *a):
         (sa, lo, hi, n, cursor, coarse, tiles, d1, l1, h1, d2, l2, h2,
-         pos_lo, pos_hi, rank, stream) = a
-        self.calls.append(dict(n=n, counts=(coarse, tiles),
+         pos_lo, pos_hi, rank, step, stream) = a
+        self.calls.append(dict(n=n, counts=(coarse, tiles), step=step,
                                planes=(cursor, d1, l1, h1, d2, l2, h2),
                                outs=(pos_lo, pos_hi, rank)))
         return 0
@@ -95,7 +95,8 @@ def test_invert_tables_launch(monkeypatch, n):
                         or real(*a, **k))
     sa = torch.arange(n, dtype=torch.int32)
     before = (tables.invert_tables.launches, invert.invert_fused.launches)
-    pos_lo, pos_hi, rank = tables.invert_tables(sa, sa.clone(), sa.clone())
+    pos_lo, pos_hi, rank = tables.invert_tables(sa, sa.clone(), sa.clone(),
+                                                1)
     after = (tables.invert_tables.launches, invert.invert_fused.launches)
     assert after == (before[0] + (n > 0), before[1])
     assert set(made) <= {torch.int32}
@@ -106,6 +107,7 @@ def test_invert_tables_launch(monkeypatch, n):
     (c,) = lib.calls
     p = invert.kc_plan(n, 0)
     assert c["n"] == n and c["counts"] == (p.coarse, p.tiles)
+    assert c["step"] == 1  # the planes in position order
     cursor = c["planes"][0]
     assert [x - cursor for x in c["planes"][1:]] == [
         4 * w for w in (p.d1_at, p.l1_at, p.h1_at, p.d2_at, p.l2_at,

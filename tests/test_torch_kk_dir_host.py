@@ -91,7 +91,7 @@ def _first_tied_state(data, k, reverse, complement):
     skeys, sa = sort_keys(keys)
     run_lo, run_hi, tied = group_bounds(skeys, sa, n1, flag_n_k=k,
                                         run_end=not doubled)
-    _, _, rank = invert_tables(sa, run_lo, run_hi)
+    _, _, rank = invert_tables(sa, run_lo, run_hi, k // 2)
     return sa, rank, tied, n, n1
 
 

@@ -23,7 +23,8 @@ SOURCES = sorted(
                                   "scripts/kj_kh_probe.py",
                                   "scripts/ka_kl_probe.py",
                                   "scripts/kk_dir_probe.py",
-                                  "scripts/kt_ki_probe.py"]
+                                  "scripts/kt_ki_probe.py",
+                                  "scripts/km_kf_probe.py"]
 # bench.py is the JAX package's benchmark script
 FORBIDDEN = ("jax", "jaxlib", "asgart_tpu", "bench")
 
@@ -199,7 +200,8 @@ def test_wrappers_take_kernel_path_for_gpu_tensors(monkeypatch):
     with pytest.raises(RuntimeError, match="kernel library"):
         tie_refine(torch.arange(4, dtype=i64), torch.arange(4, dtype=i64),
                    torch.arange(4, dtype=i32), torch.arange(4, dtype=i32),
-                   torch.zeros(8, dtype=i32), torch.zeros(8, dtype=i32))
+                   torch.zeros(8, dtype=i32), torch.zeros(8, dtype=i32),
+                   torch.zeros(1, dtype=i32))
     with pytest.raises(RuntimeError, match="kernel library"):
         invert_fused(torch.arange(8, dtype=i32), torch.zeros(8, dtype=i32),
                      torch.zeros(8, dtype=i32),

@@ -4,7 +4,8 @@ of its kernels against the JAX table build they replace
 doubled mode against ``_build_text_codes`` + ``_pack_planes_all`` /
 ``_pack_planes3_all`` with the appended flag; KB's N-probe flag and run
 ends against ``_group_bounds_impl(flag_n_k=k)``; KJ ``invert_tables``
-against ``_invert_tables_dec`` (undecimated); KK / KL, one full round,
+against ``_invert_tables_dec`` (its planes re-laid at C = ceil(n / step),
+its rank seed in position order); KK / KL, one full round,
 against ``_full_round``; and the whole ``DeviceIndex.build`` (``sa`` with
 the appended half's order, and the tables with their N flag) against the
 JAX ``DeviceIndex.build`` for every transform at k = 12, 20 and 25, with
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 from asgart_tpu_torch.convert import (rank_from_decimated,
+                                      relaid_decimated,
                                       table_index_from_numpy)
 from asgart_tpu_torch.index import CODE
 from asgart_tpu_torch.kernels import (full_round_keys, full_round_refine,
@@ -137,12 +139,14 @@ def test_build_stages_equal_jax(reverse, complement, k):
     assert torch.equal(tied, _t(ref["tied"]))
     assert (run_lo < 0).any()  # the N probes are flagged
 
-    pos_lo, pos_hi, rank = invert_tables(sa, run_lo, run_hi)
     step = k // 2
-    for got, want in ((pos_lo, ref["pos_lo"]), (pos_hi, ref["pos_hi"]),
-                      (rank, ref["rank"])):
-        assert np.array_equal(got.numpy(), rank_from_decimated(want, step,
-                                                               n))
+    pos_lo, pos_hi, rank = invert_tables(sa, run_lo, run_hi, step)
+    # the planes in the JAX decimated layout, re-laid at C = ceil(n /
+    # step) columns; the rank seed in position order
+    for got, want in ((pos_lo, ref["pos_lo"]), (pos_hi, ref["pos_hi"])):
+        assert np.array_equal(got.numpy(), relaid_decimated(want, step, n))
+    assert np.array_equal(rank.numpy(), rank_from_decimated(ref["rank"],
+                                                            step, n))
 
 
 @pytest.mark.parametrize("doubled", [False, True])

@@ -1,5 +1,6 @@
 """Tie resolution: KE ``tie_keys`` and KF ``tie_refine`` (plain versions)
-against the JAX subset doubling they replace — one round against
+against the JAX subset doubling they replace — one round, KF's compacted
+still-tied entries and their count included, against
 ``_extract_tied`` + ``_slot_payload`` + ``_doubling_rounds(rounds=1)``,
 and ``ties.resolve_ties`` against ``_resolve_ties`` — on the tied
 vocabulary genome (most rows tied) at k = 8, 20 and 25; and the bound
@@ -59,22 +60,29 @@ def test_one_round_equals_jax(tmp_path, k):
     ps = sa[slots]
     prims = rank[ps.long()]
     slots = slots.to(I32)
-    bad = torch.zeros(1, dtype=I32)
-    key = tie_keys(ps, prims, rank, min(k, M), bad)
+    flags = torch.zeros(2, dtype=I32)
+    key = tie_keys(ps, prims, rank, min(k, M), flags[:1])
     skey, order = torch.sort(key, stable=True)
-    p_sorted, rs, still = tie_refine(skey, order, slots, ps, sa, rank)
-    assert int(bad) == 0
-    # ranks agree everywhere; the still-tied slots and their group ranks
-    # agree; the resolved slots hold the same positions (order inside a
+    done = slots.long().numpy()
+    nxt = tie_refine(skey, order, slots, ps, sa, rank, flags[1:])
+    bad, m = flags.tolist()
+    assert bad == 0
+    # ranks agree everywhere; KF's compacted still-tied entries agree with
+    # the JAX stable partition: the count, the slots in order, their group
+    # ranks, and the positions of each still-tied group (order inside a
     # still-tied sub-run is free: the JAX round sorts it by position)
     assert np.array_equal(rank.numpy(), rank_from_decimated(
         np.asarray(jrank), step, W))
-    assert int(still.sum()) == jn > 0
-    assert np.array_equal(slots[still].numpy(), np.asarray(jslots)[:jn])
-    assert np.array_equal(rs[still].numpy(), np.asarray(jprims)[:jn])
-    assert np.array_equal(np.sort(p_sorted[still].numpy()),
-                          np.sort(np.asarray(jps)[:jn]))
-    done = slots[~still].long().numpy()
+    assert m == jn > 0
+    n_slots, n_ps, n_prims = (t[:m].numpy() for t in nxt)
+    assert np.array_equal(n_slots, np.asarray(jslots)[:jn])
+    assert (np.diff(n_slots) > 0).all()
+    assert np.array_equal(n_prims, np.asarray(jprims)[:jn])
+    got = np.lexsort((n_ps, n_prims))
+    want = np.lexsort((np.asarray(jps)[:jn], np.asarray(jprims)[:jn]))
+    assert np.array_equal(n_ps[got], np.asarray(jps)[:jn][want])
+    # the resolved slots hold the same positions
+    done = np.setdiff1d(done, n_slots)
     assert len(done) > 0
     assert np.array_equal(sa.numpy()[done], np.asarray(jsa)[done])
 
