@@ -110,13 +110,16 @@ SIGNATURES = {
     "asgart_gather_owned": [_P, _P, _P, _P, _I64, _P, _I64, _I64, _P, _P],
     # threads, arms_cap, arms_in_smem, blocks (out, host int32)
     "asgart_chain_grid": [_I32, _I32, _I32, _P],
-    # ev_i, ev_z, m_off, m, m_is_i64, m_offset, burst_start, order,
+    # ev_i, ev_z, m_off, m, m_is_i64, m_total, m_offset, burst_start, order,
     # n_order, n_bursts, z_trail, t_split, ps, step, max_gap, min_dup,
-    # arms_cap, rows, out_cap, n_rows, next, status, tests, arms_global
-    # (None: shared memory), blocks, threads, stream
-    "asgart_chain_bursts": [_P, _P, _P, _P, _I32, _I64, _P, _P, _I32, _I32,
-                            _P, _I32, _I64, _I64, _I64, _I64, _I32, _P,
-                            _I64, _P, _P, _P, _P, _P, _I32, _I32, _P],
+    # arms_cap, warp_arms, rows, out_cap, n_rows, ctr (4 zeroed ints),
+    # queue (n_order zeroed words), status, tests, arms_global (None:
+    # shared memory), blocks, threads, stream
+    "asgart_chain_bursts": [_P, _P, _P, _P, _I32, _I64, _I64, _P, _P, _I32,
+                            _I32,
+                            _P, _I32, _I64, _I64, _I64, _I64, _I32, _I32,
+                            _P, _I64, _P, _P, _P, _P, _P, _P, _I32, _I32,
+                            _P],
 }
 
 _lock = threading.Lock()

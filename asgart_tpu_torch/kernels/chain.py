@@ -27,17 +27,32 @@ runs the retries and orders the rows.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _build
 
-THREADS = 512
+THREADS = 256  # the block path's threads (512 at most: csrc/chain.cu)
+# arms a burst may hold on the warp path (csrc/chain.cu kWarpArms at
+# most); a burst with more is handed over to the block path; 0: every
+# burst on the block path
+WARP_ARMS = 64
 # the dynamic shared memory a block may take (H100: 227 KB); larger arm
 # sets go to global scratch
 SMEM_LIMIT = 232448
 PRUNE_ABOVE = 200  # automaton.rs:173
 PLAIN_LANES = 64  # bursts the plain version runs in lockstep
 ARM_BYTES = 56  # csrc/chain.cu kArmBytes
+WINDOW = 32  # csrc/chain.cu kWindow
+
+
+def smem_bytes(threads: int, arms_cap: int, in_smem: bool) -> int:
+    """csrc/chain.cu smem_bytes: a block's event records, event tiles, a
+    tile sorted, tile results, warp sums and prune histogram, and its arms
+    when they are in shared memory."""
+    return 16 * 8 + threads * (4 * 8 + 3 * 4) + (64 + WINDOW) * 4 + \
+        (arms_cap * ARM_BYTES if in_smem else 0)
 
 
 def _check(ev_i, ev_z, m_off, m, burst_start, order, z_trail):
@@ -51,6 +66,30 @@ def _check(ev_i, ev_z, m_off, m, burst_start, order, z_trail):
         raise ValueError("chain_bursts: event arrays differ in length")
     if z_trail.numel() != 1:
         raise ValueError("chain_bursts: z_trail holds one count")
+
+
+_GRIDS: dict = {}
+
+
+def _grid(lib, dev, arms_cap: int) -> tuple:
+    """(arms in shared memory, resident blocks) for a launch of THREADS
+    threads with arms_cap arms, asked of the library once per device,
+    block size, capacity and shared-memory limit."""
+    key = (str(dev), THREADS, arms_cap, SMEM_LIMIT)
+    if key not in _GRIDS:
+        grid = ctypes.c_int(0)
+        in_smem = smem_bytes(THREADS, arms_cap, True) <= SMEM_LIMIT - 512
+        for mode in ((True, False) if in_smem else (False,)):
+            _build.check(lib.asgart_chain_grid(THREADS, arms_cap, int(mode),
+                                               ctypes.addressof(grid)),
+                         "chain_bursts(grid)")
+            if grid.value > 0:
+                _GRIDS[key] = (mode, grid.value)
+                break
+        else:
+            raise RuntimeError(f"chain_bursts: no block of {THREADS} "
+                               f"threads fits on this device")
+    return _GRIDS[key]
 
 
 def chain_bursts(ev_i, ev_z, m_off, m, m_offset: int, burst_start, order,
@@ -67,39 +106,33 @@ def chain_bursts(ev_i, ev_z, m_off, m, m_offset: int, burst_start, order,
     if not _build.on_cuda(ev_i, ev_z, m_off, m, burst_start, order,
                           z_trail):
         return chain_bursts_plain(ev_i, ev_z, m_off, m, *args)
+    if step < 1:
+        raise ValueError("chain_bursts: the kernel takes step >= 1")
     dev = ev_i.device
     nb = burst_start.numel() - 1
+    n_order = order.numel()
     rows = torch.empty((out_cap, 6), dtype=torch.int64, device=dev)
-    counters = torch.zeros(2, dtype=torch.int64, device=dev)
+    # n_rows, then 4 int32 counters (jobs, handovers pushed and taken,
+    # warp jobs done), then the handover queue: one memset
+    counters = torch.zeros(3 + n_order, dtype=torch.int64, device=dev)
     status = torch.empty(max(nb, 1), dtype=torch.int32, device=dev)
     tests = torch.empty(max(nb, 1), dtype=torch.int64, device=dev)
-    n_order = order.numel()
     if n_order == 0:
         return rows, counters[:1], status[:nb], tests[:nb]
     lib = _build.lib()
-    grid = torch.zeros(1, dtype=torch.int32)
-    in_smem = THREADS * 12 + 8 + arms_cap * ARM_BYTES <= SMEM_LIMIT - 512
-    for mode in ((True, False) if in_smem else (False,)):
-        _build.check(lib.asgart_chain_grid(THREADS, arms_cap, int(mode),
-                                           grid.data_ptr()),
-                     "chain_bursts(grid)")
-        if int(grid) > 0:
-            in_smem = mode
-            break
-    else:
-        raise RuntimeError(f"chain_bursts: no block of {THREADS} threads "
-                           f"fits on this device")
-    blocks = min(n_order, int(grid))
+    in_smem, grid = _grid(lib, dev, arms_cap)
+    blocks = min(n_order, grid)  # the block path's (csrc/chain.cu)
     scratch = None if in_smem else torch.empty(
         blocks * arms_cap * ARM_BYTES, dtype=torch.uint8, device=dev)
     cp = counters.data_ptr()
     chain_bursts.launches += 1
     _build.check(lib.asgart_chain_bursts(
         ev_i.data_ptr(), ev_z.data_ptr(), m_off.data_ptr(), m.data_ptr(),
-        int(m.dtype == torch.int64), m_offset, burst_start.data_ptr(),
+        int(m.dtype == torch.int64), m.numel(), m_offset,
+        burst_start.data_ptr(),
         order.data_ptr(), n_order, nb, z_trail.data_ptr(), t_split, ps,
-        step, max_gap, min_dup, arms_cap, rows.data_ptr(), out_cap, cp,
-        cp + 8, status.data_ptr(), tests.data_ptr(),
+        step, max_gap, min_dup, arms_cap, WARP_ARMS, rows.data_ptr(),
+        out_cap, cp, cp + 8, cp + 24, status.data_ptr(), tests.data_ptr(),
         None if scratch is None else scratch.data_ptr(), blocks, THREADS,
         _build.stream_of(ev_i)), "chain_bursts")
     return rows, counters[:1], status[:nb], tests[:nb]

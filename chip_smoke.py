@@ -119,8 +119,9 @@
    largest chunk (:func:`kn_checks`) KN against ``native.chain_events``
    (both timed) and against its plain version on the bursts that emit
    rows and on the longest burst's first events, also with one arm and
-   one output row (both retries) and with its arms in global scratch; the
-   burst count and the longest burst printed;
+   one output row (both retries), with its arms in global scratch, on
+   the block path alone and with most bursts handed over to it; the
+   burst count, the longest burst and its time per event printed;
 8. the seed lookups of ``SearchEngine(engine="cuda")`` and ``--hosts``,
    on the 128 Mbp genome, -RC, each phase's seconds printed:
    ``seed_trim`` (:func:`run_seed_trim`): ``SearchEngine(strand,
@@ -1720,10 +1721,12 @@ def kn_checks(record, tag: str, largest, plain_events: int) -> None:
     it is that short, topped up with bursts of at most PLAIN_BURST events
     in time order, ``plain_events`` events in all; (b) where the longest
     burst is longer, its first PLAIN_LONGEST events (:func:`burst_prefix`);
-    each also with one arm and one output row (both retries) and with the
-    arms in global scratch. Records KN's row: KN's time, the plain time
-    and the bound on the same checked events, and the chunk's numbers
-    beside them."""
+    each also with one arm and one output row (both retries), with the
+    arms in global scratch, on the block path alone and with most bursts
+    handed over to it (a warp budget of 4 arms). Records KN's row: KN's
+    time, the plain time and the bound on the same checked events, and the
+    chunk's numbers beside them (with the longest burst's time per
+    event)."""
     import numpy as np
     import torch
 
@@ -1806,23 +1809,32 @@ def kn_checks(record, tag: str, largest, plain_events: int) -> None:
         k_ms = cuda_ms(lambda: chain_rows(e, cfg, bursts=sub), reps=1)
         small, s_st = chain_rows(e, cfg._replace(max_arms=1, out_cap=1),
                                  bursts=sub)
-        limit = kc.SMEM_LIMIT
+        limit, warp = kc.SMEM_LIMIT, kc.WARP_ARMS
         kc.SMEM_LIMIT = 0  # the arms in global scratch
         try:
             scratch, _ = chain_rows(e, cfg._replace(max_arms=4), bursts=sub)
-        finally:
             kc.SMEM_LIMIT = limit
-        for x in (got, small, scratch):
+            # the block path alone, and most bursts handed over to it
+            kc.WARP_ARMS = 0
+            block, b_st = chain_rows(e, cfg, bursts=sub)
+            kc.WARP_ARMS = 4
+            handed, h_st = chain_rows(e, cfg, bursts=sub)
+        finally:
+            kc.SMEM_LIMIT, kc.WARP_ARMS = limit, warp
+        for x in (got, small, scratch, block, handed):
             err = max(err, max_abs_err((x,), (want_rows,)))
-        if k_st.tests != p_st.tests:
-            raise AssertionError(f"{tag}: KN's test count {k_st.tests} != "
-                                 f"the plain version's {p_st.tests}")
+        for st_x in (k_st, b_st, h_st):
+            if st_x.tests != p_st.tests:
+                raise AssertionError(f"{tag}: KN's test count {st_x.tests} "
+                                     f"!= the plain version's {p_st.tests}")
         what = (f"{k_st.bursts} bursts" if sub is not None else
                 f"the longest burst's first {n_sub} events")
         print(f"{tag} KN against its plain version on {what} ({n_sub} "
               f"events, {n_m} matches, {p_st.rows} rows): "
-              f"max_abs_err {err}; one arm and one row: {s_st.passes} "
-              f"passes; KN {k_ms:.3f} ms, plain {p_ms:.1f} ms", flush=True)
+              f"max_abs_err {err} (warp path, block path alone, handed "
+              f"over at 4 arms, arms in global scratch); one arm and one "
+              f"row: {s_st.passes} passes; KN {k_ms:.3f} ms, plain "
+              f"{p_ms:.1f} ms", flush=True)
         ms += k_ms
         plain_ms += p_ms
         nbytes += work(e, n_sub, n_m, k_st.rows)
@@ -1840,7 +1852,9 @@ def kn_checks(record, tag: str, largest, plain_events: int) -> None:
     print(f"{tag} KN on the largest chunk ({st.events} events, {st.matches} "
           f"matches, {st.bursts} bursts, the longest {st.longest} events, "
           f"{st.tests} native tests, {st.rows} rows, {st.arms} arms): one "
-          f"pass {chunk_ms:.3f} ms (bound {chunk_bound:.3f} ms), the device "
+          f"pass {chunk_ms:.3f} ms (bound {chunk_bound:.6f} ms), "
+          f"{chunk_ms * 1e3 / st.longest:.4f} us an event of the longest "
+          f"burst (bound {chunk_bound * 1e3 / st.longest:.6f}), the device "
           f"chain {chain_ms:.3f} ms, the host chain on the same events "
           f"{host_ms:.3f} ms", flush=True)
     record("chain_bursts", "chain.cu", "asgart_tpu/chain_jax.py:337", err,
@@ -1853,6 +1867,7 @@ def kn_checks(record, tag: str, largest, plain_events: int) -> None:
         checked_events=n_events, checked_bursts=n_bursts,
         checked_rows=n_rows, checked_tests=tests, chunk_ms=chunk_ms,
         chunk_bound_ms=chunk_bound, chain_ms=chain_ms,
+        longest_us_per_event=chunk_ms * 1e3 / st.longest,
         host_chain_ms=host_ms, events=st.events, matches=st.matches,
         bursts=st.bursts, longest=st.longest, passes=st.passes,
         arms=st.arms, tests=st.tests, rows=st.rows)

@@ -877,6 +877,57 @@ def test_chain_kernel_equals_plain_on_gpu(gpu, monkeypatch, case):
     assert want
 
 
+@pytest.mark.parametrize("warp_arms,smem,threads", [
+    (64, True, 256), (4, True, 256), (0, True, 256), (64, False, 256),
+    (0, False, 512), (33, True, 512)])
+def test_chain_kernel_paths_on_gpu(gpu, monkeypatch, warp_arms, smem,
+                                   threads):
+    """KN with each path forced against its plain version: every burst on
+    the warp path with a budget of 64 arms (the kernel's most) or 33, or of
+    4 (most bursts handed over to the block path mid-burst), or none (the
+    block path alone); the block path's arms in shared memory or in
+    global scratch; blocks of 256 and 512 threads. Rows, n_rows, status
+    and the finished bursts' test counts in one pass at the capacities of
+    the chain, and at 40 arms and 3 rows (overflows in the pass), then the
+    whole chain with one arm and one row (both retries)."""
+    from asgart_tpu_torch import chain
+    from asgart_tpu_torch.kernels import chain as kc
+
+    monkeypatch.setattr(kc, "WARP_ARMS", warp_arms)
+    monkeypatch.setattr(kc, "THREADS", threads)
+    if not smem:
+        monkeypatch.setattr(kc, "SMEM_LIMIT", 0)
+    rng = np.random.default_rng(300 + warp_arms)
+    kw = dict(probe_size=20, step_size=10, max_gap_size=120,
+              min_duplication_length=150, max_cardinality=500)
+    cfg = chain.ChainConfig(**kw)
+    t = chain.burst_threshold(cfg)
+    events = chain.upload_events(*_random_events(rng, 2500, 10, t, 12, 60),
+                                 3 * 2**31, gpu)
+    bs, order = chain.bursts_from_events(events, t)
+    for arms, cap in ((1024, 1 << 16), (40, 1 << 16), (1024, 3)):
+        args = (events.ev_i, events.ev_z, events.m_off, events.m,
+                events.m_offset, bs, order, events.z_trail, t, 20, 10, 120,
+                150, arms, cap)
+        got = kc.chain_bursts(*args)
+        want = kc.chain_bursts_plain(*args)
+        torch.cuda.synchronize()
+        n = int(want[1])
+        assert int(got[1]) == n
+        assert torch.equal(got[2], want[2])
+        ok = want[2] == 0
+        assert torch.equal(got[3][ok], want[3][ok])
+        if n <= cap:
+            key = lambda r: r[torch.sort(r[:, 0]).indices]  # noqa: E731
+            _equal((key(got[0][:n]),), (key(want[0][:n]),))
+    plain, p_stats = chain.chain_rows(events, cfg, kc.chain_bursts_plain)
+    rows, stats = chain.chain_rows(events, cfg._replace(max_arms=1,
+                                                        out_cap=1))
+    torch.cuda.synchronize()
+    _equal((rows,), (plain,))
+    assert stats.tests == p_stats.tests and stats.passes > 2
+
+
 def test_chain_kernel_launch_failure_raises(gpu, monkeypatch):
     """A launch the card refuses (a block of 2048 threads) raises; nothing
     falls back to the plain version or to the host chain."""

@@ -24,7 +24,8 @@ SOURCES = sorted(
                                   "scripts/ka_kl_probe.py",
                                   "scripts/kk_dir_probe.py",
                                   "scripts/kt_ki_probe.py",
-                                  "scripts/km_kf_probe.py"]
+                                  "scripts/km_kf_probe.py",
+                                  "scripts/kn_probe.py"]
 # bench.py is the JAX package's benchmark script
 FORBIDDEN = ("jax", "jaxlib", "asgart_tpu", "bench")
 
