@@ -16,9 +16,17 @@
 //       concatenation, so the slices are merged into one buffer without
 //       first being copied into one.
 //
-// KO: one block per granule (grid-stride over granules); its threads read
-//   the granule's lanes in order (coalesced), sum in int64, and reduce
-//   with warp shuffles, then through shared memory.
+// KO: one warp a granule, kGranWarps warps a block, a grid sized to the
+//   SMs that strides over the granules. A warp reads its granule's lanes
+//   in order as 16-byte vectors of lane_lo and lane_hi and 4-byte words of
+//   four lane_mask bytes, four vectors a lane in flight, sums in int64
+//   (a repeat chunk's granules pass 2^24, its slices 2^31), reduces with
+//   shuffles and writes the total: no shared memory, no block barrier.
+//   Where the three lane arrays start at the same lane offset from a
+//   16-byte boundary (a view at one lane offset, as slice_plan hands it),
+//   each granule's lanes before its first aligned lane and after its last
+//   whole vector (at most 3 each) are read as scalars; where they do not,
+//   the whole granule is.
 //   Bound on the H100: memory. 9 B per lane read once, 8 B per granule
 //   written; two integer operations per lane.
 // KP: the source table (S pointers and S + 1 offsets) goes into the launch
@@ -50,30 +58,75 @@ __device__ __forceinline__ long long warp_sum(long long v) {
   return v;
 }
 
-__global__ void granule_totals_kernel(const int* __restrict__ lane_lo,
-                                      const int* __restrict__ lane_hi,
-                                      const uint8_t* __restrict__ lane_mask,
-                                      long long n, long long gran,
-                                      long long n_gran,
-                                      long long* __restrict__ totals) {
-  __shared__ long long part[asgart::kThreads / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (long long g = blockIdx.x; g < n_gran; g += gridDim.x) {
+constexpr int kGranWarps = 8;
+constexpr int kGranVecs = 4;  // vectors of each array a lane has in flight
+
+__device__ __forceinline__ long long masked(const int* lo, const int* hi,
+                                            const uint8_t* mask, long long l) {
+  return mask[l] ? (long long)hi[l] - lo[l] : 0;
+}
+
+__device__ __forceinline__ long long masked4(int4 lo, int4 hi, unsigned m) {
+  return ((m & 0xFFu) ? (long long)hi.x - lo.x : 0) +
+         ((m & 0xFF00u) ? (long long)hi.y - lo.y : 0) +
+         ((m & 0xFF0000u) ? (long long)hi.z - lo.z : 0) +
+         ((m & 0xFF000000u) ? (long long)hi.w - lo.w : 0);
+}
+
+// kVec: lane l of the three arrays is 16-byte (lo, hi) and 4-byte (mask)
+// aligned where (l + skew) % 4 == 0
+template <bool kVec>
+__global__ void __launch_bounds__(kGranWarps * 32)
+granule_totals_kernel(const int* __restrict__ lane_lo,
+                      const int* __restrict__ lane_hi,
+                      const uint8_t* __restrict__ lane_mask, long long n,
+                      long long gran, long long n_gran, int skew,
+                      long long* __restrict__ totals) {
+  const int ln = threadIdx.x & 31;
+  for (long long g = (long long)blockIdx.x * kGranWarps + (threadIdx.x >> 5);
+       g < n_gran; g += (long long)gridDim.x * kGranWarps) {
     const long long a = g * gran;
     const long long b = a + gran < n ? a + gran : n;
     long long s = 0;
-    for (long long l = a + threadIdx.x; l < b; l += blockDim.x) {
-      if (lane_mask[l]) s += (long long)lane_hi[l] - lane_lo[l];
+    if (kVec) {
+      long long v0 = a + ((4 - ((a + skew) & 3)) & 3);  // first aligned lane
+      if (v0 > b) v0 = b;
+      const long long nv = (b - v0) >> 2;  // whole vectors
+      const long long tail = v0 + 4 * nv;
+      // the scalar lanes: lanes 0-2 before v0, lanes 3-5 from tail
+      const long long l = ln < 3 ? a + ln : tail + ln - 3;
+      if (ln < 6 && l < (ln < 3 ? v0 : b)) {
+        s += masked(lane_lo, lane_hi, lane_mask, l);
+      }
+      const int4* lo4 = reinterpret_cast<const int4*>(lane_lo + v0);
+      const int4* hi4 = reinterpret_cast<const int4*>(lane_hi + v0);
+      const unsigned* m4 = reinterpret_cast<const unsigned*>(lane_mask + v0);
+      for (long long q0 = ln; q0 < nv; q0 += 32 * kGranVecs) {
+        int4 lo[kGranVecs], hi[kGranVecs];
+        unsigned m[kGranVecs];
+#pragma unroll
+        for (int u = 0; u < kGranVecs; ++u) {
+          const long long q = q0 + 32 * u;
+          if (q < nv) {
+            lo[u] = __ldg(lo4 + q);
+            hi[u] = __ldg(hi4 + q);
+            m[u] = __ldg(m4 + q);
+          } else {
+            m[u] = 0;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kGranVecs; ++u) {
+          if (m[u]) s += masked4(lo[u], hi[u], m[u]);
+        }
+      }
+    } else {
+      for (long long l = a + ln; l < b; l += 32) {
+        s += masked(lane_lo, lane_hi, lane_mask, l);
+      }
     }
     s = warp_sum(s);
-    if (lane == 0) part[warp] = s;
-    __syncthreads();
-    if (warp == 0) {
-      s = lane < (int)(blockDim.x >> 5) ? part[lane] : 0;
-      s = warp_sum(s);
-      if (lane == 0) totals[g] = s;
-    }
-    __syncthreads();  // part is rewritten for the next granule
+    if (ln == 0) totals[g] = s;
   }
 }
 
@@ -224,11 +277,21 @@ ASGART_API int asgart_granule_totals(const void* lane_lo, const void* lane_hi,
                                      void* stream) {
   const long long n_gran = (n + gran - 1) / gran;
   if (n_gran <= 0) return (int)cudaGetLastError();
-  const long long grid = n_gran < 132LL * 32 ? n_gran : 132LL * 32;
-  granule_totals_kernel<<<(unsigned)grid, asgart::kThreads, 0,
-                          (cudaStream_t)stream>>>(
+  // lanes from a 16-byte boundary: equal for the three arrays, or scalar
+  const uintptr_t lo = (uintptr_t)lane_lo, hi = (uintptr_t)lane_hi,
+                  mask = (uintptr_t)lane_mask;
+  const int skew = (int)((lo >> 2) & 3);
+  const bool vec = (lo & 3) == 0 && (hi & 3) == 0 &&
+                   (int)((hi >> 2) & 3) == skew && (int)(mask & 3) == skew;
+  // 8 blocks of kGranWarps warps an SM: a warp a granule, at most 64 warps
+  // an SM
+  const long long blocks = (n_gran + kGranWarps - 1) / kGranWarps;
+  const unsigned grid = (unsigned)(blocks < 132LL * 8 ? blocks : 132LL * 8);
+  auto kernel = vec ? granule_totals_kernel<true>
+                    : granule_totals_kernel<false>;
+  kernel<<<grid, kGranWarps * 32, 0, (cudaStream_t)stream>>>(
       (const int*)lane_lo, (const int*)lane_hi, (const uint8_t*)lane_mask, n,
-      gran, n_gran, (long long*)totals);
+      gran, n_gran, skew, (long long*)totals);
   return (int)cudaGetLastError();
 }
 

@@ -1,32 +1,77 @@
 // KE tie_keys and KF tie_refine: one round of prefix doubling on the tied
-// subset of the fused index, around a library sort of the round keys; KK
-// full_round_keys and KL full_round_refine: one round over every row of a
-// table build, around the same sort.
+// subset of the fused index, KE sorting each tied group of the round
+// itself; KK full_round_keys and KL full_round_refine: one round over every
+// row of a table build, around a library sort.
 //
 // Replaces (JAX reference): asgart_tpu/device_index.py:696
 // _doubling_rounds (one_round: the rank[p + h] gather, the (prim, sec)
-// sort keys, the scatter into the ascending slots, the cummax of sub-run
+// sort of :728, the scatter into the ascending slots, the cummax of sub-run
 // start slots and the still-tied flags), with :682 _slot_payload's
 // gather, driven by :807 _resolve_ties.
 //
 // Entry i of the tied subset holds slot slots[i] (ascending), position
-// ps[i] and the rank prims[i] of its group (the slot of the group start).
-//   KE  key[i] = (prims[i] << 32) | (rank[ps[i] + h] + 1). A read past the
-//       direct text (ps[i] + h >= W) cannot happen for a strand that ends
-//       in a unique '$'; it sets *bad, which the caller reads with the
+// ps[i] and the rank prims[i] of its group (the slot of the group start):
+// prims never decreases, and a group (a run of equal prims) has at least
+// two entries (tied means a sub-run longer than one).
+//   KE  the round's keys key[i] = (prims[i] << 32) | (sec[i] + 1), sec[i] =
+//       rank[ps[i] + h], and their stable sort (skey, order): what
+//       torch.sort(key, stable=True) gives. Since prims ascends, that sort
+//       is a stable sort by sec within each group. A read past the direct
+//       text (ps[i] + h >= W) cannot happen for a strand that ends in a
+//       unique '$'; it ORs 1 into *bad, which the caller reads with the
 //       round's still-tied count, and reads rank[W - 1] instead (the
 //       caller raises). The JAX package clamps the read silently.
-//   (the caller sorts key stably: skey, order)
+//       Two entry points: asgart_tie_sort (the keys sorted here) and
+//       asgart_tie_keys, the key pass alone, which the caller follows with
+//       torch.sort: its route for a round whose largest group passes
+//       kernels/ties.py TIE_SORT_CAP (128, below), or whose largest group
+//       is not known. The choice is made by size before the launch: before
+//       the first round from KE's sizing pass (asgart_tie_groups), where
+//       the tied set is large enough to pay for its host read (ties.py
+//       SIZING_MIN), and after each round from KF's figure.
 //   KF  per sorted entry r: p = ps[order[r]]; the sub-run start s of r in
 //       skey; sa[slots[r]] = p, rank[p] = slots[s]; r is still tied when
 //       its sub-run is longer than one. The still-tied entries' next
 //       (slots[r], p, slots[s]) are written compacted, in r order (so
-//       slots ascend, as the JAX stable partition keeps them), and their
-//       count into *count: the whole tail of one_round in one launch.
+//       slots ascend, as the JAX stable partition keeps them), their count
+//       into *count and the longest still-tied sub-run (the next round's
+//       largest group) into *largest: the whole tail of one_round in one
+//       launch.
 //
-// Bound on the H100: KE reads 12 B per entry in order plus one random
-// 4-byte rank gather and writes 8 B; KF reads 8 B of keys and 8 B of
-// order in order, gathers ps, scatters 4 B into sa (slots ascending, so
+// KE's sort (asgart_tie_sort). A block of kSortThreads takes a tile of
+//   kSortTile entries and sorts the groups that start in it, also where a
+//   group runs past the tile's end; each warp takes kSub entries of the
+//   tile and the groups that start there. A window of 32 entries from a
+//   group start, one a lane: group edges from the neighbours' prims
+//   (shuffles), ends by ballot; the window's complete groups (at most 32
+//   entries each) are sorted together in registers by the unique key
+//   (group start lane, sec, lane): an odd-even transposition sort of g
+//   steps where the largest of them has g < 15 entries (a run of g sorts
+//   by then, and no step moves an entry across a group edge), else a
+//   bitonic network of 15 steps over the 32 lanes. The lane in the key
+//   makes it the stable order. The next window starts after the last
+//   complete group, so every entry is gathered once. A group with no end
+//   in its window: the warp finds its end (32 probes a step) and sorts it
+//   itself in registers (keys (sec << 8) | entry, 2 or 4 a lane, the
+//   bitonic network across lanes and registers), up to kRegGroup (128)
+//   entries: the capacity (kernels/ties.py TIE_SORT_CAP). A round whose
+//   largest group passes it takes the library route. Longer groups were
+//   tried on an H100: a warp's radix sort of one group of 512 random secs
+//   took 0.025 ms against the library route's 0.038 (of 1,000, 0.045
+//   against 0.039), but no round measured holds a group of 129 to 512
+//   entries (a repeat-dense text's largest are 87 and 43, a 30 kb N run's
+//   9,521 to 29,981), so it is not built; a block a longer group (its
+//   radix sort over tiles of 4,096 entries) spent 5 cycles or more an
+//   entry a phase on one SM, 0.11-0.25 ms a round on the N run's group
+//   against the library's 0.085 on the whole card, so such rounds stay
+//   with the library. A longer group that reaches the kernel all the same
+//   is written unsorted (order[i] = i and the entry's own key, so that KF
+//   reads in range) and ORs 2 into *bad, on which the caller raises.
+// Bound on the H100: KE reads 8 B per entry in order (ps, prims) plus one
+// random 4-byte rank gather and writes 16 B (skey and order; its key pass
+// 8 B of keys); its sort adds no device-memory traffic (every group it
+// takes sorts in registers). KF reads 8 B of keys and 8 B
+// of order in order, gathers ps, scatters 4 B into sa (slots ascending, so
 // nearly coalesced) and 4 B into rank (random), and writes 12 B a
 // still-tied entry. Both are memory-bound with a random access per entry.
 // The JAX cummax scan over sub-run starts is a cross-block dependency on
@@ -42,7 +87,11 @@
 // numbers before it, so the wait ends. Once the tie loop's set is a few
 // thousand entries a round is launch-bound, and the JAX round's
 // compaction (a cumsum, a where, three scatters and the count read) is
-// this one launch.
+// this one launch. The longest still-tied sub-run comes from each
+// sub-run's last entry, which knows its start from the gallop: a tile's
+// maximum travels in its status word beside its count, and the look-back
+// carries the running maximum as it carries the sum, so the last tile
+// writes it with the count (no atomic on one address, no memset).
 //
 // KK and KL replace asgart_tpu/device_index.py:769 _full_round, which the
 // JAX package's _resolve_ties (:807) runs while the tied count exceeds
@@ -101,6 +150,261 @@ __global__ void tie_keys_kernel(const int* __restrict__ ps,
 }
 
 constexpr unsigned kFull = 0xFFFFFFFFu;
+
+// KE's sort: a block's warps and its tile, a warp's entries of the tile
+constexpr int kSortThreads = 256;
+constexpr int kTileWarps = kSortThreads / 32;
+constexpr int kSub = 32;
+constexpr int kSortTile = kTileWarps * kSub;
+// a group of more than 32 entries is sorted by the warp that finds it in
+// registers (2 or 4 a lane), up to kRegGroup entries: the capacity
+// (kernels/ties.py TIE_SORT_CAP)
+constexpr int kRegGroup = 128;
+// a window whose largest group has fewer entries takes the transposition
+// sort (that many steps), else the bitonic network (15 steps)
+constexpr int kOets = 15;
+
+// rank[p + h]; past the direct text, 1 ORed into *bad and rank[W - 1]
+__device__ __forceinline__ int gather_sec(const int* __restrict__ rank,
+                                          int p, long long W, long long h,
+                                          int* __restrict__ bad) {
+  long long ph = (long long)p + h;
+  if (ph >= W) {
+    atomicOr(bad, 1);
+    ph = W - 1;
+  }
+  return __ldg(rank + ph);
+}
+
+// One compare-exchange step across the warp: this lane keeps the smaller
+// key where `lower`, else the larger, of its key and `partner`'s.
+__device__ __forceinline__ unsigned long long exchange(unsigned long long key,
+                                                       int partner,
+                                                       bool lower) {
+  const unsigned long long o = __shfl_sync(kFull, key, partner & 31);
+  if (partner < 0 || partner > 31) return key;
+  return lower ? (o < key ? o : key) : (o > key ? o : key);
+}
+
+// *at = max(*at, v) from lane 0 of a warp, an atomic only where v passes
+// the value already there: one address takes every warp's figure, and
+// most see one as large already
+__device__ __forceinline__ void raise_to(int* at, int v, int ln) {
+  if (ln == 0 && v > *reinterpret_cast<volatile int*>(at)) atomicMax(at, v);
+}
+
+// One past the last entry of the group that holds [pos, pos + 32) (all 32
+// entries in it), found by the warp: 32 probes a step, a step 32 times the
+// last until one leaves the group, then 32 times narrower to the edge.
+__device__ __forceinline__ long long group_end(const int* __restrict__ prims,
+                                               long long n, long long pos,
+                                               int prim, int ln) {
+  long long lo = pos + 31, hi, step = 1;  // lo in the group, hi past it
+  for (;;) {
+    const long long q = lo + step * (ln + 1);
+    const unsigned b =
+        __ballot_sync(kFull, q >= n || __ldg(prims + q) != prim);
+    if (b) {
+      const int f = __ffs(b) - 1;
+      hi = lo + step * (f + 1);
+      lo += step * f;
+      break;
+    }
+    lo += 32 * step;
+    step *= 32;
+  }
+  if (hi > n) hi = n;
+  while (hi - lo > 1) {
+    step = (hi - lo + 31) / 32;  // lane 31 probes at or past hi
+    const long long q = lo + step * (ln + 1);
+    const unsigned b =
+        __ballot_sync(kFull, q >= hi || __ldg(prims + q) != prim);
+    const int f = __ffs(b) - 1;
+    const long long top = lo + step * (f + 1);
+    lo += step * f;
+    hi = top < hi ? top : hi;
+  }
+  return hi;
+}
+
+// The warp's sort of a group of 32 < s <= 32 * E entries in registers:
+// entry e = r * 32 + lane in key[r] = (sec << 8) | e, the bitonic network
+// over the 32 * E keys (steps across lanes by shuffles, across registers
+// within the lane), then (skey, order) written in order.
+template <int E>
+__device__ void sort_group_regs(const int* __restrict__ ps,
+                                const int* __restrict__ rank, long long g0,
+                                int s, int prim, long long W, long long h,
+                                long long* skey, long long* order,
+                                int* __restrict__ bad) {
+  const int ln = threadIdx.x & 31;
+  unsigned long long key[E];
+  int p[E];
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    p[r] = r * 32 + ln < s ? __ldg(ps + g0 + r * 32 + ln) : 0;
+  }
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    const int e = r * 32 + ln;
+    key[r] = e < s ? ((unsigned long long)(unsigned)gather_sec(
+                          rank, p[r], W, h, bad) << 8) | (unsigned)e
+                   : ~0ull;
+  }
+#pragma unroll
+  for (int k = 2; k <= 32 * E; k <<= 1) {
+#pragma unroll
+    for (int j = k >> 1; j > 0; j >>= 1) {
+#pragma unroll
+      for (int r = 0; r < E; ++r) {
+        const int e = r * 32 + ln;
+        const bool asc = (e & k) == 0;
+        if (j >= 32) {  // the partner is register r ^ (j / 32)
+          const int rp = r ^ (j >> 5);
+          if (rp > r) {
+            const unsigned long long a = key[r], b = key[rp];
+            if (asc ? a > b : a < b) {
+              key[r] = b;
+              key[rp] = a;
+            }
+          }
+        } else {
+          key[r] = exchange(key[r], ln ^ j, ((e & j) == 0) == asc);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < E; ++r) {
+    const int e = r * 32 + ln;
+    if (e < s) {
+      skey[g0 + e] = ((long long)prim << 32) | (long long)((key[r] >> 8) + 1);
+      order[g0 + e] = g0 + (long long)(key[r] & 255u);
+    }
+  }
+}
+
+// A tile of kSortTile entries a block, kSub a warp. The caller routes a
+// round whose largest group passes kRegGroup to the library; a longer
+// group that comes here all the same is written unsorted, in range, and
+// ORs 2 into *bad.
+__global__ void __launch_bounds__(kSortThreads, 4)
+tie_sort_kernel(const int* __restrict__ ps, const int* __restrict__ prims,
+                const int* __restrict__ rank, long long n, long long W,
+                long long h, long long* skey, long long* order,
+                int* __restrict__ bad) {
+  const int ln = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const long long sub_lo = (long long)blockIdx.x * kSortTile + w * kSub;
+  const long long sub_hi = sub_lo + kSub < n ? sub_lo + kSub : n;
+  long long pos = -1;  // the first group start in the warp's entries
+  for (long long x = sub_lo; x < sub_hi; x += 32) {
+    const long long i = x + ln;
+    const bool st = i < sub_hi && (i == 0 || __ldg(prims + i) !=
+                                                  __ldg(prims + i - 1));
+    const unsigned b = __ballot_sync(kFull, st);
+    if (b) {
+      pos = x + __ffs(b) - 1;
+      break;
+    }
+  }
+  while (pos >= 0 && pos < sub_hi) {
+    const long long i = pos + ln;
+    const bool valid = i < n;
+    const int prim = valid ? __ldg(prims + i) : 0;
+    const int p = valid ? __ldg(ps + i) : 0;
+    int nxt = __shfl_down_sync(kFull, prim, 1);
+    if (ln == 31 && i + 1 < n) nxt = __ldg(prims + i + 1);
+    const int prv = __shfl_up_sync(kFull, prim, 1);
+    const bool end = valid && (i + 1 >= n || nxt != prim);
+    const bool own_start = valid && i < sub_hi && (ln == 0 || prv != prim);
+    const unsigned E = __ballot_sync(kFull, end);
+    const unsigned S = __ballot_sync(kFull, own_start);  // bit 0 is set
+    const int last = 31 - __clz(S);  // the window's last group of this warp
+    const unsigned after = E & (kFull << last);
+    const int m = after ? __ffs(after) : last;  // the complete groups' lanes
+    if (m == 0) {  // the group at pos passes the window
+      const int prim0 = __shfl_sync(kFull, prim, 0);
+      const long long e = group_end(prims, n, pos, prim0, ln);
+      if (e - pos <= kRegGroup / 2) {
+        sort_group_regs<kRegGroup / 64>(ps, rank, pos, (int)(e - pos), prim0,
+                                        W, h, skey, order, bad);
+      } else if (e - pos <= kRegGroup) {
+        sort_group_regs<kRegGroup / 32>(ps, rank, pos, (int)(e - pos), prim0,
+                                        W, h, skey, order, bad);
+      } else {  // past the capacity: the caller's route was wrong
+        for (long long r = pos + ln; r < e; r += 32) {
+          skey[r] = ((long long)prim0 << 32) |
+                    ((long long)gather_sec(rank, __ldg(ps + r), W, h, bad) +
+                     1);
+          order[r] = r;
+        }
+        if (ln == 0) atomicOr(bad, 2);
+      }
+      pos = e;
+      continue;
+    }
+    const bool in = ln < m;
+    const int sec = in ? gather_sec(rank, p, W, h, bad) : 0;
+    const int start = 31 - __clz(S & (kFull >> (31 - ln)));
+    const int size = in ? __ffs(E & (kFull << ln)) - start : 0;
+    const int g = (int)__reduce_max_sync(kFull, (unsigned)size);
+    unsigned long long key =
+        in ? ((unsigned long long)start << 36) |
+                 ((unsigned long long)(unsigned)sec << 5) | (unsigned)ln
+           : ~0ull;
+    if (g < kOets) {
+      for (int q = 0; q < g; ++q) {
+        const bool lower = ((ln - q) & 1) == 0;
+        key = exchange(key, lower ? ln + 1 : ln - 1, lower);
+      }
+    } else {
+#pragma unroll
+      for (int k = 2; k <= 32; k <<= 1) {
+#pragma unroll
+        for (int j = k >> 1; j > 0; j >>= 1) {
+          key = exchange(key, ln ^ j, ((ln & j) == 0) == ((ln & k) == 0));
+        }
+      }
+    }
+    if (in) {
+      const int sorted_sec = (int)((key >> 5) & 0x7FFFFFFFull);
+      skey[i] = ((long long)prim << 32) | ((long long)sorted_sec + 1);
+      order[i] = pos + (long long)(key & 31ull);
+    }
+    pos += m;
+  }
+}
+
+// KE's sizing pass: the longest run of equal prims (the round's largest
+// group) from each run's last entry, which gallops back to its start; a
+// thread's maximum over its rows, then the block's, and an atomicMax where
+// it passes *largest (zeroed before).
+__global__ void tie_groups_kernel(const int* __restrict__ prims, long long n,
+                                  int* __restrict__ largest) {
+  int len = 0;  // this thread's longest run, over its rows
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int v = __ldg(prims + i);
+    if (i + 1 >= n || __ldg(prims + i + 1) != v) {
+      const long long s = asgart::run_start(
+          i, [&](long long j) { return __ldg(prims + j) == v; });
+      len = max(len, (int)(i - s + 1));
+    }
+  }
+  __shared__ int s_len[asgart::kThreads / 32];
+  const int ln = threadIdx.x & 31, w = threadIdx.x >> 5;
+  len = (int)__reduce_max_sync(kFull, (unsigned)len);
+  if (ln == 0) s_len[w] = len;
+  __syncthreads();
+  if (w == 0) {  // the block's, one read a block
+    raise_to(largest,
+             (int)__reduce_max_sync(kFull, ln < asgart::kThreads / 32
+                                               ? (unsigned)s_len[ln]
+                                               : 0u),
+             ln);
+  }
+}
+
 // KF: one entry a thread, a tile a block. An entry's work is a chain of
 // dependent loads (order, ps, the gallop back, slots), so a thread takes
 // one: with four, a late round's few dozen blocks ran four chains one
@@ -109,9 +413,19 @@ constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kRefTile = 256;
 constexpr int kRefWarps = kRefTile / 32;
 // a tile's status word: its count in the low 32 bits, above them what the
-// count is (0: nothing yet, 1: the tile's own, 2: through this tile)
+// count is (0: nothing yet, 1: the tile's own, 2: through this tile), and
+// from bit 34 the longest still-tied sub-run that ends in the tile (its
+// own) or in any tile through it, saturated at kLongMax
 constexpr unsigned long long kAggregate = 1ull << 32;
 constexpr unsigned long long kInclusive = 2ull << 32;
+constexpr int kLongShift = 34;
+constexpr unsigned kLongMax = (1u << 30) - 1u;
+
+__device__ __forceinline__ unsigned long long status_word(
+    unsigned long long kind, unsigned count, unsigned longest) {
+  return kind | count |
+         ((unsigned long long)min(longest, kLongMax) << kLongShift);
+}
 
 __device__ __forceinline__ unsigned long long load_status(
     const unsigned long long* p) {
@@ -127,9 +441,11 @@ tie_refine_kernel(const long long* __restrict__ skey,
                   long long n, int* __restrict__ sa, int* __restrict__ rank,
                   int* __restrict__ out_slots, int* __restrict__ out_ps,
                   int* __restrict__ out_prims, int* __restrict__ count,
+                  int* __restrict__ largest,
                   unsigned long long* __restrict__ scratch, int n_tiles) {
   __shared__ int s_tile;
   __shared__ int s_off[kRefWarps];
+  __shared__ int s_long[kRefWarps];  // the warps' longest still-tied runs
   __shared__ long long s_base;
   const int ln = threadIdx.x & 31, w = threadIdx.x >> 5;
   if (threadIdx.x == 0) s_tile = (int)atomicAdd(scratch, 1ull);
@@ -137,7 +453,7 @@ tie_refine_kernel(const long long* __restrict__ skey,
   const int tile = s_tile;
   unsigned long long* status = scratch + 1;
   const long long r = (long long)tile * kRefTile + threadIdx.x;
-  int sl = 0, p = 0, rs = 0;
+  int sl = 0, p = 0, rs = 0, run_len = 0;
   bool still = false;
   if (r < n) {
     // the in-order loads first, together
@@ -152,10 +468,15 @@ tie_refine_kernel(const long long* __restrict__ skey,
     sa[sl] = p;
     rank[p] = rs;
     still = s < r || next;
+    if (s < r && !next) run_len = (int)(r - s + 1);  // a sub-run's last
   }
+  const int longest = (int)__reduce_max_sync(kFull, (unsigned)run_len);
   const unsigned b = __ballot_sync(kFull, still);
   const int at = __popc(b & ((1u << ln) - 1u));
-  if (ln == 0) s_off[w] = __popc(b);
+  if (ln == 0) {
+    s_off[w] = __popc(b);
+    s_long[w] = longest;
+  }
   __syncthreads();
   if (w == 0) {
     // the warps' counts, scanned in entry order
@@ -168,34 +489,45 @@ tie_refine_kernel(const long long* __restrict__ skey,
     }
     if (ln < kRefWarps) s_off[ln] = x - c;
     const int agg = __shfl_sync(kFull, x, kRefWarps - 1);
+    // the tile's longest still-tied sub-run, then through the tile
+    unsigned run = __reduce_max_sync(
+        kFull, ln < kRefWarps ? (unsigned)s_long[ln] : 0u);
     long long base = 0;
     if (tile == 0) {
-      if (ln == 0) atomicExch(status, kInclusive | (unsigned)agg);
+      if (ln == 0) atomicExch(status, status_word(kInclusive, agg, run));
     } else {
-      if (ln == 0) atomicExch(status + tile, kAggregate | (unsigned)agg);
+      if (ln == 0) {
+        atomicExch(status + tile, status_word(kAggregate, agg, run));
+      }
       for (int look = tile - 1;;) {
         const int t = look - ln;
         unsigned long long st = kInclusive;  // before tile 0: nothing
         do {
           if (t >= 0) st = load_status(status + t);
-        } while (__any_sync(kFull, (st >> 32) == 0));
-        const unsigned inc = __ballot_sync(kFull, (st >> 32) == 2);
+        } while (__any_sync(kFull, ((st >> 32) & 3) == 0));
+        const unsigned inc = __ballot_sync(kFull, ((st >> 32) & 3) == 2);
         const int first = inc ? __ffs(inc) - 1 : 32;
         long long v = ln <= first ? (long long)(st & 0xFFFFFFFFu) : 0;
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
         base += __shfl_sync(kFull, v, 0);
+        run = max(run, __reduce_max_sync(
+                           kFull, ln <= first ? (unsigned)(st >> kLongShift)
+                                              : 0u));
         if (inc) break;
         look -= 32;
       }
       if (ln == 0) {
         atomicExch(status + tile,
-                   kInclusive | (unsigned)(base + agg));
+                   status_word(kInclusive, (unsigned)(base + agg), run));
       }
     }
     if (ln == 0) {
       s_base = base;
-      if (tile == n_tiles - 1) *count = (int)(base + agg);
+      if (tile == n_tiles - 1) {
+        *count = (int)(base + agg);
+        *largest = (int)run;
+      }
     }
   }
   __syncthreads();
@@ -303,14 +635,41 @@ ASGART_API int asgart_tie_keys(const void* ps, const void* prims,
   return (int)cudaGetLastError();
 }
 
-// KF: outputs int32 [n] each (their first *count entries written);
+// KE's sizing pass: largest int32 [1], the longest run of equal prims.
+ASGART_API int asgart_tie_groups(const void* prims, long long n,
+                                 void* largest, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t rc = cudaMemsetAsync(largest, 0, sizeof(int), s);
+  if (rc != cudaSuccess) return (int)rc;
+  if (n <= 0) return (int)cudaGetLastError();
+  tie_groups_kernel<<<asgart::grid_for(n), asgart::kThreads, 0, s>>>(
+      (const int*)prims, n, (int*)largest);
+  return (int)cudaGetLastError();
+}
+
+// KE's sort: skey, order int64 [n] (what torch.sort of the round's keys
+// gives); prims non-decreasing, no group longer than kRegGroup.
+ASGART_API int asgart_tie_sort(const void* ps, const void* prims,
+                               const void* rank, long long n, long long W,
+                               long long h, void* skey, void* order,
+                               void* bad, void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  tie_sort_kernel<<<(unsigned)((n + kSortTile - 1) / kSortTile),
+                    kSortThreads, 0, (cudaStream_t)stream>>>(
+      (const int*)ps, (const int*)prims, (const int*)rank, n, W, h,
+      (long long*)skey, (long long*)order, (int*)bad);
+  return (int)cudaGetLastError();
+}
+
+// KF: outputs int32 [n] each (their first *count entries written); largest
+// gets the longest still-tied sub-run, 0 if none;
 // scratch: n_tiles + 1 words (kernels/ties.py TIE_TILE entries a tile).
 ASGART_API int asgart_tie_refine(const void* skey, const void* order,
                                  const void* slots, const void* ps,
                                  long long n, void* sa, void* rank,
                                  void* out_slots, void* out_ps,
-                                 void* out_prims, void* count, void* scratch,
-                                 int n_tiles, void* stream) {
+                                 void* out_prims, void* count, void* largest,
+                                 void* scratch, int n_tiles, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (n <= 0 || n_tiles != (n + kRefTile - 1) / kRefTile) {
     return (int)cudaErrorInvalidValue;
@@ -321,7 +680,8 @@ ASGART_API int asgart_tie_refine(const void* skey, const void* order,
   tie_refine_kernel<<<(unsigned)n_tiles, kRefTile, 0, s>>>(
       (const long long*)skey, (const long long*)order, (const int*)slots,
       (const int*)ps, n, (int*)sa, (int*)rank, (int*)out_slots, (int*)out_ps,
-      (int*)out_prims, (int*)count, (unsigned long long*)scratch, n_tiles);
+      (int*)out_prims, (int*)count, (int*)largest,
+      (unsigned long long*)scratch, n_tiles);
   return (int)cudaGetLastError();
 }
 

@@ -13,13 +13,14 @@ from .seed import equal_range, gather_ranges, pack_probe_planes
 from .sharded import gather_owned
 from .slices import gather_flat, granule_totals
 from .tables import invert_tables, table_ranges
-from .ties import full_round_keys, full_round_refine, tie_keys, tie_refine
+from .ties import (full_round_keys, full_round_refine, tie_groups, tie_keys,
+                   tie_refine)
 
 KERNELS = (unpack_codes, pack_keys, group_bounds, invert_fused, tie_keys,
            tie_refine, mj_ranges, scan_core, invert_tables,
            table_ranges, full_round_keys, full_round_refine, chain_bursts,
            granule_totals, gather_flat, equal_range, gather_ranges,
-           pack_probe_planes, gather_owned, mj_directory)
+           pack_probe_planes, gather_owned, mj_directory, tie_groups)
 
 
 def launch_counts() -> dict:

@@ -47,10 +47,14 @@ SIGNATURES = {
                             _P],
     # ps, prims, rank, n, W, h, key, bad, stream
     "asgart_tie_keys": [_P, _P, _P, _I64, _I64, _I64, _P, _P, _P],
+    # prims, n, largest, stream
+    "asgart_tie_groups": [_P, _I64, _P, _P],
+    # ps, prims, rank, n, W, h, skey, order, bad, stream
+    "asgart_tie_sort": [_P, _P, _P, _I64, _I64, _I64, _P, _P, _P, _P],
     # skey, order, slots, ps, n, sa, rank, out_slots, out_ps, out_prims,
-    # count, scratch, n_tiles, stream
+    # count, largest, scratch, n_tiles, stream
     "asgart_tie_refine": [_P, _P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P,
-                          _I32, _P],
+                          _P, _I32, _P],
     # sa, run_lo, run_hi, lane_mask, M, W, lane_off [n_chunks + 1] (on
     # the host, passed by value, or on the card when cap is 0), n_chunks,
     # cap, cursor, n_coarse, n_tiles, d1, l1, h1 (None: no probe rows),

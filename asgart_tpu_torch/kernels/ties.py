@@ -1,6 +1,9 @@
 """KE ``tie_keys`` and KF ``tie_refine``: one round of prefix doubling on
-the tied subset, before and after the round's sort; KK ``full_round_keys``
-and KL ``full_round_refine``: one round over every row of a table build.
+the tied subset, KE with the round's sort (each tied group sorted by the
+kernel, or the keys sorted by the library where a group passes
+``TIE_SORT_CAP``), KF after it; KK ``full_round_keys`` and KL
+``full_round_refine``: one round over every row of a table build, around
+the library's sort.
 
 Kernels: ``csrc/ties.cu`` (see its header for what they replace in the
 JAX package and how they are bounded); KL's random store ``rank[new_sa] =
@@ -23,12 +26,27 @@ def _check(name, *pairs):
             raise ValueError(f"{name}: bad dtype or layout")
 
 
+# the largest tied group KE's sort takes (csrc/ties.cu kRegGroup: what a
+# warp sorts in registers): a round whose largest group is longer, or not
+# known, takes the library route
+TIE_SORT_CAP = 128
+
+
 def tie_keys(ps: torch.Tensor, prims: torch.Tensor, rank: torch.Tensor,
-             h: int, bad: torch.Tensor) -> torch.Tensor:
-    """Round keys ``(prims << 32) | (rank[ps + h] + 1)`` (int64 [n]) of the
-    tied entries (positions ``ps``, group ranks ``prims``, int32 [n]);
-    ``rank`` is int32 [W]. An entry with ``ps + h >= W`` sets ``bad``
-    (int32 [1], never cleared here) and reads ``rank[W - 1]``."""
+             h: int, bad: torch.Tensor, largest: int | None = None):
+    """The round's sorted keys of the tied entries (positions ``ps``, group
+    ranks ``prims``, int32 [n], ``prims`` non-decreasing: each group a run
+    of at least two entries): (skey, order), int64 [n] each, what
+    ``torch.sort(key, stable=True)`` gives for ``key = (prims << 32) |
+    (rank[ps + h] + 1)``; ``rank`` is int32 [W]. An entry with ``ps + h >=
+    W`` ORs 1 into ``bad`` (int32 [1], never cleared here) and reads
+    ``rank[W - 1]``. ``largest``: the round's largest group (KE's sizing
+    pass before the first round, KF's figure of the round before after
+    it), None where not known. Up to ``TIE_SORT_CAP`` the kernel sorts
+    each group itself; else KE writes the keys and ``torch.sort`` sorts
+    them (the library route). A ``largest`` below the true one is a
+    caller's fault: a longer group is left unsorted (each entry its own
+    key, ``order[i] = i``) and ORs 2 into ``bad``."""
     n = ps.numel()
     _check("tie_keys", (ps, torch.int32), (prims, torch.int32),
            (rank, torch.int32), (bad, torch.int32))
@@ -36,26 +54,70 @@ def tie_keys(ps: torch.Tensor, prims: torch.Tensor, rank: torch.Tensor,
         raise ValueError("tie_keys: bad shapes or h")
     if not _build.on_cuda(ps, prims, rank, bad):
         return tie_keys_plain(ps, prims, rank, h, bad)
-    key = torch.empty(n, dtype=torch.int64, device=ps.device)
     lib = _build.lib()
+    stream = _build.stream_of(ps)
+    if largest is None or largest > TIE_SORT_CAP:
+        key = torch.empty(n, dtype=torch.int64, device=ps.device)
+        tie_keys.launches += 1
+        _build.check(lib.asgart_tie_keys(
+            ps.data_ptr(), prims.data_ptr(), rank.data_ptr(), n,
+            rank.numel(), h, key.data_ptr(), bad.data_ptr(), stream),
+            "tie_keys")
+        return torch.sort(key, stable=True)
+    skey, order = (torch.empty(n, dtype=torch.int64, device=ps.device)
+                   for _ in range(2))
+    if n == 0:
+        return skey, order
     tie_keys.launches += 1
-    _build.check(lib.asgart_tie_keys(
+    _build.check(lib.asgart_tie_sort(
         ps.data_ptr(), prims.data_ptr(), rank.data_ptr(), n, rank.numel(),
-        h, key.data_ptr(), bad.data_ptr(), _build.stream_of(ps)),
+        h, skey.data_ptr(), order.data_ptr(), bad.data_ptr(), stream),
         "tie_keys")
-    return key
+    return skey, order
 
 
 tie_keys.launches = 0
 
 
-def tie_keys_plain(ps, prims, rank, h, bad):
-    """Plain PyTorch version of the KE kernel."""
+def tie_groups(prims: torch.Tensor, largest: torch.Tensor) -> None:
+    """KE's sizing pass: writes the longest run of equal ``prims`` (int32
+    [n], non-decreasing), the round's largest group, into ``largest``
+    (int32 [1]) on the device; 0 for n = 0."""
+    _check("tie_groups", (prims, torch.int32), (largest, torch.int32))
+    if largest.numel() != 1:
+        raise ValueError("tie_groups: largest must hold one word")
+    if not _build.on_cuda(prims, largest):
+        return tie_groups_plain(prims, largest)
+    lib = _build.lib()
+    tie_groups.launches += 1
+    _build.check(lib.asgart_tie_groups(
+        prims.data_ptr(), prims.numel(), largest.data_ptr(),
+        _build.stream_of(prims)), "tie_groups")
+
+
+tie_groups.launches = 0
+
+
+def tie_groups_plain(prims, largest):
+    """Plain PyTorch version of KE's sizing pass."""
+    n = prims.numel()
+    if n == 0:
+        largest.zero_()
+        return
+    starts = torch.ones(n, dtype=torch.bool, device=prims.device)
+    starts[1:] = prims[1:] != prims[:-1]
+    at = torch.nonzero(starts).flatten()
+    largest.copy_(torch.diff(at, append=at.new_tensor([n])).max())
+
+
+def tie_keys_plain(ps, prims, rank, h, bad, largest=None):
+    """Plain PyTorch version of the KE kernel: the keys, then the library's
+    stable sort (``largest`` is not needed)."""
     W = rank.numel()
     ph = ps.long() + h
     bad |= (ph >= W).any().to(torch.int32)
     sec = rank[ph.clamp(max=W - 1)].long()
-    return (prims.long() << 32) | (sec + 1)
+    return torch.sort((prims.long() << 32) | (sec + 1), stable=True)
 
 
 # csrc/ties.cu kRefTile: KF's entries a tile of its compaction scan
@@ -74,14 +136,16 @@ def tie_refine(skey: torch.Tensor, order: torch.Tensor, slots: torch.Tensor,
 
     Returns the still-tied entries' next (slots, ps, prims), int32 [n]
     each, compacted in entry order (slots ascending) into their first
-    ``m`` entries, and writes m into ``count`` (int32 [1]) on the device:
-    the caller reads it with the round's other flag."""
+    ``m`` entries, and writes m into ``count[0]`` (int32 [2]) on the
+    device and the longest still-tied sub-run (the next round's largest
+    group; 0 if none) into ``count[1]``: the caller reads them with the
+    round's other flag."""
     n = skey.numel()
     _check("tie_refine", (skey, torch.int64), (order, torch.int64),
            (slots, torch.int32), (ps, torch.int32), (sa, torch.int32),
            (rank, torch.int32), (count, torch.int32))
     if order.numel() != n or slots.numel() != n or ps.numel() != n \
-            or count.numel() != 1:
+            or count.numel() != 2:
         raise ValueError("tie_refine: entry arrays differ in length")
     if not _build.on_cuda(skey, order, slots, ps, sa, rank, count):
         return tie_refine_plain(skey, order, slots, ps, sa, rank, count)
@@ -98,8 +162,8 @@ def tie_refine(skey: torch.Tensor, order: torch.Tensor, slots: torch.Tensor,
     _build.check(lib.asgart_tie_refine(
         skey.data_ptr(), order.data_ptr(), slots.data_ptr(), ps.data_ptr(),
         n, sa.data_ptr(), rank.data_ptr(), *(t.data_ptr() for t in outs),
-        count.data_ptr(), scratch.data_ptr(), tiles, _build.stream_of(skey)),
-        "tie_refine")
+        count.data_ptr(), count.data_ptr() + 4, scratch.data_ptr(), tiles,
+        _build.stream_of(skey)), "tie_refine")
     return outs
 
 
@@ -127,7 +191,11 @@ def tie_refine_plain(skey, order, slots, ps, sa, rank, count):
     for out, x in zip(outs, (slots, p_sorted, rs)):
         kept = x[still]
         out[:kept.numel()] = kept
-    count.fill_(int(still.sum()))
+    starts = torch.nonzero(new_run).flatten()  # the longest still-tied run
+    runs = torch.diff(starts, append=starts.new_tensor([n]))
+    longest = int(runs.max()) if n else 0
+    count[0] = int(still.sum())
+    count[1] = longest if longest > 1 else 0
     return outs
 
 

@@ -3,10 +3,18 @@ after full-array rounds while a table build's tied set is large.
 
 Counterpart of ``_resolve_ties`` (asgart_tpu/device_index.py:807) with
 ``_extract_tied`` (:642), ``_slot_payload`` (:682) and ``_doubling_rounds``
-(:696). Each round is KE ``tie_keys``, a stable library sort of the round
-keys and KF ``tie_refine`` (kernels/ties.py), which also compacts the
-entries still tied and counts them on the device, as the JAX round's
-stable partition does. A table build (table_index.py) passes ``tied_cap``:
+(:696). Each round is KE ``tie_keys``, which gathers the round's keys and
+sorts each tied group stably itself, and KF ``tie_refine``
+(kernels/ties.py), which also compacts the entries still tied, counts
+them and finds the longest still-tied sub-run on the device, as the JAX
+round's stable partition does. That longest sub-run is the next round's
+largest group. The first round's comes from KE's sizing pass
+``tie_groups``, read once before the loop, where the tied set has at
+least ``SIZING_MIN`` entries; a smaller first round takes the library
+route unsized. A round whose largest group passes
+``kernels.ties.TIE_SORT_CAP``, or is not known, takes KE's key pass and
+the library's stable sort instead (a choice by size, made before the
+launch). A table build (table_index.py) passes ``tied_cap``:
 while more than that many rows are tied, a full round (``_full_round``,
 :769) runs first: KK ``full_round_keys`` (every position's keys, in
 position order), the stable sort, KL ``full_round_refine``, over every
@@ -29,16 +37,24 @@ Reads of ``rank[p + h]`` stay inside the direct text: two distinct
 suffixes tied on their first h symbols contain no '$' there (it is
 unique; the k-mer keys pad with its rank 0), so p + h <= W - 1. The JAX
 package clamps the read instead; here KE flags a violation on the device,
-the flag is read once per round together with KF's still-tied count
-(the round's one host sync), and a violation raises.
+the flag is read once per round together with KF's still-tied count and
+longest sub-run (the round's one host sync), and a violation raises.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .kernels import (full_round_keys, full_round_refine, tie_keys,
-                      tie_refine)
+from .kernels import (full_round_keys, full_round_refine, tie_groups,
+                      tie_keys, tie_refine)
+
+# The tied entries from which the first round's largest group is found
+# (KE's sizing pass and a host read before the loop) so that the round may
+# take KE's sort. On an NVIDIA H100 the read took 0.15-0.33 ms on the host
+# clock; the library route's first round 0.24 ms on 1.2 M entries (KE's
+# sort 0.07 where every group fits: a gain no larger than the read) and
+# 1.92 ms on 12.3 M (KE's sort 0.53); scripts/ke_ko_probe.py.
+SIZING_MIN = 1 << 22
 
 
 def full_rounds(sa: torch.Tensor, rank: torch.Tensor, tied_slot: torch.Tensor,
@@ -98,16 +114,24 @@ def resolve_ties(sa: torch.Tensor, rank: torch.Tensor,
     ps = sa[slots]
     prims = rank[ps.long()]
     slots = slots.to(torch.int32)
-    # KE's bad flag and KF's still-tied count: the round's one host read
-    flags = torch.zeros(2, dtype=torch.int32, device=sa.device)
+    # KE's bad flag, KF's still-tied count and its longest still-tied
+    # sub-run: the round's one host read
+    flags = torch.zeros(3, dtype=torch.int32, device=sa.device)
+    largest = None  # the first round's largest group, where it pays
+    if slots.numel() >= SIZING_MIN:
+        tie_groups(prims, flags[2:])
+        (largest,) = flags[2:].tolist()
     while h < 2 * M:
-        key = tie_keys(ps, prims, rank, min(h, M), flags[:1])
-        skey, order = torch.sort(key, stable=True)
-        del key
+        skey, order = tie_keys(ps, prims, rank, min(h, M), flags[:1],
+                               largest)
         slots, ps, prims = tie_refine(skey, order, slots, ps, sa, rank,
                                       flags[1:])
         del skey, order
-        violated, n_still = flags.tolist()
+        violated, n_still, largest = flags.tolist()
+        if violated & 2:
+            raise RuntimeError(
+                "tie resolution handed KE's sort a group longer than "
+                "kernels.ties.TIE_SORT_CAP (a fault of the round's route)")
         if violated:
             raise RuntimeError(
                 "tie resolution read past the direct text (a tied suffix "

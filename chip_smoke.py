@@ -28,8 +28,10 @@
       build of the genome, or of window 2 of the shards, or of the trim
       window, and its largest chunk's scan, a window's, fused or
       merge-join, with the rebased constants on its window-relative
-      order; KE/KF on the first, largest tie round, KF's compacted
-      still-tied entries and count included; KA's probe-only mode
+      order; KE's sizing pass, KE with its sort (beside its library
+      route, the key pass and ``torch.sort``) and KF on the first,
+      largest tie round, KF's compacted still-tied entries, count and
+      longest sub-run included; KA's probe-only mode
       with its own bound), requires
       equal outputs (tolerance 0: all integers), times
       both with CUDA events after a warm-up, and gives each kernel its
@@ -37,9 +39,10 @@
       operations over the non-tensor-core rate) and the time of one
       PyTorch call (for KI, the same ops with a gather for the LUT) that
       computes the same function, where one exists; times the key sort
-      and the whole tie resolution with KE/KF against the same rounds on
-      their plain versions (then once more with KF held to its plain
-      version in every round), and the host side of the codes upload (the
+      and the whole tie resolution with the kernels against the same
+      rounds on their plain versions (then once more with the sizing
+      pass, KE and KF held to their plain versions in every round, each
+      round's route printed), and the host side of the codes upload (the
       2-bit pack against the ``CODE`` LUT and pinned copy it replaces);
    b. the sharded path measures each window's build peak per fused row;
       the merge-join paths each window's build peak per window row and its
@@ -429,64 +432,141 @@ def recorder(rows: list, path: str, k: int):
 
 def tie_checks(record, tag: str, sa, rank, tied, M: int, k: int, device,
                h: int | None = None):
-    """KE / KF on the first tie round (the largest tied set; ``h``: its
+    """KE's sizing pass, KE (with its sort, on the route the first round
+    takes) and KF on the first tie round (the largest tied set; ``h``: its
     prefix length, k by default) against their plain versions, KF's
-    compacted still-tied entries and their count included; then the whole
-    tie resolution with KE/KF and with their plain versions in the same
-    rounds, in turns (plain, kernel, kernel, plain), and once more with KF
-    held to its plain version in every round. Returns the resolved
-    ``sa``."""
+    compacted still-tied entries, their count and longest sub-run
+    included; KE's row beside its library route (its key pass and
+    ``torch.sort``); then the whole tie resolution with the kernels and
+    with their plain versions in the same rounds, in turns (plain, kernel,
+    kernel, plain), and once more with the sizing pass, KE and KF held to
+    their plain versions in every round, each round's route printed, and
+    the checks' seconds. The sizing pass gets a row where the resolution
+    runs it (a tied set of at least ``ties.SIZING_MIN`` entries); else the
+    first round takes the library route, and the pass only finds the
+    largest group for KE's row. Returns the resolved ``sa``."""
     import torch
 
     from asgart_tpu_torch import ties as ties_mod
-    from asgart_tpu_torch.kernels import tie_keys, tie_refine
-    from asgart_tpu_torch.kernels.ties import (tie_keys_plain,
+    from asgart_tpu_torch.kernels import tie_groups, tie_keys, tie_refine
+    from asgart_tpu_torch.kernels.ties import (TIE_SORT_CAP,
+                                               tie_groups_plain,
+                                               tie_keys_plain,
                                                tie_refine_plain)
 
+    t_checks = time.time()
     # KF writes sa and rank in place, so each side gets its own copies (KF
     # reads neither, so repeated calls write the same values)
     slots = torch.nonzero(tied).flatten()
     n_tied = slots.numel()
+    sized = n_tied >= ties_mod.SIZING_MIN
     if n_tied == 0:
         raise AssertionError(f"no tied rows on {tag}: KE/KF unchecked")
     ps = sa[slots]
     prims = rank[ps.long()]
     slots = slots.to(torch.int32)
     h = min(k if h is None else h, M)
+    big = [torch.zeros(1, dtype=torch.int32, device=device) for _ in "kp"]
+    kg = lambda: tie_groups(prims, big[0])  # noqa: E731
+    pg = lambda: tie_groups_plain(prims, big[1])  # noqa: E731
+    kg()
+    pg()
+    if max_abs_err(big[:1], big[1:]) != 0:
+        raise AssertionError(f"KE's sizing pass differs from its plain "
+                             f"version on {tag}")
+    if sized:
+        record("tie_groups", "ties.cu", "asgart_tpu/device_index.py:807 "
+               "(routes the first round; no JAX counterpart)",
+               max_abs_err(big[:1], big[1:]), cuda_ms(kg, FINE_REPS),
+               cuda_ms(pg), f"{n_tied} tied entries, largest group "
+               f"{int(big[0])}", 4 * n_tied + 4, n_tied,
+               alone=(kernel_ms(kg, FINE_REPS), None))
+    largest = int(big[0])
+    route = "kernel" if sized and largest <= TIE_SORT_CAP else "library"
     bad_k = torch.zeros(1, dtype=torch.int32, device=device)
     bad_p = torch.zeros(1, dtype=torch.int32, device=device)
-    ke = lambda: tie_keys(ps, prims, rank, h, bad_k)  # noqa: E731
-    pe = lambda: tie_keys_plain(ps, prims, rank, h, bad_p)  # noqa: E731
-    key = ke()
-    err = max_abs_err((key, bad_k), (pe(), bad_p))
-    record("tie_keys", "ties.cu", "asgart_tpu/device_index.py:696", err,
-           cuda_ms(ke), cuda_ms(pe), f"{n_tied} tied entries", 20 * n_tied,
-           8 * n_tied)
-    skey, order = torch.sort(key, stable=True)
-    del key
+    # the round as routed, held to the plain version
+    skey, order = tie_keys(ps, prims, rank, h, bad_k,
+                           largest if sized else None)
+    err = max_abs_err((skey, order, bad_k),
+                      (*tie_keys_plain(ps, prims, rank, h, bad_p), bad_p))
+    # the kernel's own sort on the round's entries in groups within its
+    # capacity (all of them where the round takes the kernel's route)
+    kps, kprims, klargest, within = ps, prims, largest, ""
+    if largest > TIE_SORT_CAP:
+        start = torch.ones(n_tied, dtype=torch.bool, device=device)
+        start[1:] = prims[1:] != prims[:-1]
+        at = torch.nonzero(start).flatten()
+        size = torch.diff(at, append=at.new_tensor([n_tied]))
+        keep = (size <= TIE_SORT_CAP)[torch.cumsum(start, 0) - 1]
+        kps, kprims = ps[keep], prims[keep]
+        klargest = int(size[size <= TIE_SORT_CAP].max()) if kps.numel() \
+            else 0
+        within = (f"; the kernel timed on its {kps.numel()} entries in "
+                  f"groups of at most {TIE_SORT_CAP}")
+    m_k = kps.numel()
+    if m_k:
+        ke = lambda: tie_keys(kps, kprims, rank, h, bad_k,  # noqa: E731
+                              klargest)
+        pe = lambda: tie_keys_plain(kps, kprims, rank, h, bad_p)  # noqa
+        lib = lambda: tie_keys(kps, kprims, rank, h, bad_k)  # noqa: E731
+        err = max(err, max_abs_err((*ke(), bad_k), (*pe(), bad_p)))
+    else:  # no group within the capacity: the route's call alone
+        ke = lib = lambda: tie_keys(ps, prims, rank, h, bad_k)  # noqa
+        pe = lambda: tie_keys_plain(ps, prims, rank, h, bad_p)  # noqa
+        m_k, within = n_tied, "; no group within the capacity"
+    # KE's bytes: ps and prims in order (8), the rank gather (4), skey and
+    # order written (16) an entry
+    record("tie_keys", "ties.cu", "asgart_tpu/device_index.py:696 (:728)",
+           err, cuda_ms(ke, FINE_REPS), cuda_ms(pe),
+           f"{n_tied} tied entries, largest group {largest}, {route} route"
+           f"{'' if sized else ' (unsized)'}{within}; library: KE's key "
+           "pass + torch.sort(stable=True)",
+           28 * m_k, 8 * m_k, cuda_ms(lib, FINE_REPS),
+           alone=(kernel_ms(ke, FINE_REPS), kernel_ms(lib, FINE_REPS)))
+    ke_row = record.rows[-1]
+    del kps, kprims
 
-    errs = []
+    errs, ke_errs, routes = [], [], []
 
     def checked_refine(skey, order, slots, ps, sa_k, rank_k, cnt_k):
         """KF, held to its plain version on copies of ``sa_k`` and
         ``rank_k`` taken before it (its max_abs_err in ``errs``): sa, rank,
-        the count and the compacted entries."""
+        the count, the longest sub-run and the compacted entries."""
         sa_p, rank_p = sa_k.clone(), rank_k.clone()
-        cnt_p = torch.zeros(1, dtype=torch.int32, device=device)
+        cnt_p = torch.zeros_like(cnt_k)
         want = tie_refine_plain(skey, order, slots, ps, sa_p, rank_p, cnt_p)
         got = tie_refine(skey, order, slots, ps, sa_k, rank_k, cnt_k)
-        m = int(cnt_p)
+        m = int(cnt_p[0])
         errs.append(max_abs_err(
             (cnt_k, sa_k, rank_k, *(t[:m] for t in got)),
             (cnt_p, sa_p, rank_p, *(t[:m] for t in want))))
         return got
 
+    def checked_keys(ps, prims, rank, h, bad, largest=None):
+        """KE on the round's route, held to its plain version (its
+        max_abs_err in ``ke_errs``, the route in ``routes``)."""
+        got = tie_keys(ps, prims, rank, h, bad, largest)
+        bad_p = torch.zeros_like(bad)
+        ke_errs.append(max_abs_err((*got, bad),
+                                   (*tie_keys_plain(ps, prims, rank, h,
+                                                    bad_p), bad_p)))
+        routes.append("K" if largest is not None and largest <= TIE_SORT_CAP
+                      else "L")
+        return got
+
+    def checked_groups(prims, out):
+        want = torch.zeros_like(out)
+        tie_groups_plain(prims, want)
+        tie_groups(prims, out)
+        ke_errs.append(max_abs_err((out,), (want,)))
+
     sa_k, rank_k, sa_p, rank_p = sa.clone(), rank.clone(), sa.clone(), \
         rank.clone()
-    cnt_k = torch.zeros(1, dtype=torch.int32, device=device)
-    cnt_p = torch.zeros(1, dtype=torch.int32, device=device)
+    cnt_k = torch.zeros(2, dtype=torch.int32, device=device)
+    cnt_p = torch.zeros(2, dtype=torch.int32, device=device)
     checked_refine(skey, order, slots, ps, sa_k, rank_k, cnt_k)
-    err, m = errs.pop(), int(cnt_k)
+    err, m = errs.pop(), int(cnt_k[0])
     kf = lambda: tie_refine(skey, order, slots, ps, sa_k,  # noqa: E731
                             rank_k, cnt_k)
     pf = lambda: tie_refine_plain(skey, order, slots, ps,  # noqa: E731
@@ -500,11 +580,12 @@ def tie_checks(record, tag: str, sa, rank, tied, M: int, k: int, device,
     kf_row = record.rows[-1]
     del skey, order, sa_k, rank_k, sa_p, rank_p, ps, prims, slots
     torch.cuda.empty_cache()
+    kernels = (tie_groups, tie_keys, tie_refine)
+    names = ("tie_groups", "tie_keys", "tie_refine")
 
-    def resolve(plain: bool):
-        if plain:
-            ties_mod.tie_keys, ties_mod.tie_refine = (tie_keys_plain,
-                                                      tie_refine_plain)
+    def resolve(fns):
+        for name, f in zip(names, fns):
+            setattr(ties_mod, name, f)
         try:
             out = sa.clone()
             r = rank.clone()
@@ -514,32 +595,36 @@ def tie_checks(record, tag: str, sa, rank, tied, M: int, k: int, device,
             torch.cuda.synchronize()
             return time.time() - t0, out
         finally:
-            ties_mod.tie_keys, ties_mod.tie_refine = tie_keys, tie_refine
+            for name, f in zip(names, kernels):
+                setattr(ties_mod, name, f)
 
     times = {True: [], False: []}
     finals = {}
-    for plain in (True, False, False, True):
-        t, finals[plain] = resolve(plain)
-        times[plain].append(t)
+    plain = (tie_groups_plain, tie_keys_plain, tie_refine_plain)
+    for is_plain in (True, False, False, True):
+        t, finals[is_plain] = resolve(plain if is_plain else kernels)
+        times[is_plain].append(t)
     if not torch.equal(finals[True], finals[False]):
-        raise AssertionError(f"tie resolution with KE/KF differs from its "
-                             f"plain rounds on {tag}")
-    # every round's KF against its plain version (the launches of this run
-    # are checks)
-    ties_mod.tie_refine = checked_refine
-    try:
-        t, out = resolve(False)
-    finally:
-        ties_mod.tie_refine = tie_refine
-    if max(errs) != 0 or not torch.equal(out, finals[False]):
-        raise AssertionError(f"KF differs from its plain version in a tie "
-                             f"round on {tag} (max_abs_err {max(errs)})")
+        raise AssertionError(f"tie resolution with the kernels differs from "
+                             f"its plain rounds on {tag}")
+    # every round's kernels against their plain versions (the launches of
+    # this run are checks)
+    t, out = resolve((checked_groups, checked_keys, checked_refine))
+    if max(errs + ke_errs) != 0 or not torch.equal(out, finals[False]):
+        raise AssertionError(f"a kernel differs from its plain version in a "
+                             f"tie round on {tag} (max_abs_err KF "
+                             f"{max(errs)}, KE {max(ke_errs)})")
     kf_row["max_abs_err"] = max(err, *errs)
-    print(f"{tag} tie resolution of {n_tied} tied rows: KE/KF "
+    ke_row["max_abs_err"] = max(ke_row["max_abs_err"], *ke_errs)
+    print(f"{tag} tie resolution of {n_tied} tied rows: kernels "
           f"{' / '.join(f'{t:.4f}' for t in times[False])} s, plain rounds "
           f"{' / '.join(f'{t:.4f}' for t in times[True])} s (host clock + "
-          f"sync); KF held to its plain version in each of its {len(errs)} "
-          "rounds: max_abs_err 0", flush=True)
+          f"sync); {'the sizing pass, ' if sized else 'no sizing pass; '}"
+          f"KE and KF held to their plain versions in "
+          f"each of its {len(errs)} rounds: max_abs_err 0; routes by round "
+          f"(K: KE's sort, L: the key pass and the library's sort) "
+          f"{''.join(routes)}; the tie checks took "
+          f"{time.time() - t_checks:.1f} s", flush=True)
     return finals[False]
 
 
@@ -758,9 +843,10 @@ def sliced_checks(record, tag: str, settings, chunk, lanes, sa,
     gt = ko()
     err = max_abs_err((gt,), (po(),))
     record("granule_totals", "slices.cu",
-           "asgart_tpu/device_engine.py:589 (+ :167)", err, cuda_ms(ko),
-           cuda_ms(po), f"chunk {chunk}: {n} lanes, {gt.numel()} granules "
-           f"of {SLICE_GRAN}", 9 * n + 8 * gt.numel(), 2 * n)
+           "asgart_tpu/device_engine.py:589 (+ :167)", err,
+           cuda_ms(ko, FINE_REPS), cuda_ms(po), f"chunk {chunk}: {n} lanes, "
+           f"{gt.numel()} granules of {SLICE_GRAN}", 9 * n + 8 * gt.numel(),
+           2 * n, alone=(kernel_ms(ko, FINE_REPS), None))
     total = int(gt.sum())
     ranges = WindowRanges(lane_lo=lo, lane_hi=hi, lane_mask=mask,
                           specs=((*chunk, n),), offs={chunk: (0, total)})
@@ -3506,6 +3592,7 @@ def nccl_shared_card() -> None:
 
 
 def main(argv=None) -> int:
+    t_start = time.time()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mbp", type=float, default=128.0,
                     help="synthetic genome size in Mbp (default 128)")
@@ -3564,47 +3651,56 @@ def main(argv=None) -> int:
     gapped_upload_check("genome", g, device)
     del g
 
+    def timed(name, fn):
+        """``fn()``, its seconds printed as the phase ``name``'s."""
+        t0 = time.time()
+        out = fn()
+        print(f"{name}: phase {time.time() - t0:.1f} s", flush=True)
+        return out
+
     rc = dict(reverse=True, complement=True)
     rows = []
     for k in (20, 25):  # one-word and two-word sort keys
-        path_rows, path_host = run_path(fa, n, device, "whole",
-                                        RunSettings(probe_size=k, **rc))
+        path_rows, path_host = timed(f"whole k={k}", lambda: run_path(
+            fa, n, device, "whole", RunSettings(probe_size=k, **rc)))
         rows += path_rows
         if k == 20:
             whole_host = path_host
-            rows += run_device_chain_whole(fa, device, path_host,
-                                           args.plain_events)
-            rows += run_whole_sliced(fa, device, path_host)
-    shard_rows, shard_host = run_path(fa, n, device, "shards",
-                                      RunSettings(probe_size=20, **rc),
-                                      shards=SHARDS)
+            rows += timed("device_chain whole", lambda: run_device_chain_whole(
+                fa, device, path_host, args.plain_events))
+            rows += timed("whole_sliced", lambda: run_whole_sliced(
+                fa, device, path_host))
+    shard_rows, shard_host = timed("shards", lambda: run_path(
+        fa, n, device, "shards", RunSettings(probe_size=20, **rc),
+        shards=SHARDS))
     rows += shard_rows
     # a quarter of the genome around its middle (its N run), two-word
     # keys; at the default size it holds planted -RC pairs (a quick run's
     # smaller genome may have none there)
     trim = (3 * n // 8, 5 * n // 8)
     min_sds = 1 if args.mbp >= 100 else 0
-    rows += run_path(fa, n, device, "trim", RunSettings(probe_size=25,
-                                                       trim=trim, **rc),
-                     min_sds=min_sds)[0]
+    rows += timed("trim", lambda: run_path(
+        fa, n, device, "trim", RunSettings(probe_size=25, trim=trim, **rc),
+        min_sds=min_sds))[0]
     # the merge-join window engine, routed there by a ballast tensor: the
     # same middle window at k = 20, and the shards path's windows, whose
     # JSON is the host JSON the fused shards path computed
-    mj_rows, mj_host = run_mj_path(fa, n, device, "mj_trim",
-                                   RunSettings(probe_size=20, trim=trim,
-                                               **rc), min_sds=min_sds)
+    mj_rows, mj_host = timed("mj_trim", lambda: run_mj_path(
+        fa, n, device, "mj_trim", RunSettings(probe_size=20, trim=trim,
+                                              **rc), min_sds=min_sds))
     rows += mj_rows
-    rows += run_mj_path(fa, n, device, "mj_shards",
-                        RunSettings(probe_size=20, **rc), shards=SHARDS,
-                        host=shard_host, plain_events=args.plain_events)[0]
+    rows += timed("mj_shards", lambda: run_mj_path(
+        fa, n, device, "mj_shards", RunSettings(probe_size=20, **rc),
+        shards=SHARDS, host=shard_host, plain_events=args.plain_events))[0]
     # the route past int32 addressing (no fused build) on the same windows,
     # held to the host JSON of the mj_trim and shards paths
-    rows += run_mj_path(fa, n, device, "big_trim",
-                        RunSettings(probe_size=20, trim=trim, **rc),
-                        host=mj_host, min_sds=min_sds, big=True)[0]
-    rows += run_mj_path(fa, n, device, "big_shards",
-                        RunSettings(probe_size=20, **rc), shards=SHARDS,
-                        host=shard_host, big=True)[0]
+    rows += timed("big_trim", lambda: run_mj_path(
+        fa, n, device, "big_trim", RunSettings(probe_size=20, trim=trim,
+                                               **rc),
+        host=mj_host, min_sds=min_sds, big=True))[0]
+    rows += timed("big_shards", lambda: run_mj_path(
+        fa, n, device, "big_shards", RunSettings(probe_size=20, **rc),
+        shards=SHARDS, host=shard_host, big=True))[0]
     # the seed lookups of SearchEngine(engine="cuda"): a trim window's
     # DeviceSeedIndex (KQ; KS on its largest chunk), held to mj_trim's host
     # JSON; the k = 21 route's position tables (KR); then --hosts on this
@@ -3626,16 +3722,15 @@ def main(argv=None) -> int:
             ("group_journal2", lambda: run_group_journal2(fa, work,
                                                           whole_host)),
             ("nccl_shared_card", nccl_shared_card)):
-        t0 = time.time()
-        rows += phase() or []
-        print(f"{name}: phase {time.time() - t0:.1f} s", flush=True)
+        rows += timed(name, phase) or []
     # --checkpoint on the table engine: one-word and two-word keys, then a
     # repeat-dense genome whose first tied count passes the default
     # tied_cap (full rounds)
     for k in (20, 25):
-        rows += run_table_path(fa, n, device, "table" if k == 20 else
-                               "table_k25", RunSettings(probe_size=k, **rc),
-                               work, min_sds=min_sds)
+        name = "table" if k == 20 else "table_k25"
+        rows += timed(name, lambda: run_table_path(
+            fa, n, device, name, RunSettings(probe_size=k, **rc), work,
+            min_sds=min_sds))
     nr = int(args.repeats_mbp * 1e6)
     t0 = time.time()
     rfa = os.path.join(work, "repeats.fa")
@@ -3645,18 +3740,22 @@ def main(argv=None) -> int:
           f"{time.time() - t0:.1f} s", flush=True)
     # its runs are the host chain's (~40 s each): no journal-free run;
     # then the device chain's journaled run
-    rows += run_table_path(rfa, nr, device, "table_repeats",
-                           RunSettings(probe_size=20, **rc), work,
-                           kernels=TABLE + FULL_ROUNDS,
-                           min_tied=(2 * (nr + 1) - 1) // 8,
-                           journal_free=False,
-                           plain_events=args.plain_events)
+    rows += timed("table_repeats", lambda: run_table_path(
+        rfa, nr, device, "table_repeats", RunSettings(probe_size=20, **rc),
+        work,
+        # and KE's sizing pass: its subset rounds' tied set passes
+        # ties.SIZING_MIN
+        kernels=TABLE + FULL_ROUNDS + ("tie_groups",),
+        min_tied=(2 * (nr + 1) - 1) // 8, journal_free=False,
+        plain_events=args.plain_events))
     if args.big_mbp:
-        rows += run_big_whole(work, args.big_mbp, device, args.plain_events)
+        rows += timed("big_whole", lambda: run_big_whole(
+            work, args.big_mbp, device, args.plain_events))
     assert "jax" not in sys.modules
     assert not [m for m in sys.modules
                 if m == "asgart_tpu" or m.startswith("asgart_tpu.")]
 
+    print(f"chip_smoke: {time.time() - t_start:.1f} s in all", flush=True)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -33,9 +33,10 @@ writes the decimated planes, at step 1 too).
 KF ``tie_refine`` round by round over the whole k = 20 -RC fused build of
 the ``--mbp`` genome, then over the subset rounds of the k = 20 -RC table
 build of the ``--repeats-mbp`` genome, after its full rounds
-(``ties.resolve_ties``' loop): the tied count, KE,
-the stable sort, KF alone, and the round's tail as the package runs it
-(a package whose KF does not compact: KF, the cumsum, the stack of the
+(``ties.resolve_ties``' loop): the tied count, KE, the stable sort (for a
+package whose KE returns the sorted keys, its library route, the key pass
+and the sort, as one step), KF alone, and the round's tail as the package
+runs it (a package whose KF does not compact: KF, the cumsum, the stack of the
 count and the flag, the where and three ``scatter_``; else KF alone), and
 the round's host read (host clock, after a synchronize). Prints one line
 per measurement, the card first. Needs a CUDA GPU.
@@ -92,6 +93,14 @@ def compacting_kf() -> bool:
     from asgart_tpu_torch.kernels import ties
 
     return hasattr(ties, "TIE_TILE")
+
+
+def sorting_ke() -> bool:
+    """Whether the measured package's KE sorts the round's keys itself (it
+    returns (skey, order); its kernel module states ``TIE_SORT_CAP``)."""
+    from asgart_tpu_torch.kernels import ties
+
+    return hasattr(ties, "TIE_SORT_CAP")
 
 
 def plain_planes(idx):
@@ -364,7 +373,10 @@ def kf_probe(cs, label, state, device):
     prims = rank[ps.long()]
     slots = slots.to(torch.int32)
     new = compacting_kf()
-    flags = torch.zeros(2, dtype=torch.int32, device=device)
+    sorting = sorting_ke()
+    # a KE that sorts: its flag, KF's count and longest still-tied sub-run
+    flags = torch.zeros(3 if sorting else 2, dtype=torch.int32,
+                        device=device)
     bad, count = flags[:1], flags[1:]
     print(f"tie rounds of {label} (M={M}, {slots.numel()} tied rows at "
           f"h={h}; KF {'compacts' if new else 'does not compact'})",
@@ -374,20 +386,24 @@ def kf_probe(cs, label, state, device):
         rnd += 1
         n_t = ps.numel()
         ke = lambda: tie_keys(ps, prims, rank, min(h, M), bad)  # noqa: E731
-        key = ke()
-        sort = lambda: torch.sort(key, stable=True)  # noqa: E731
-        skey, order = sort()
+        if sorting:  # KE's library route: its key pass and the sort
+            key = None
+            skey, order = ke()
+        else:
+            key = ke()
+            sort = lambda: torch.sort(key, stable=True)  # noqa: E731
+            skey, order = sort()
         # KF reads neither sa nor rank, so its calls write the same values
         if new:
             kf = lambda: tie_refine(skey, order, slots, ps, sa,  # noqa: E731
                                     rank, count)
             out = kf()
             sa_p, rank_p = sa.clone(), rank.clone()
-            cnt_p = torch.zeros(1, dtype=torch.int32, device=device)
+            cnt_p = torch.zeros_like(count)
             want = tie_refine_plain(skey, order, slots, ps, sa_p, rank_p,
                                     cnt_p)
-            m = int(cnt_p)
-            if int(count) != m or any(
+            m = int(cnt_p[0])
+            if not torch.equal(count, cnt_p) or any(
                     not torch.equal(a[:m], b[:m]) for a, b in zip(out, want)) \
                     or not torch.equal(sa, sa_p) \
                     or not torch.equal(rank, rank_p):
@@ -425,8 +441,11 @@ def kf_probe(cs, label, state, device):
                         + ("waits" if a is None else f"alone {a:.4f}")
                         + f"{bnd})")
 
-        step("KE", ke, 20 * n_t, 8 * n_t)
-        step("sort", sort)
+        if sorting:
+            step("KE + sort (library route)", ke)
+        else:
+            step("KE", ke, 20 * n_t, 8 * n_t)
+            step("sort", sort)
         # KF's bound (either package's): skey and order (8 + 8), slots
         # and the ps gather (4 + 4), the sa and rank stores (4 + 4) an
         # entry; 12 B a still-tied entry
@@ -435,7 +454,7 @@ def kf_probe(cs, label, state, device):
             step("tail", tail, 32 * n_t + 12 * m, 20 * n_t)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        violated, n_still = flags.tolist() if new else \
+        violated, n_still = flags.tolist()[:2] if new else \
             (int(bad[0]), m)
         read = (time.perf_counter() - t0) * 1e3
         sums["read"] = sums.get("read", 0.0) + read

@@ -9,7 +9,8 @@ window-relative index), KI, the table engine's (KA's doubled mode, KB's N
 flag and run ends, KJ, the table form of KC's scatter, also at the
 bucket's and the tile's edges and with its launch counts, KK / KL at a
 small ``tied_cap``, KM, KD on its lanes), KA's tiles at their tile,
-chunk and k edges in every mode, KL's in-order pass and KC scatter at
+chunk and k edges in every mode, KE's sort and sizing pass at their group
+and tile edges and KO on views at every lane offset, KL's in-order pass and KC scatter at
 their edges (rank compared), KK's keys in position order at its row and
 alignment edges, the directory kernel at its thread, warp and block edges
 (its flag read by ``check``), and the port's JSON on the GPU
@@ -84,14 +85,16 @@ def test_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse, complement, k):
     from asgart_tpu_torch.fused_index import fused_layout, sort_keys
     from asgart_tpu_torch.kernels import (group_bounds, invert_fused,
                                           launch_counts, pack_keys,
-                                          scan_core, tie_keys, tie_refine)
+                                          scan_core, tie_groups, tie_keys,
+                                          tie_refine)
     from asgart_tpu_torch.kernels.group_bounds import group_bounds_plain
     from asgart_tpu_torch.kernels.invert import invert_fused_plain
     from asgart_tpu_torch.kernels.pack_keys import (chunk_tables,
                                                     pack_keys_plain)
     from asgart_tpu_torch.kernels.scan_core import (fused_bases,
                                                     scan_core_plain)
-    from asgart_tpu_torch.kernels.ties import (tie_keys_plain,
+    from asgart_tpu_torch.kernels.ties import (tie_groups_plain,
+                                               tie_keys_plain,
                                                tie_refine_plain)
     from asgart_tpu_torch.ties import resolve_ties
 
@@ -125,17 +128,23 @@ def test_kernels_equal_plain_on_gpu(tmp_path, gpu, reverse, complement, k):
     prims = rank[ps.long()]
     slots = slots.to(torch.int32)
     bad = [torch.zeros(1, dtype=torch.int32, device=gpu) for _ in "kp"]
-    key = tie_keys(ps, prims, rank, k, bad[0])
-    _equal((key, bad[0]), (tie_keys_plain(ps, prims, rank, k, bad[1]),
-                           bad[1]))
+    want = tie_keys_plain(ps, prims, rank, k, bad[1])
+    largest = [torch.zeros(1, dtype=torch.int32, device=gpu) for _ in "kp"]
+    tie_groups(prims, largest[0])
+    tie_groups_plain(prims, largest[1])
+    _equal(largest[:1], largest[1:])
+    # KE's two routes: the key pass and the library's sort, then its sort
+    for g in (None, int(largest[0])):
+        _equal((*tie_keys(ps, prims, rank, k, bad[0], g), bad[0]),
+               (*want, bad[1]))
     assert int(bad[0]) == 0
-    skey, order = torch.sort(key, stable=True)
+    skey, order = want
     sa_k, rank_k, sa_p, rank_p = sa.clone(), rank.clone(), sa.clone(), \
         rank.clone()
-    cnt = [torch.zeros(1, dtype=torch.int32, device=gpu) for _ in "kp"]
+    cnt = [torch.zeros(2, dtype=torch.int32, device=gpu) for _ in "kp"]
     got = tie_refine(skey, order, slots, ps, sa_k, rank_k, cnt[0])
     want = tie_refine_plain(skey, order, slots, ps, sa_p, rank_p, cnt[1])
-    m = int(cnt[1])
+    m = int(cnt[1][0])
     _equal((cnt[0], sa_k, rank_k, *(t[:m] for t in got)),
            (cnt[1], sa_p, rank_p, *(t[:m] for t in want)))
     sa = resolve_ties(sa, rank, tied, W + total, k)
@@ -1022,6 +1031,115 @@ def test_slices_kernels_equal_plain_on_gpu(gpu):
     after = launch_counts()
     assert after["granule_totals"] == before["granule_totals"] + 8
     assert after["gather_flat"] == before["gather_flat"] + 2
+
+
+@pytest.mark.parametrize("shifts", [(0, 0, 0), (1, 1, 1), (2, 2, 2),
+                                    (3, 3, 3), (5, 5, 5), (0, 1, 0),
+                                    (2, 0, 3)])
+def test_granule_totals_views_on_gpu(gpu, shifts):
+    """KO on views at lane offsets from a 16-byte boundary (one offset:
+    scalar ends around 16-byte vectors; offsets that differ: every lane a
+    scalar), granules of 4096 and 61 lanes with a partial last one,
+    granules with every lane masked and with none, totals past 2^31."""
+    from asgart_tpu_torch.kernels import granule_totals
+    from asgart_tpu_torch.kernels.slices import granule_totals_plain
+
+    rng = np.random.default_rng(sum(shifts))
+    n = 7 * 4096 + 45
+    lo = rng.integers(0, 1 << 20, n + 8).astype(np.int32)
+    hi = (lo + rng.integers(0, 1 << 10, n + 8)).astype(np.int32)
+    mask = rng.random(n + 8) < 0.7
+    mask[:4096 + 8] = False
+    mask[2 * 4096:3 * 4096 + 8] = True
+    lo[4 * 4096:5 * 4096 + 8] = 0
+    hi[4 * 4096:5 * 4096 + 8] = (1 << 31) - 1
+    mask[4 * 4096:5 * 4096 + 8] = True
+    lanes = [torch.from_numpy(a).to(gpu)[s:s + n]
+             for a, s in zip((lo, hi, mask), shifts)]
+    for gran in (4096, 61):
+        got = granule_totals(*lanes, gran)
+        _equal([got], [granule_totals_plain(*lanes, gran)])
+        assert int(got.max()) > 2**31
+
+
+def _sort_round(rng, sizes, gpu, few_secs=False):
+    """(ps, prims, rank) of a tie round whose groups have ``sizes``."""
+    n = int(sum(sizes))
+    W = 4 * n + 64
+    starts = np.repeat(np.cumsum([0] + list(sizes[:-1])), sizes)
+    prims = (3 * starts + 1).astype(np.int32)
+    ps = rng.choice(W - 40, n, replace=False).astype(np.int32)
+    rank = rng.integers(0, 3 if few_secs else W, W).astype(np.int32)
+    return [torch.from_numpy(a).to(gpu) for a in (ps, prims, rank)]
+
+
+@pytest.mark.parametrize("case", ["pairs", "mixed", "thirty_two",
+                                  "thirty_three", "registers", "tile",
+                                  "across_tiles", "one_group", "capacity",
+                                  "few_secs", "n2", "bad"])
+def test_tie_sort_equals_plain_on_gpu(gpu, case):
+    """KE's sort (windows of 32 lanes, the warp's register sort of 33 to
+    128 entries, the capacity) against the plain version (the keys and the
+    library's stable sort), and its sizing pass, at groups of 2, 32, 33,
+    64, 65 and 128, groups that fill a tile's width, groups across tiles'
+    edges, the whole set in one group, equal secs (stability), n = 2 and
+    the bad flag; the library route past the capacity, and where a longer
+    group reaches the kernel, 2 ORed into its bad flag and that group written
+    unsorted and in range."""
+    from asgart_tpu_torch.kernels import launch_counts, tie_groups, tie_keys
+    from asgart_tpu_torch.kernels.ties import (TIE_SORT_CAP,
+                                               tie_groups_plain,
+                                               tie_keys_plain)
+
+    cap = TIE_SORT_CAP
+    rng = np.random.default_rng(len(case))
+    sizes = {"pairs": [2] * 300000, "thirty_two": [32] * 3000,
+             "thirty_three": [33] * 3000, "tile": [cap, cap] * 50,
+             "registers": [64, 65, 2, 128, 3] * 300,
+             "across_tiles": [2, 40, 3, 120, 7, cap, 2] * 40,
+             "one_group": [cap], "capacity": [2, cap, 3] * 20,
+             "few_secs": [2, 7, 40, 3, cap] * 30, "n2": [2],
+             "bad": [2, 3, 50, 120]}.get(case)
+    if case == "mixed":
+        sizes = list(np.where(rng.random(100000) < 0.9,
+                              rng.integers(2, 8, 100000),
+                              rng.integers(2, cap + 1, 100000)))
+    ps, prims, rank = _sort_round(rng, sizes, gpu, case == "few_secs")
+    if case == "bad":  # entries of each path read past the text
+        for at in (1, 4, 40, 100):
+            ps[at] = rank.numel() - 5
+    h = 17
+    largest = [torch.zeros(1, dtype=torch.int32, device=gpu) for _ in "kp"]
+    before = launch_counts()
+    tie_groups(prims, largest[0])
+    tie_groups_plain(prims, largest[1])
+    _equal(largest[:1], largest[1:])
+    assert int(largest[0]) == max(sizes)
+    bad = [torch.zeros(1, dtype=torch.int32, device=gpu) for _ in "kp"]
+    want = tie_keys_plain(ps, prims, rank, h, bad[1])
+    got = tie_keys(ps, prims, rank, h, bad[0], max(sizes))
+    torch.cuda.synchronize()
+    _equal((*got, bad[0]), (*want, bad[1]))
+    assert int(bad[0]) == (case == "bad")
+    bad[0].zero_()
+    got = tie_keys(ps, prims, rank, h, bad[0], TIE_SORT_CAP + 1)
+    _equal((*got, bad[0]), (*want, bad[1]))
+    after = launch_counts()
+    assert after["tie_keys"] == before["tie_keys"] + 2
+    assert after["tie_groups"] == before["tie_groups"] + 1
+    if case == "capacity":  # a longer group handed to the kernel: flagged
+        ps, prims, rank = _sort_round(rng, [2, cap + 1, 3], gpu)
+        bad[0].zero_()
+        skey, order = tie_keys(ps, prims, rank, h, bad[0], cap)
+        want = tie_keys_plain(ps, prims, rank, h, bad[1])
+        assert int(bad[0]) == 2
+        big = slice(2, 3 + cap)
+        key = (prims.long() << 32) | (rank[ps.long() + h].long() + 1)
+        _equal((order[big], skey[big]),
+               (torch.arange(2, 3 + cap, device=gpu), key[big]))
+        _equal((skey[:2], order[:2], skey[3 + cap:], order[3 + cap:]),
+               (want[0][:2], want[1][:2], want[0][3 + cap:],
+                want[1][3 + cap:]))
 
 
 def _merge_like_index(rng, sizes, n: int) -> np.ndarray:
@@ -2154,13 +2272,13 @@ def test_tie_refine_compacts_on_gpu(gpu, n, ties):
     arrays = _tie_round(rng, n, ties)
     g = [torch.from_numpy(a).to(gpu) for a in arrays]
     p = [t.clone() for t in g]
-    cnt = [torch.full((1,), -1, dtype=torch.int32, device=gpu)
+    cnt = [torch.full((2,), -1, dtype=torch.int32, device=gpu)
            for _ in "kp"]
     before = launch_counts()["tie_refine"]
     got = tie_refine(*g, cnt[0])
     assert launch_counts()["tie_refine"] == before + 1
     want = tie_refine_plain(*p, cnt[1])
-    m = int(cnt[1])
+    m = int(cnt[1][0])
     assert m == {"none": 0, "all": n if n > 1 else 0}.get(ties, m)
     _equal((cnt[0], g[4], g[5], *(t[:m] for t in got)),
            (cnt[1], p[4], p[5], *(t[:m] for t in want)))
@@ -2248,11 +2366,16 @@ def test_table_ranges_edges_on_gpu(gpu, n_chunks, k):
     torch.cuda.synchronize()
 
 
-def test_resolve_ties_reads_once_a_round_on_gpu(tmp_path, gpu, monkeypatch):
-    """On the GPU a tie round of the table build launches KE, the sort and
-    KF, makes one host read (``tolist`` of KE's flag and KF's count), and
-    runs no cumsum, scatter_, where or stack; the resolved order is the
-    one the same rounds give on the CPU."""
+@pytest.mark.parametrize("sized", [False, True])
+def test_resolve_ties_reads_once_a_round_on_gpu(tmp_path, gpu, monkeypatch,
+                                                sized):
+    """On the GPU a tie round of the table build launches KE (with its
+    sort) and KF, makes one host read (``tolist`` of KE's flag, KF's count
+    and its longest still-tied sub-run), and runs no cumsum, scatter_,
+    where or stack; before the loop, KE's sizing pass and one read only
+    where the tied set reaches ``ties.SIZING_MIN`` (``sized``: set to 0
+    here); the resolved order is the one the same rounds give on the
+    CPU."""
     from asgart_tpu_torch import ties as ties_mod
     from asgart_tpu_torch.fused_index import sort_keys
     from asgart_tpu_torch.kernels import (group_bounds, invert_tables,
@@ -2278,6 +2401,10 @@ def test_resolve_ties_reads_once_a_round_on_gpu(tmp_path, gpu, monkeypatch):
     def refused(*a, **kw):
         raise AssertionError("a tie round ran a compaction op")
 
+    if sized:
+        monkeypatch.setattr(ties_mod, "SIZING_MIN", 0)
+    else:
+        assert int(tied.sum()) < ties_mod.SIZING_MIN
     before = launch_counts()
     with monkeypatch.context() as mp:
         mp.setattr(torch.Tensor, "tolist", tolist)
@@ -2289,7 +2416,8 @@ def test_resolve_ties_reads_once_a_round_on_gpu(tmp_path, gpu, monkeypatch):
     after = launch_counts()
     rounds = after["tie_refine"] - before["tie_refine"]
     assert rounds > 1 and after["tie_keys"] - before["tie_keys"] == rounds
-    assert reads == [2] * rounds
+    assert after["tie_groups"] - before["tie_groups"] == int(sized)
+    assert reads == [1] * sized + [3] * rounds
     want = ties_mod.resolve_ties(*cpu[:2], cpu[2], n, k, tied_cap=n,
                                  direct_bound=n1)
     _equal((got,), (want,))

@@ -21,14 +21,16 @@ compacts the still-tied entries itself) on the CPU:
   a thread, the still-tied entries ranked by warp ballots and a scan of
   the tile's 8 warp counts, the tile's
   offset from a decoupled look-back over the tiles before it in windows of
-  32 with the tiles publishing in any order; held exactly to
+  32 with the tiles publishing in any order, the longest still-tied
+  sub-run carried in the same status words; held exactly to
   ``tie_refine_plain``: no entry still tied, every entry still tied, a
   sub-run across a tile's edge, n = 1;
 - the launches with the library faked: KM's table in the launch up to 256
   chunks and on the card past it, one launch a call, none without a lane,
   no host read or synchronize; KJ's step; KF one launch a call, none at
   n = 0; ``ties.resolve_ties`` on the faked KE and KF makes one host read
-  a round and runs no cumsum, where, stack or scatter_.
+  a round (a tied set under ``ties.SIZING_MIN``: no sizing pass before
+  the loop) and runs no cumsum, where, stack or scatter_.
 
 The kernels themselves are held to their plain versions on the GPU
 (tests/test_torch_cuda.py). Exact (integers)."""
@@ -290,12 +292,14 @@ def test_kj_flush_model(M, step):
 # --- KF: a numpy model of csrc/ties.cu ------------------------------------
 
 def model_tie_refine(skey, order, slots, ps, sa, rank, rng):
-    """(outputs, count) as KF's kernel writes them, sa and rank updated in
-    place: each tile's entries, one a thread, their ballot ranks and the
-    scan of the warps' counts, and its offset from a look-back over tiles
-    that publish in the order ``rng`` draws (every tile's aggregate is out,
-    then the tiles take their look-back in a random order, each publishing
-    its inclusive prefix)."""
+    """(outputs, count, longest) as KF's kernel writes them, sa and rank
+    updated in place: each tile's entries, one a thread, their ballot ranks
+    and the scan of the warps' counts, and its offset from a look-back over
+    tiles that publish in the order ``rng`` draws (every tile's aggregate
+    is out, then the tiles take their look-back in a random order, each
+    publishing its inclusive prefix); each status also carries the longest
+    still-tied sub-run ending in its tiles (the tile's own, or through
+    it), the last tile's the longest of all."""
     n = len(skey)
     n_tiles = -(-n // KF_TILE)
     out = np.zeros((3, n), np.int64)
@@ -308,6 +312,7 @@ def model_tie_refine(skey, order, slots, ps, sa, rank, rng):
     for tile in range(n_tiles):
         counts = np.zeros(KF_TILE // 32, np.int64)
         entries = []
+        longest = 0  # of the sub-runs whose last entry is in the tile
         for w in range(KF_TILE // 32):
             ballot = []
             for ln in range(32):
@@ -320,15 +325,19 @@ def model_tie_refine(skey, order, slots, ps, sa, rank, rng):
                 rs = slots[s]
                 sa[slots[r]] = p
                 rank[p] = rs
-                still = s < r or (r + 1 < n and skey[r + 1] == skey[r])
+                nxt = r + 1 < n and skey[r + 1] == skey[r]
+                still = s < r or nxt
+                if s < r and not nxt:
+                    longest = max(longest, r - s + 1)
                 ballot.append(still)
                 if still:
                     entries.append((w, sum(ballot[:-1]), (slots[r], p, rs)))
             counts[w] = sum(ballot)
         excl = np.concatenate([[0], np.cumsum(counts)[:-1]])
-        per_tile.append((excl, entries, counts.sum()))
-    status = [("agg", t[2]) for t in per_tile]
+        per_tile.append((excl, entries, counts.sum(), longest))
+    status = [("agg", t[2], t[3]) for t in per_tile]
     for tile in rng.permutation(n_tiles):
+        excl, entries, agg, run = per_tile[tile]
         base, look = 0, tile - 1
         while look >= 0:  # windows of 32 tiles, nearest first
             window = [status[t] for t in range(look, max(look - 32, -1), -1)]
@@ -336,14 +345,16 @@ def model_tie_refine(skey, order, slots, ps, sa, rank, rng):
                           if st[0] == "inc"), None)
             part = window if first is None else window[:first + 1]
             base += sum(st[1] for st in part)
+            run = max([run] + [st[2] for st in part])
             if first is not None:
                 break
             look -= 32
-        excl, entries, agg = per_tile[tile]
-        status[tile] = ("inc", base + agg)
+        status[tile] = ("inc", base + agg, run)
         for w, rk, vals in entries:
             out[:, base + excl[w] + rk] = vals
-    return out, status[-1][1] if n_tiles else 0
+    if not n_tiles:
+        return out, 0, 0
+    return out, status[-1][1], status[-1][2]
 
 
 def _tie_round(rng, n, ties):
@@ -373,12 +384,12 @@ def test_kf_model_compaction(n, ties):
     rng = np.random.default_rng(n + len(ties))
     arrays = _tie_round(rng, n, ties)
     t = [torch.from_numpy(a.copy()) for a in arrays]
-    cnt = torch.full((1,), -1, dtype=torch.int32)
+    cnt = torch.full((2,), -1, dtype=torch.int32)
     want = ties_k.tie_refine_plain(*t, cnt)
-    m = int(cnt)
+    m = int(cnt[0])
     sa, rank = arrays[4].copy(), arrays[5].copy()
-    got, count = model_tie_refine(*arrays[:4], sa, rank, rng)
-    assert count == m
+    got, count, longest = model_tie_refine(*arrays[:4], sa, rank, rng)
+    assert count == m and longest == int(cnt[1])
     assert np.array_equal(sa, t[4].numpy())
     assert np.array_equal(rank, t[5].numpy())
     for g, w in zip(got, want):
@@ -418,26 +429,47 @@ class _Lib:
     def asgart_tie_keys(self, ps, prims, rank, n, W, h, key, bad, stream):
         t = [torch.from_numpy(_ints(p, m)) for p, m in
              ((ps, n), (prims, n), (rank, W))]
+        ph = t[0].long() + h
+        if (ph >= W).any():
+            _ints(bad, 1)[0] |= 1
+        sec = t[2][ph.clamp(max=W - 1)].long()
+        _ints(key, n, ctypes.c_int64)[:] = ((t[1].long() << 32)
+                                            | (sec + 1)).numpy()
+        self.calls.append(("KE", dict(n=n)))
+        return 0
+
+    def asgart_tie_groups(self, prims, n, largest, stream):
+        out = torch.zeros(1, dtype=torch.int32)
+        ties_k.tie_groups_plain(torch.from_numpy(_ints(prims, n).copy()), out)
+        _ints(largest, 1)[0] = int(out)
+        self.calls.append(("KE groups", dict(n=n)))
+        return 0
+
+    def asgart_tie_sort(self, ps, prims, rank, n, W, h, skey, order, bad,
+                        stream):
+        t = [torch.from_numpy(_ints(p, m)) for p, m in
+             ((ps, n), (prims, n), (rank, W))]
         b = torch.from_numpy(_ints(bad, 1))
-        k = torch.from_numpy(_ints(key, n, ctypes.c_int64))
-        k.copy_(ties_k.tie_keys_plain(*t, h, b))
+        for p, v in zip((skey, order), ties_k.tie_keys_plain(*t, h, b)):
+            torch.from_numpy(_ints(p, n, ctypes.c_int64)).copy_(v)
         self.calls.append(("KE", dict(n=n)))
         return 0
 
     def asgart_tie_refine(self, skey, order, slots, ps, n, sa, rank,
-                          o_slots, o_ps, o_prims, count, scratch, n_tiles,
-                          stream):
+                          o_slots, o_ps, o_prims, count, largest, scratch,
+                          n_tiles, stream):
         assert n_tiles == -(-n // KF_TILE) == -(-n // ties_k.TIE_TILE)
         i64 = ctypes.c_int64
         arrays = [_ints(skey, n, i64), _ints(order, n, i64),
                   _ints(slots, n), _ints(ps, n)]
         sa_a = _ints(sa, self.sa_n)
         rank_a = _ints(rank, self.rank_n)
-        out, m = model_tie_refine(*arrays, sa_a, rank_a,
-                                  np.random.default_rng(n))
+        out, m, longest = model_tie_refine(*arrays, sa_a, rank_a,
+                                           np.random.default_rng(n))
         for p, row in zip((o_slots, o_ps, o_prims), out):
             _ints(p, n)[:m] = row[:m]
         _ints(count, 1)[0] = m
+        _ints(largest, 1)[0] = longest
         self.calls.append(("KF", dict(n=n)))
         return 0
 
@@ -525,27 +557,28 @@ def test_tie_refine_launch(monkeypatch, n):
     lib = _Lib()
     lib.sa_n, lib.rank_n = t[4].numel(), t[5].numel()
     _fake(monkeypatch, lib)
-    cnt = torch.full((1,), -1, dtype=torch.int32)
+    cnt = torch.full((2,), -1, dtype=torch.int32)
     before = ties_k.tie_refine.launches
     got = ties_k.tie_refine(*t, cnt)
     assert ties_k.tie_refine.launches == before + (n > 0)
     assert [c for c, _ in lib.calls] == (["KF"] if n else [])
     assert all(g.shape == (n,) for g in got)
     if n == 0:
-        assert int(cnt) == 0
+        assert cnt.tolist() == [0, 0]
         return
-    cp = torch.zeros(1, dtype=torch.int32)
+    cp = torch.zeros(2, dtype=torch.int32)
     want = ties_k.tie_refine_plain(*(torch.from_numpy(a.copy())
                                      for a in arrays), cp)
-    m = int(cp)
-    assert int(cnt) == m
+    m = int(cp[0])
+    assert torch.equal(cnt, cp)
     for g, w in zip(got, want):
         assert torch.equal(g[:m], w[:m])
 
 
 def test_resolve_ties_one_read_a_round(monkeypatch):
     """``resolve_ties`` on the faked KE and KF: the round's only host read
-    is one ``tolist`` of KE's flag and KF's count, no cumsum, where, stack
+    is one ``tolist`` of KE's flag, KF's count and KF's longest still-tied
+    sub-run (none before the loop at this size), no cumsum, where, stack
     or scatter_ runs in a round, and the order is the plain rounds'."""
     rng = np.random.default_rng(5)
     W, M, k = 1500, 2000, 4
@@ -584,6 +617,7 @@ def test_resolve_ties_one_read_a_round(monkeypatch):
         mp.setattr(torch.Tensor, "scatter_", refused)
         got = ties_mod.resolve_ties(sa.clone(), rank.clone(), tied, M, k)
     rounds = [c for c, _ in lib.calls]
+    assert int(tied.sum()) < ties_mod.SIZING_MIN  # no sizing pass
     assert rounds == ["KE", "KF"] * (len(rounds) // 2) and len(rounds) > 2
-    assert reads == [2] * (len(rounds) // 2)
+    assert reads == [3] * (len(rounds) // 2)
     assert torch.equal(got, want)

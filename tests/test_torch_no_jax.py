@@ -25,7 +25,8 @@ SOURCES = sorted(
                                   "scripts/kk_dir_probe.py",
                                   "scripts/kt_ki_probe.py",
                                   "scripts/km_kf_probe.py",
-                                  "scripts/kn_probe.py"]
+                                  "scripts/kn_probe.py",
+                                  "scripts/ke_ko_probe.py"]
 # bench.py is the JAX package's benchmark script
 FORBIDDEN = ("jax", "jaxlib", "asgart_tpu", "bench")
 
@@ -143,7 +144,7 @@ def test_wrappers_take_kernel_path_for_gpu_tensors(monkeypatch):
                                           group_bounds,
                                           invert_fused, mj_ranges,
                                           pack_keys, pack_probe_planes,
-                                          scan_core,
+                                          scan_core, tie_groups,
                                           tie_keys, tie_refine, unpack_codes)
 
     def mod(name):  # the module, not the wrapper of the same name
@@ -162,6 +163,7 @@ def test_wrappers_take_kernel_path_for_gpu_tensors(monkeypatch):
                     ("invert", "invert_fused_plain"),
                     ("scan_core", "scan_core_plain"),
                     ("ties", "tie_keys_plain"),
+                    ("ties", "tie_groups_plain"),
                     ("ties", "tie_refine_plain"),
                     ("merge_join", "mj_ranges_plain"),
                     ("codes", "unpack_codes_plain"),
@@ -195,14 +197,18 @@ def test_wrappers_take_kernel_path_for_gpu_tensors(monkeypatch):
     with pytest.raises(RuntimeError, match="kernel library"):
         group_bounds([torch.arange(8, dtype=i64), torch.zeros(8, dtype=i32)],
                      torch.arange(8, dtype=i32), 4)
+    for largest in (None, 4):  # KE's two routes
+        with pytest.raises(RuntimeError, match="kernel library"):
+            tie_keys(torch.arange(4, dtype=i32), torch.zeros(4, dtype=i32),
+                     torch.zeros(8, dtype=i32), 2, torch.zeros(1, dtype=i32),
+                     largest)
     with pytest.raises(RuntimeError, match="kernel library"):
-        tie_keys(torch.arange(4, dtype=i32), torch.zeros(4, dtype=i32),
-                 torch.zeros(8, dtype=i32), 2, torch.zeros(1, dtype=i32))
+        tie_groups(torch.zeros(4, dtype=i32), torch.zeros(1, dtype=i32))
     with pytest.raises(RuntimeError, match="kernel library"):
         tie_refine(torch.arange(4, dtype=i64), torch.arange(4, dtype=i64),
                    torch.arange(4, dtype=i32), torch.arange(4, dtype=i32),
                    torch.zeros(8, dtype=i32), torch.zeros(8, dtype=i32),
-                   torch.zeros(1, dtype=i32))
+                   torch.zeros(2, dtype=i32))
     with pytest.raises(RuntimeError, match="kernel library"):
         invert_fused(torch.arange(8, dtype=i32), torch.zeros(8, dtype=i32),
                      torch.zeros(8, dtype=i32),
